@@ -16,9 +16,16 @@ find; nothing here imports jax or celestia_tpu):
 - ``ops.rs``             — RS encode as a GF(2) bit-matrix product (plain torch)
 - ``ops.sha256``         — SHA-256 byte/word layout helpers and ``sha256_fixed``
 - ``ops.sha256_cuda``    — batched SHA-256 kernel (K3) and its plain version
-- ``ops.rs_cuda``        — fused encode+leaf-hash (K1) and leaf-hash (K2) kernels
+- ``ops.rs_cuda``        — fused encode+leaf-hash (K1), leaf-hash (K2) and
+  encode (K4) kernels; ``extend_square``, the unfused dense extend
+- ``ops.xor_schedule``   — the XOR-schedule compiler (host numpy) and its plain
+  evaluators
+- ``ops.xor_cuda``       — XOR-schedule encode+leaf-hash (K5) and encode (K6)
+  kernels; ``extend_square_xor``, the unfused XOR extend
 - ``ops.nmt_host``       — hashlib NMT / RFC-6962 merkle (host oracle, DAH hash)
-- ``ops.extend``         — the main path: square -> EDS -> roots -> DAH
+- ``ops.extend``         — the main path: square -> EDS -> roots -> DAH, on
+  four routes (fused/unfused × dense/XOR) picked per k
+- ``app.calibration``    — the port's measured dense/XOR routing table
 - ``da``                 — ExtendedDataSquare and DataAvailabilityHeader
 
 The CUDA kernels live in ``csrc/`` and are built with nvcc at first use

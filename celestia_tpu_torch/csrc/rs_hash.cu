@@ -1,9 +1,12 @@
-// K1 encode2d_hash and K2 leaf_digests2d for sm_90a.
+// K1 encode2d_hash, K4 encode2d and K2 leaf_digests2d for sm_90a.
 //
 // K1 replaces the Pallas kernel rs_pallas.encode2d_hash
 // (celestia_tpu/ops/rs_pallas.py:276, body _fused_kernel :167): the Leopard
 // RS encode of k data shards as a GF(2) bit-matrix product, fused with the
 // SHA-256 NMT leaf digest of every parity cell it produces.
+// K4 replaces rs_pallas.encode2d (rs_pallas.py:270, body _encode_kernel):
+// K1 with the hash stage compiled out (kHash = false), so the contraction
+// has one copy.
 // K2 replaces rs_pallas.leaf_digests2d (rs_pallas.py:295, body
 // _leaf_kernel :178): the leaf digests of existing cells, each with its own
 // namespace.
@@ -43,14 +46,14 @@ constexpr int kCell = 512;            // bytes per share
 constexpr int kTileStride = 129;      // words per shared-memory cell row (516 B)
 constexpr int kLeafRows = 64;         // K2 rows per block
 
-template <int W>
+template <int W, bool kHash>
 __global__ void __launch_bounds__(kCell)
 encode2d_hash_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__ m2p,
                      uint8_t* __restrict__ parity, uint32_t* __restrict__ digests,
                      int k, int n) {
   extern __shared__ uint4 smem_vec[];
   uint32_t* sm2 = reinterpret_cast<uint32_t*>(smem_vec);  // 8k * W words
-  uint32_t* tile = sm2 + 8 * k * W;                        // k * kTileStride words
+  uint32_t* tile = sm2 + 8 * k * W;                        // kHash: k * kTileStride words
   uint8_t* tile_bytes = reinterpret_cast<uint8_t*>(tile);
 
   const int col = blockIdx.x;
@@ -89,8 +92,9 @@ encode2d_hash_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__
       byte |= (__popc(acc) & 1u) << r;
     }
     parity[static_cast<size_t>(j) * n + lane] = static_cast<uint8_t>(byte);
-    tile_bytes[j * kTileStride * 4 + t] = static_cast<uint8_t>(byte);
+    if (kHash) tile_bytes[j * kTileStride * 4 + t] = static_cast<uint8_t>(byte);
   }
+  if (!kHash) return;
   __syncthreads();
 
   if (t < k) {
@@ -135,24 +139,25 @@ leaf_digests2d_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   }
 }
 
-template <int W>
+template <int W, bool kHash>
 static cudaError_t launch_encode(const uint8_t* x, const uint32_t* m2p, uint8_t* parity,
                                  uint32_t* digests, int k, int n, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(8) * k * W + static_cast<size_t>(k) * kTileStride) *
+  const size_t smem = (static_cast<size_t>(8) * k * W +
+                       (kHash ? static_cast<size_t>(k) * kTileStride : 0)) *
                       sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(encode2d_hash_kernel<W>,
+  cudaError_t err = cudaFuncSetAttribute(encode2d_hash_kernel<W, kHash>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  encode2d_hash_kernel<W><<<n / kCell, kCell, smem, stream>>>(x, m2p, parity, digests, k, n);
+  encode2d_hash_kernel<W, kHash><<<n / kCell, kCell, smem, stream>>>(x, m2p, parity, digests,
+                                                                     k, n);
   return cudaGetLastError();
 }
 
-}  // namespace celestia
-
-extern "C" int celestia_encode2d_hash(const void* x, const void* m2p, void* parity,
-                                      void* digests, int k, int n, int device, void* stream) {
-  using namespace celestia;
+// W = packed M2 words per row, max(4, k/4), as a compile-time constant.
+template <bool kHash>
+static int encode_entry(const void* x, const void* m2p, void* parity, void* digests, int k,
+                        int n, int device, void* stream) {
   if (k < 1 || k > 128 || (k & (k - 1)) || n <= 0 || n % kCell) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -164,15 +169,27 @@ extern "C" int celestia_encode2d_hash(const void* x, const void* m2p, void* pari
   auto ds = static_cast<uint32_t*>(digests);
   auto s = static_cast<cudaStream_t>(stream);
   if (k <= 16) {
-    err = launch_encode<4>(xs, ms, ps, ds, k, n, s);
+    err = launch_encode<4, kHash>(xs, ms, ps, ds, k, n, s);
   } else if (k == 32) {
-    err = launch_encode<8>(xs, ms, ps, ds, k, n, s);
+    err = launch_encode<8, kHash>(xs, ms, ps, ds, k, n, s);
   } else if (k == 64) {
-    err = launch_encode<16>(xs, ms, ps, ds, k, n, s);
+    err = launch_encode<16, kHash>(xs, ms, ps, ds, k, n, s);
   } else {
-    err = launch_encode<32>(xs, ms, ps, ds, k, n, s);
+    err = launch_encode<32, kHash>(xs, ms, ps, ds, k, n, s);
   }
   return static_cast<int>(err);
+}
+
+}  // namespace celestia
+
+extern "C" int celestia_encode2d_hash(const void* x, const void* m2p, void* parity,
+                                      void* digests, int k, int n, int device, void* stream) {
+  return celestia::encode_entry<true>(x, m2p, parity, digests, k, n, device, stream);
+}
+
+extern "C" int celestia_encode2d(const void* x, const void* m2p, void* parity, int k, int n,
+                                 int device, void* stream) {
+  return celestia::encode_entry<false>(x, m2p, parity, nullptr, k, n, device, stream);
 }
 
 extern "C" int celestia_leaf_digests2d(const void* x, const void* ns_pad, void* digests,

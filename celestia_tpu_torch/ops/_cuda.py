@@ -30,7 +30,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("sha256.cuh", "rs_hash.cu", "sha256_words.cu")
+SOURCES = ("sha256.cuh", "rs_hash.cu", "sha256_words.cu", "xor_schedule.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +39,7 @@ LIB_NAME = "libcelestia_kernels.so"
 
 LAUNCHES: dict[str, int] = {
     "encode2d_hash": 0, "leaf_digests2d": 0, "sha256_words": 0,
+    "encode2d": 0, "encode2d_xor_hash": 0, "encode2d_xor": 0,
 }
 
 _V = ctypes.c_void_p
@@ -47,6 +48,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (x, m2_packed, parity, digests, k, n, device, stream)
     "celestia_encode2d_hash": (_V, _V, _V, _V, _I, _I, _I, _V),
+    # (x, m2_packed, parity, k, n, device, stream)
+    "celestia_encode2d": (_V, _V, _V, _I, _I, _I, _V),
+    # (x, node_ab, level_off, n_levels, n_nodes, row_blk, width8, parity,
+    #  digests, k, n, device, stream)
+    "celestia_encode2d_xor_hash": (_V, _V, _V, _I, _I, _V, _I, _V, _V, _I, _I, _I, _V),
+    # (x, node_ab, level_off, n_levels, n_nodes, row_blk, width8, parity,
+    #  k, n, device, stream)
+    "celestia_encode2d_xor": (_V, _V, _V, _I, _I, _V, _I, _V, _I, _I, _I, _V),
     # (x, ns_pad, digests, rows, n, device, stream)
     "celestia_leaf_digests2d": (_V, _V, _V, _I, _I, _I, _V),
     # (words, out, n_blocks, batch, device, stream)

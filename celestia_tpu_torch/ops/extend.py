@@ -21,12 +21,26 @@ Structure:
   non-decreasing, which nmt itself enforces and the square builder
   guarantees.
 
-The route is the fused one of the JAX package (``_roots_of_fused``): the
-three quadrant encodes run kernel K1 (``rs_cuda.encode2d_hash``), which
-returns every parity cell's leaf digest with its bytes; Q0's leaves run K2
-(``rs_cuda.leaf_digests2d``); every tree level and the DAH merkle run K3
-(``sha256_cuda.sha256_words``) through ``sha256.sha256_fixed``. The leaves
-of an existing EDS (``eds_roots_device``, ``eds_row_levels_device``) run K2.
+Routes (``_roots_of``, as in the JAX package's extend_tpu._roots_of):
+
+- fused dense (the default): the three quadrant encodes run K1
+  (``rs_cuda.encode2d_hash``), which returns every parity cell's leaf digest
+  with its bytes; Q0's leaves run K2 (``rs_cuda.leaf_digests2d``);
+- fused XOR: the same with K5 (``xor_cuda.encode2d_xor_hash``), the parity
+  from the compiled XOR schedule;
+- unfused dense: ``rs_cuda.extend_square`` builds the EDS with K4
+  (``rs_cuda.encode2d``), then K2 hashes every leaf of the EDS;
+- unfused XOR: the same with K6 (``xor_cuda.encode2d_xor``).
+
+Every tree level and the DAH merkle run K3 (``sha256_cuda.sha256_words``)
+through ``sha256.sha256_fixed``. The leaves of an existing EDS
+(``eds_roots_device``, ``eds_row_levels_device``) run K2.
+
+The route is chosen per k as the JAX package chooses it: the env pins
+``CELESTIA_FUSED_KERNELS`` and ``CELESTIA_XOR_SCHEDULE`` ("0"/"off"/"false"
+pins unfused or dense, "1"/"on"/"true" fused or XOR); unpinned, the route is
+fused, and XOR only where the port's own measured table
+(``app/calibration.py``) says so. All four give the same bytes.
 
 ``kernels`` selects the functions the path calls. The default, ``KERNELS``,
 holds the wrappers, which launch the CUDA kernels on CUDA tensors and run
@@ -38,6 +52,7 @@ on the card. Outputs are byte-identical to celestia_tpu's.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable
 
 import numpy as np
@@ -49,7 +64,8 @@ from celestia_tpu_torch.appconsts import (
     NAMESPACE_SIZE,
     SHARE_SIZE,
 )
-from celestia_tpu_torch.ops import rs, rs_cuda, sha256_cuda
+from celestia_tpu_torch.app import calibration
+from celestia_tpu_torch.ops import rs, rs_cuda, sha256_cuda, xor_cuda, xor_schedule
 from celestia_tpu_torch.ops.sha256 import sha256_fixed, words_to_bytes
 
 _LEAF_PREFIX = np.array([0], dtype=np.uint8)
@@ -59,18 +75,51 @@ NMT_NODE_SIZE = 2 * NAMESPACE_SIZE + 32  # 90
 
 @dataclasses.dataclass(frozen=True)
 class Kernels:
-    """The three kernel functions the main path calls."""
+    """The kernel functions the routes call."""
 
     encode2d_hash: Callable
     leaf_digests2d: Callable
     sha256_words: Callable
+    encode2d: Callable
+    encode2d_xor_hash: Callable
+    encode2d_xor: Callable
 
 
 KERNELS = Kernels(rs_cuda.encode2d_hash, rs_cuda.leaf_digests2d,
-                  sha256_cuda.sha256_words)
+                  sha256_cuda.sha256_words, rs_cuda.encode2d,
+                  xor_cuda.encode2d_xor_hash, xor_cuda.encode2d_xor)
 PLAIN = Kernels(rs_cuda.encode2d_hash_reference,
                 rs_cuda.leaf_digests2d_reference,
-                sha256_cuda.sha_core_reference)
+                sha256_cuda.sha_core_reference, rs_cuda.encode2d_reference,
+                xor_cuda.encode2d_xor_hash_reference,
+                xor_cuda.encode2d_xor_reference)
+
+_FUSED_ENV = "CELESTIA_FUSED_KERNELS"
+_XOR_ENV = "CELESTIA_XOR_SCHEDULE"
+_PIN_OFF = ("0", "off", "false")
+_PIN_ON = ("1", "on", "true")
+
+
+def _pin(env: str) -> str:
+    return os.environ.get(env, "").strip().lower()
+
+
+def _fused_active(k: int) -> bool:
+    """Fused unless ``CELESTIA_FUSED_KERNELS`` pins it off: the port has
+    K1 for every k its entries take, so "on" and unset agree."""
+    return _pin(_FUSED_ENV) not in _PIN_OFF
+
+
+def _xor_active(k: int) -> bool:
+    """``CELESTIA_XOR_SCHEDULE`` "off" pins dense and "on" pins the
+    schedule; unset, the port's measured table decides (dense without
+    one). A k the schedule does not support is never XOR."""
+    v = _pin(_XOR_ENV)
+    if v in _PIN_OFF or not xor_schedule.supported(k):
+        return False
+    if v in _PIN_ON:
+        return True
+    return calibration.xor_winner(k) == "xor"
 
 
 def _bcast_const(const: np.ndarray, like: torch.Tensor,
@@ -181,25 +230,34 @@ def nmt_roots_of_eds(eds: torch.Tensor, kernels: Kernels = KERNELS):
 
 
 def _roots_of_fused(shares: torch.Tensor, m2: rs.EncodeMatrix,
-                    kernels: Kernels = KERNELS):
-    """(k, k, 512) -> (eds, row_roots, col_roots) on the fused route.
+                    kernels: Kernels = KERNELS, xor: bool = False):
+    """(k, k, 512) -> (eds, row_roots, col_roots) on a fused route: K1, or
+    with ``xor`` K5, for the quadrant encodes.
 
     Column extension contracts over the leading (row) axis, the kernels'
     native layout; row extension transposes in and out, and the digest
     grids transpose with it. Q2 = col-extend Q0, Q1 = row-extend Q0,
     Q3 = row-extend Q2."""
     k = shares.shape[0]
+    if xor:
+        ops = xor_cuda.schedule_operands(k, shares.device)
+
+        def encode(x):
+            return kernels.encode2d_xor_hash(x, ops)
+    else:
+        def encode(x):
+            return kernels.encode2d_hash(x, m2)
     n = k * SHARE_SIZE
     x0 = shares.reshape(k, n)
     q0_ns = shares[..., :NAMESPACE_SIZE]
     d0 = kernels.leaf_digests2d(x0, rs_cuda.pad_namespaces(q0_ns))  # [row, col]
-    q2f, d2 = kernels.encode2d_hash(x0, m2)  # native: [row, col]
+    q2f, d2 = encode(x0)  # native: [row, col]
     q2 = q2f.reshape(k, k, SHARE_SIZE)
     x0t = shares.transpose(0, 1).reshape(k, n)
-    q1t, d1t = kernels.encode2d_hash(x0t, m2)  # [col, row]
+    q1t, d1t = encode(x0t)  # [col, row]
     q1 = q1t.reshape(k, k, SHARE_SIZE).transpose(0, 1)
     q2t = q2.transpose(0, 1).reshape(k, n)
-    q3t, d3t = kernels.encode2d_hash(q2t, m2)  # [col, row]
+    q3t, d3t = encode(q2t)  # [col, row]
     q3 = q3t.reshape(k, k, SHARE_SIZE).transpose(0, 1)
     eds = torch.cat([
         torch.cat([shares, q1], dim=1),
@@ -216,11 +274,32 @@ def _roots_of_fused(shares: torch.Tensor, m2: rs.EncodeMatrix,
     return eds, row_roots, col_roots
 
 
+def _roots_of(shares: torch.Tensor, m2: rs.EncodeMatrix, fused: bool | None = None,
+              xor: bool | None = None, kernels: Kernels = KERNELS):
+    """(k, k, 512) -> (eds, row_roots, col_roots) on the route that
+    ``fused`` and ``xor`` name; None resolves each through
+    ``_fused_active`` / ``_xor_active``. Byte-identical any way."""
+    k = shares.shape[0]
+    if fused is None:
+        fused = _fused_active(k)
+    if xor is None:
+        xor = _xor_active(k)
+    if fused:
+        return _roots_of_fused(shares, m2, kernels, xor)
+    if xor:
+        eds = xor_cuda.extend_square_xor(
+            shares, xor_cuda.schedule_operands(k, shares.device), kernels.encode2d_xor)
+    else:
+        eds = rs_cuda.extend_square(shares, m2, kernels.encode2d)
+    row_roots, col_roots = nmt_roots_of_eds(eds, kernels)
+    return eds, row_roots, col_roots
+
+
 def extend_and_root(shares: torch.Tensor, m2: rs.EncodeMatrix,
                     kernels: Kernels = KERNELS):
     """(k, k, 512) uint8 -> (eds (2k,2k,512), row_roots (2k,90),
     col_roots (2k,90), dah_hash (32,))."""
-    eds, row_roots, col_roots = _roots_of_fused(shares, m2, kernels)
+    eds, row_roots, col_roots = _roots_of(shares, m2, kernels=kernels)
     dah = merkle_root_pow2(torch.cat([row_roots, col_roots], dim=0), kernels)
     return eds, row_roots, col_roots, dah
 
@@ -229,7 +308,7 @@ def extend_and_roots_only(shares: torch.Tensor, m2: rs.EncodeMatrix,
                           kernels: Kernels = KERNELS):
     """(k, k, 512) -> (eds, row_roots, col_roots). The DAH over the 4k
     axis roots is a ~1k-node tree; the host finishes it (da module)."""
-    return _roots_of_fused(shares, m2, kernels)
+    return _roots_of(shares, m2, kernels=kernels)
 
 
 # ------------------------------------------------------------------ #

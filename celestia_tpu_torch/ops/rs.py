@@ -129,14 +129,31 @@ def rs_encode_rows(data: torch.Tensor, m2_bits: torch.Tensor) -> torch.Tensor:
     return pack_bits(acc.to(torch.int32) & 1)
 
 
-def extend_square(q0: torch.Tensor, m2_bits: torch.Tensor) -> torch.Tensor:
-    """(k, k, 512) uint8 original square -> (2k, 2k, 512) EDS.
+def extend_quadrants(q0: torch.Tensor, encode) -> torch.Tensor:
+    """(k, k, 512) uint8 original square -> (2k, 2k, 512) EDS, with
+    ``encode`` mapping (k, N) data shards (shard axis leading) to (k, N)
+    parity shards.
 
-    Quadrant layout per rsmt2d: Q1 = row-extend Q0, Q2 = column-extend Q0,
-    Q3 = row-extend Q2."""
-    q1 = rs_encode_rows(q0, m2_bits)  # the column index is the shard axis
-    q2 = rs_encode_rows(q0.transpose(0, 1), m2_bits).transpose(0, 1)
-    q3 = rs_encode_rows(q2, m2_bits)
+    Quadrant chain per rsmt2d: Q1 = row-extend Q0, Q2 = col-extend Q0,
+    Q3 = row-extend Q2. Column extension contracts over the leading (row)
+    axis, the kernels' native layout; row extension transposes in and out."""
+    k, _, b = q0.shape
+    n = k * b
+
+    def col_encode(q):
+        return encode(q.reshape(k, n)).reshape(k, k, b)
+
+    def row_encode(q):
+        return col_encode(q.transpose(0, 1)).transpose(0, 1)
+
+    q1 = row_encode(q0)
+    q2 = col_encode(q0)
+    q3 = row_encode(q2)
     top = torch.cat([q0, q1], dim=1)
     bottom = torch.cat([q2, q3], dim=1)
     return torch.cat([top, bottom], dim=0)
+
+
+def extend_square(q0: torch.Tensor, m2_bits: torch.Tensor) -> torch.Tensor:
+    """(k, k, 512) uint8 original square -> (2k, 2k, 512) EDS, plain."""
+    return extend_quadrants(q0, lambda x: rs_encode_rows(x, m2_bits))

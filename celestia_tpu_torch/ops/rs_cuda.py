@@ -1,4 +1,5 @@
-"""Kernels K1 (fused RS encode + NMT leaf hash) and K2 (NMT leaf hash).
+"""Kernels K1 (fused RS encode + NMT leaf hash), K2 (NMT leaf hash) and K4
+(RS encode alone), and the unfused dense extend.
 
 Counterpart of the JAX package's ops/rs_pallas.py. Sources:
 ``csrc/rs_hash.cu`` with the SHA-256 compression of ``csrc/sha256.cuh``.
@@ -11,6 +12,11 @@ of every produced cell (0x00 ‖ parity namespace ‖ 512-byte cell, 542 bytes,
 memory next to global memory, so the hash stage reads it without another
 trip through device memory.
 
+K4 ``encode2d(x2, m2)`` replaces ``rs_pallas.encode2d`` (rs_pallas.py:270,
+``pallas_call`` at :197): K1's encode with the hash stage compiled out (one
+template flag on the same kernel, so the contraction has one copy). It is
+the quadrant encode of ``extend_square``, the unfused dense route.
+
 K2 ``leaf_digests2d(x2, ns_pad)`` replaces ``rs_pallas.leaf_digests2d``
 (rs_pallas.py:295, ``pallas_call`` at :243): the leaf digests of cells that
 already exist, each with its own namespace.
@@ -21,14 +27,19 @@ parity is (k, N) uint8; digests are (k, N/512, 8) uint32, the big-endian
 word values of SHA-256; ns_pad is (k, N/512, 32) uint8, the 29-byte
 namespace zero-padded to 32.
 
-What bounds them on the H100, at k = 128 (N = 65,536):
-- K1: the contraction, 2·(8k)²·N = 137 G bit operations, is 69 µs at the
-  1,979 TOP/s int8 tensor-core rate; the 147,456 SHA blocks (~2.2k int32
-  operations each) are ~19 µs at ~16.7 T int32 op/s; the ~18 MB moved are
-  5.5 µs at 3.35 TB/s. So K1 is bound by operations. This first kernel does
-  the contraction on the integer ALUs instead (32 AND/XOR lanes per word
-  operation, one popcount per parity bit); moving it onto int8 tensor cores
-  is later work.
+What bounds them on the H100, at k = 128 (N = 65,536). The encode has two
+known spellings, and its bound is the cheaper one's:
+- as a dense product, 2·(8k)²·N = 137 G bit operations, 69 µs at the
+  1,979 TOP/s int8 tensor-core rate;
+- as the compiled XOR schedule (``ops/xor_schedule.py``) bit-sliced 32 lanes
+  to a word, with each output row assembled from three-input XORs: 123,520
+  operations per word, 2.5e8 int32 operations, 15 µs at ~16.7 T int32 op/s
+  (64 INT32 lanes × 132 SMs × 1.98 GHz, an estimate from the SM layout).
+So K4 is bound at 15 µs by operations. K1 adds the 147,456 leaf SHA blocks
+(~2.2k int32 operations each, ~19 µs) on the same ALUs: 34.5 µs, bound by
+operations; the ~18 MB it moves are 5.5 µs at 3.35 TB/s. This first kernel
+does the dense contraction on the integer ALUs (32 AND/XOR lanes per word
+operation, one popcount per parity bit).
 - K2: the same 147,456 SHA blocks, ~19 µs, operation-bound; 9 MB moved.
 K1 and K2 share one hash stage: one thread hashes one cell from a shared
 memory tile whose row stride (516 bytes) spreads a warp's reads over all
@@ -68,26 +79,64 @@ def _leaf_digests_plain(cells: torch.Tensor, ns_cells: torch.Tensor) -> torch.Te
     return digests.view(torch.int32).T.reshape(r, nc, 8).view(torch.uint32)
 
 
-def _check_lanes(x2: torch.Tensor) -> None:
+def check_lanes(x2: torch.Tensor) -> None:
     if x2.dim() != 2 or x2.shape[1] == 0 or x2.shape[1] % SHARE_SIZE:
         raise ValueError(f"x2 must be (rows, N) with N a positive multiple "
                          f"of {SHARE_SIZE}, got {tuple(x2.shape)}")
 
 
+def parity_leaf_digests_plain(parity: torch.Tensor) -> torch.Tensor:
+    """(k, N) parity cells -> (k, N/512, 8) uint32 leaf digests under the
+    parity namespace: the hash stage K1 and K5 share, in plain PyTorch."""
+    k, n = parity.shape
+    parity_ns = torch.as_tensor(PARITY_NS, device=parity.device).expand(
+        k, n // SHARE_SIZE, NAMESPACE_SIZE)
+    return _leaf_digests_plain(parity, parity_ns)
+
+
+def encode2d_reference(x2: torch.Tensor, m2: rs.EncodeMatrix) -> torch.Tensor:
+    """Plain PyTorch version of K4: (k, N) parity."""
+    check_lanes(x2)
+    return rs.rs_encode_rows(x2, m2.bits)
+
+
 def encode2d_hash_reference(x2: torch.Tensor, m2: rs.EncodeMatrix):
     """Plain PyTorch version of K1: ((k, N) parity, (k, N/512, 8) digests)."""
-    _check_lanes(x2)
-    k, n = x2.shape
-    parity = rs.rs_encode_rows(x2, m2.bits)
-    parity_ns = torch.as_tensor(PARITY_NS, device=x2.device).expand(
-        k, n // SHARE_SIZE, NAMESPACE_SIZE)
-    return parity, _leaf_digests_plain(parity, parity_ns)
+    parity = encode2d_reference(x2, m2)
+    return parity, parity_leaf_digests_plain(parity)
 
 
 def leaf_digests2d_reference(x2: torch.Tensor, ns_pad: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K2: (R, N/512, 8) uint32 leaf digests."""
-    _check_lanes(x2)
+    check_lanes(x2)
     return _leaf_digests_plain(x2, ns_pad[..., :NAMESPACE_SIZE])
+
+
+def _check_encode_inputs(x2: torch.Tensor, m2: rs.EncodeMatrix) -> None:
+    check_lanes(x2)
+    k, n = x2.shape
+    if k & (k - 1) or k > MAX_K:
+        raise ValueError(f"k must be a power of two <= {MAX_K}, got {k}")
+    _cuda.require(x2, "x2", torch.uint8, (k, n), x2.device)
+    _cuda.require(m2.packed, "m2.packed", torch.uint32,
+                  (8 * k, rs.packed_words(k)), x2.device)
+
+
+def encode2d(x2: torch.Tensor, m2: rs.EncodeMatrix) -> torch.Tensor:
+    """RS encode: (k, N) uint8 data shards -> (k, N) parity shards.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K4."""
+    if x2.device.type == "cpu":
+        return encode2d_reference(x2, m2)
+    _check_encode_inputs(x2, m2)
+    k, n = x2.shape
+    parity = torch.empty((k, n), dtype=torch.uint8, device=x2.device)
+    rc = _cuda.library().celestia_encode2d(
+        x2.data_ptr(), m2.packed.data_ptr(), parity.data_ptr(), k, n,
+        x2.device.index or 0, _cuda.stream_of(x2))
+    _cuda.check(rc, "encode2d")
+    _cuda.LAUNCHES["encode2d"] += 1
+    return parity
 
 
 def encode2d_hash(x2: torch.Tensor, m2: rs.EncodeMatrix):
@@ -98,13 +147,8 @@ def encode2d_hash(x2: torch.Tensor, m2: rs.EncodeMatrix):
     A CPU tensor runs the plain version; a CUDA tensor launches K1."""
     if x2.device.type == "cpu":
         return encode2d_hash_reference(x2, m2)
-    _check_lanes(x2)
+    _check_encode_inputs(x2, m2)
     k, n = x2.shape
-    if k & (k - 1) or k > MAX_K:
-        raise ValueError(f"k must be a power of two <= {MAX_K}, got {k}")
-    _cuda.require(x2, "x2", torch.uint8, (k, n), x2.device)
-    _cuda.require(m2.packed, "m2.packed", torch.uint32,
-                  (8 * k, rs.packed_words(k)), x2.device)
     parity = torch.empty((k, n), dtype=torch.uint8, device=x2.device)
     digests = torch.empty((k, n // SHARE_SIZE, 8), dtype=torch.uint32,
                           device=x2.device)
@@ -124,7 +168,7 @@ def leaf_digests2d(x2: torch.Tensor, ns_pad: torch.Tensor) -> torch.Tensor:
     A CPU tensor runs the plain version; a CUDA tensor launches K2."""
     if x2.device.type == "cpu":
         return leaf_digests2d_reference(x2, ns_pad)
-    _check_lanes(x2)
+    check_lanes(x2)
     r, n = x2.shape
     nc = n // SHARE_SIZE
     _cuda.require(x2, "x2", torch.uint8, (r, n), x2.device)
@@ -137,3 +181,11 @@ def leaf_digests2d(x2: torch.Tensor, ns_pad: torch.Tensor) -> torch.Tensor:
     _cuda.check(rc, "leaf_digests2d")
     _cuda.LAUNCHES["leaf_digests2d"] += 1
     return digests
+
+
+def extend_square(q0: torch.Tensor, m2: rs.EncodeMatrix,
+                  encode=encode2d) -> torch.Tensor:
+    """(k, k, 512) -> EDS with every quadrant encode on K4 (port of
+    ``rs_pallas.extend_square``); ``encode=encode2d_reference`` runs the
+    plain version on any device."""
+    return rs.extend_quadrants(q0, lambda x: encode(x, m2))

@@ -3,33 +3,52 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--xor-table-out PATH]
+
+``--xor-table-out`` also writes the dense/XOR routing table this run measured
+(phase 5) to PATH, in the format of celestia_tpu_torch/config/xor_schedule.json.
+
+The port has four extend routes (fused/unfused × dense/XOR); a route is
+picked with the env pins CELESTIA_FUSED_KERNELS and CELESTIA_XOR_SCHEDULE,
+as a user picks it. Six kernels carry them: K1 encode2d_hash, K2
+leaf_digests2d, K3 sha256_words, K4 encode2d, K5 encode2d_xor_hash, K6
+encode2d_xor.
 
 Phases, in order (any failed check raises, so the script exits non-zero and
 prints no result; it also exits non-zero when no CUDA device is present):
 
 1. Environment: versions, the card's name and power limit, the kernel build
-   (nvcc for sm_90a, from celestia_tpu_torch/csrc/) and its seconds.
+   (nvcc for sm_90a, from celestia_tpu_torch/csrc/) and its seconds, and the
+   XOR schedule's host compile at k = 128 and its seconds.
 2. Each kernel against its plain PyTorch version on the card, byte for byte:
    K3 on messages of every length 0..600 (and against hashlib) and at the
-   NMT level shapes; K1 and K2 at k = 1, 16, 64 and 128.
+   NMT level shapes; K1, K2, K4, K5 and K6 at k = 1, 2, 16, 64 and 128; and
+   the dense and XOR kernels against each other (K5 = K1, K6 = K4).
 3. The reference DAH hashes (MIN k = 1, TYPICAL k = 2, MAX k = 128) through
    da.extend_shares -> new_data_availability_header(...).hash(), and the DAH
-   computed on the device by extend_and_root_device equal to the host's.
+   computed on the device by extend_and_root_device equal to the host's, on
+   each of the four routes.
 4. Realistic squares (sorted v0 namespaces over random bytes, and a variant
-   with a TAIL_PADDING tail) at k = 64 and k = 128. The launch counts are
-   set to 0 just before the main path runs on the k = 128 square (extend ->
-   DAH -> row levels, as a block producer runs it) and read just after. The
-   kernel route equals the plain route for EDS, roots, row levels and DAH,
-   and at k = 64 the roots equal the host oracle (gf256 + nmt_host).
+   with a TAIL_PADDING tail) at k = 64 and k = 128. For each route the
+   launch counts are set to 0 just before the main path runs on the k = 128
+   square (extend -> DAH -> row levels, as a block producer runs it) and
+   read just after: the route's own kernels ran, the other routes' encode
+   kernels did not. On each route the kernel route equals the plain route
+   (EDS, roots, DAH) and the fused dense route; on the fused dense route the
+   row levels equal the plain ones, and at k = 64 the roots equal the host
+   oracle (gf256 + nmt_host).
 5. Timing, after warm-up: each kernel at its main-path shapes, as its own
    device time per launch (torch.profiler's CUDA records, mean of 10
    launches) and as CUDA-event time per launch (median of 10 samples of 10
    back-to-back launches), beside its plain version (CUDA events, median of
-   10 calls); the host-clock median of 10 calls of roots_device,
-   extend_roots_device_resident and eds_row_levels_device end to end (host
-   clock, H2D and D2H included) at k = 64 and k = 128; and a torch.profiler
-   trace of one k = 128 roots_device call (device time by op, idle share).
+   10 calls); end to end (host clock, H2D and D2H included) at k = 64 and
+   128, 20 calls of roots_device and extend_roots_device_resident per route
+   with the routes in turns (median, quartiles, best), and the median of 10
+   calls of eds_row_levels_device (which takes an EDS and runs no extend, so
+   no route); the dense/XOR routing table by device time (K1 against K5 at
+   k = 16, 32, 64 and 128, the only kernels in which the fused routes
+   differ); and a torch.profiler breakdown of one k = 128 roots_device call
+   per route (device time by op, idle share).
 
 Every measurement is one JSON line carrying the card's name and power limit.
 Then come the ``kernels`` line, the card as nvidia-smi reports it, and the
@@ -38,8 +57,10 @@ last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -65,6 +86,32 @@ MAX_DAH = "0bd3abeeacfbb0b92dfbdac4a154868e3c4e79666f7fcf6c620bb90dd3a0dcf0"
 
 SEED = 20261017
 REPS = 10
+E2E_REPS = 20
+TABLE_K = (16, 32, 64, 128)  # the routing table's rungs
+
+# route name: (CELESTIA_FUSED_KERNELS, CELESTIA_XOR_SCHEDULE, its encode kernel)
+ROUTES = {
+    "fused-dense": ("1", "0", "encode2d_hash"),
+    "fused-xor": ("1", "1", "encode2d_xor_hash"),
+    "unfused-dense": ("0", "0", "encode2d"),
+    "unfused-xor": ("0", "1", "encode2d_xor"),
+}
+PIN_VARS = ("CELESTIA_FUSED_KERNELS", "CELESTIA_XOR_SCHEDULE")
+
+
+@contextlib.contextmanager
+def pinned(route: str):
+    """Run the block under the env pins that select ``route``."""
+    saved = {v: os.environ.get(v) for v in PIN_VARS}
+    os.environ.update(zip(PIN_VARS, ROUTES[route][:2]))
+    try:
+        yield
+    finally:
+        for v, old in saved.items():
+            if old is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = old
 
 
 def fail(msg: str) -> None:
@@ -85,8 +132,15 @@ def card() -> tuple[str, str, str]:
     return line, name, limit
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--xor-table-out", default=None,
+                    help="also write the measured dense/XOR routing table here")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -95,8 +149,9 @@ def main() -> int:
     from celestia_tpu_torch import da
     from celestia_tpu_torch import namespace as ns
     from celestia_tpu_torch.appconsts import NAMESPACE_SIZE, SHARE_SIZE
+    from celestia_tpu_torch.app import calibration
     from celestia_tpu_torch.ops import _cuda, extend, gf256, nmt_host, rs, rs_cuda
-    from celestia_tpu_torch.ops import sha256, sha256_cuda
+    from celestia_tpu_torch.ops import sha256, sha256_cuda, xor_cuda, xor_schedule
 
     # the plain RS contraction is a float32 matmul: state full fp32 (its
     # 0/1 operands make every partial sum exact in TF32 as well)
@@ -115,7 +170,7 @@ def main() -> int:
             return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
         return t.to(torch.int64)
 
-    max_err = {"encode2d_hash": 0, "leaf_digests2d": 0, "sha256_words": 0}
+    max_err = dict.fromkeys(_cuda.LAUNCHES, 0)
 
     def same(name: str, a: torch.Tensor, b: torch.Tensor, what: str) -> None:
         check(a.shape == b.shape and a.dtype == b.dtype, f"{what}: shape/dtype differ")
@@ -135,6 +190,10 @@ def main() -> int:
     for line in _cuda.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print("ptxas:", line.strip(), file=sys.stderr)
+    t0 = time.perf_counter()
+    xor_schedule.compile_schedule(128)  # host time at first use, before any timing
+    emit(phase="xor_compile", k=128, seconds=time.perf_counter() - t0,
+         **xor_schedule.schedule_stats(128))
 
     # ---- phase 2: each kernel against its plain version on the card
     for nb in range(1, sha256.padded_length(600) // 64 + 1):
@@ -160,9 +219,13 @@ def main() -> int:
     emit(phase="kernel_vs_plain", kernel="sha256_words", lengths="0..600",
          tolerance=0, max_abs_err=max_err["sha256_words"])
 
-    for k in (1, 16, 64, 128):
+    def identical(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+        check(a.shape == b.shape and bool(torch.equal(a, b)), f"{what}: not byte-identical")
+
+    for k in (1, 2, 16, 64, 128):
         x2 = dev_bytes((k, k * SHARE_SIZE))
         m2 = rs.encode_matrix(k, dev)
+        ops = xor_cuda.schedule_operands(k, dev)
         parity, digests = rs_cuda.encode2d_hash(x2, m2)
         ref_parity, ref_digests = rs_cuda.encode2d_hash_reference(x2, m2)
         same("encode2d_hash", parity, ref_parity, f"K1 parity k={k}")
@@ -170,8 +233,24 @@ def main() -> int:
         ns_pad = dev_bytes((k, k, rs_cuda.NS_PAD))
         same("leaf_digests2d", rs_cuda.leaf_digests2d(x2, ns_pad),
              rs_cuda.leaf_digests2d_reference(x2, ns_pad), f"K2 k={k}")
-        emit(phase="kernel_vs_plain", k=k, kernel="encode2d_hash+leaf_digests2d",
-             tolerance=0, max_abs_err=max(max_err["encode2d_hash"], max_err["leaf_digests2d"]))
+        p4 = rs_cuda.encode2d(x2, m2)
+        same("encode2d", p4, rs_cuda.encode2d_reference(x2, m2), f"K4 k={k}")
+        p5, d5 = xor_cuda.encode2d_xor_hash(x2, ops)
+        ref5, ref_d5 = xor_cuda.encode2d_xor_hash_reference(x2, ops)
+        same("encode2d_xor_hash", p5, ref5, f"K5 parity k={k}")
+        same("encode2d_xor_hash", d5, ref_d5, f"K5 digests k={k}")
+        p6 = xor_cuda.encode2d_xor(x2, ops)
+        same("encode2d_xor", p6, xor_cuda.encode2d_xor_reference(x2, ops), f"K6 k={k}")
+        # the dense and XOR spellings are one code: their kernels agree
+        identical(p5, parity, f"K5 parity vs K1, k={k}")
+        identical(d5, digests, f"K5 digests vs K1, k={k}")
+        identical(p6, p4, f"K6 vs K4, k={k}")
+        identical(p4, parity, f"K4 vs K1, k={k}")
+        emit(phase="kernel_vs_plain", k=k, tolerance=0,
+             kernels=["encode2d_hash", "leaf_digests2d", "encode2d", "encode2d_xor_hash",
+                      "encode2d_xor"],
+             max_abs_err=max(max_err[n] for n in max_err if n != "sha256_words"),
+             dense_equals_xor=True)
     x_eds, ns_eds = dev_bytes((256, 256 * SHARE_SIZE)), dev_bytes((256, 256, rs_cuda.NS_PAD))
     same("leaf_digests2d", rs_cuda.leaf_digests2d(x_eds, ns_eds),
          rs_cuda.leaf_digests2d_reference(x_eds, ns_eds), "K2 on a k=128 EDS")
@@ -193,19 +272,22 @@ def main() -> int:
         ("TYPICAL", 2, None, TYPICAL_DAH),
         ("MAX", 128, None, MAX_DAH),
     ]
-    for label, k, share, expect in oracles:
-        flat = (np.frombuffer(share, np.uint8)[None] if share is not None
-                else oracle_square(k * k))
-        if label == "MIN":
-            got = da.min_data_availability_header(dev).hash().hex()
-        else:
-            got = da.new_data_availability_header(da.extend_shares(flat, dev)).hash().hex()
-        check(got == expect, f"{label} DAH {got} != {expect}")
-        _eds, rows, cols, dah = extend.extend_and_root_device(
-            flat.reshape(k, k, SHARE_SIZE), dev)
-        check(dah.tobytes().hex() == expect == host_dah(rows, cols).hex(),
-              f"{label} device DAH differs from the host DAH")
-        emit(phase="oracle", name=label, k=k, dah=got)
+    for rname in ROUTES:
+        for label, k, share, expect in oracles:
+            flat = (np.frombuffer(share, np.uint8)[None] if share is not None
+                    else oracle_square(k * k))
+            with pinned(rname):
+                if label == "MIN":
+                    got = da.min_data_availability_header(dev).hash().hex()
+                else:
+                    got = da.new_data_availability_header(
+                        da.extend_shares(flat, dev)).hash().hex()
+                _eds, rows, cols, dah = extend.extend_and_root_device(
+                    flat.reshape(k, k, SHARE_SIZE), dev)
+            check(got == expect, f"{label} DAH on {rname}: {got} != {expect}")
+            check(dah.tobytes().hex() == expect == host_dah(rows, cols).hex(),
+                  f"{label} device DAH on {rname} differs from the host DAH")
+            emit(phase="oracle", route=rname, name=label, k=k, dah=got)
 
     # ---- phase 4: realistic squares, the main path, kernel route vs plain route
     def realistic(k: int, pad_tail: int) -> np.ndarray:
@@ -238,23 +320,39 @@ def main() -> int:
         return rows, cols
 
     main_sq = realistic(128, 0)
-    torch.cuda.synchronize()
-    _cuda.reset_launches()
-    main_eds = da.extend_shares(main_sq.reshape(-1, SHARE_SIZE), dev)
-    main_dah = da.new_data_availability_header(main_eds)
-    main_levels = extend.eds_row_levels_device(main_eds.device_data, dev)
-    torch.cuda.synchronize()
-    launches = dict(_cuda.LAUNCHES)
-    emit(phase="main_path", k=main_sq.shape[0], entry="da.extend_shares+new_data_availability_header"
-         "+eds_row_levels_device", launches=launches, dah=main_dah.hash().hex())
-    for kname, n in launches.items():
-        check(n > 0, f"the main path launched {kname} no time")
+    encoders = {enc for _f, _x, enc in ROUTES.values()}
+    launches: dict[str, int] = {}
+    main: dict[str, tuple] = {}
+    for rname, (_f, _x, enc) in ROUTES.items():
+        with pinned(rname):
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            r_eds = da.extend_shares(main_sq.reshape(-1, SHARE_SIZE), dev)
+            r_dah = da.new_data_availability_header(r_eds)
+            r_levels = extend.eds_row_levels_device(r_eds.device_data, dev)
+            torch.cuda.synchronize()
+            counts = dict(_cuda.LAUNCHES)
+        emit(phase="main_path", route=rname, k=main_sq.shape[0],
+             entry="da.extend_shares+new_data_availability_header+eds_row_levels_device",
+             launches=counts, dah=r_dah.hash().hex())
+        for kname in (enc, "leaf_digests2d", "sha256_words"):
+            check(counts[kname] > 0, f"the {rname} main path launched {kname} no time")
+        for other in encoders - {enc}:
+            check(counts[other] == 0, f"the {rname} main path launched {other}")
+        launches[enc] = counts[enc]
+        if rname == "fused-dense":
+            launches["leaf_digests2d"] = counts["leaf_digests2d"]
+            launches["sha256_words"] = counts["sha256_words"]
+        main[rname] = (r_eds, r_dah, r_levels)
+    main_eds, main_dah, main_levels = main["fused-dense"]
 
     squares = [("realistic", 64, realistic(64, 0)), ("tail_padding", 64, realistic(64, 700)),
                ("realistic", 128, main_sq), ("tail_padding", 128, realistic(128, 3000))]
     for label, k, sq in squares:
-        got = extend.extend_and_root_device(sq, dev)
-        plain = extend.extend_and_root_device(sq, dev, kernels=extend.PLAIN)
+        with pinned("fused-dense"):
+            got = extend.extend_and_root_device(sq, dev)
+            plain = extend.extend_and_root_device(sq, dev, kernels=extend.PLAIN)
+            rows, cols = extend.roots_device(sq, dev)
         for part, a, b in zip(("eds", "rows", "cols", "dah"), got, plain):
             check(np.array_equal(a, b), f"{label} k={k}: kernel route {part} != plain route")
         check(got[3].tobytes() == host_dah(got[1], got[2]), f"{label} k={k}: device DAH != host DAH")
@@ -264,7 +362,6 @@ def main() -> int:
         for a, b in zip(levels, plain_levels):
             check(np.array_equal(a, b), f"{label} k={k}: row levels differ from plain")
         check(np.array_equal(levels[-1][:, 0], got[1]), f"{label} k={k}: levels' roots")
-        rows, cols = extend.roots_device(sq, dev)
         check(np.array_equal(rows, got[1]) and np.array_equal(cols, got[2]), "roots_device")
         e_rows, e_cols = extend.eds_roots_device(got[0], dev)
         check(np.array_equal(e_rows, got[1]) and np.array_equal(e_cols, got[2]),
@@ -273,13 +370,28 @@ def main() -> int:
             h_rows, h_cols = host_oracle_roots(sq)
             check(np.array_equal(rows, h_rows) and np.array_equal(cols, h_cols),
                   f"{label} k=64: roots differ from the host oracle")
+        # every other route: its kernels equal its plain versions and the
+        # fused dense route
+        for rname in ROUTES:
+            if rname == "fused-dense":
+                continue
+            with pinned(rname):
+                r_got = extend.extend_and_root_device(sq, dev)
+                r_plain = extend.extend_and_root_device(sq, dev, kernels=extend.PLAIN)
+                r_rows, r_cols = extend.roots_device(sq, dev)
+            for part, a, b, c in zip(("eds", "rows", "cols", "dah"), r_got, r_plain, got):
+                check(np.array_equal(a, b), f"{label} k={k} {rname}: kernel {part} != plain")
+                check(np.array_equal(a, c), f"{label} k={k} {rname}: {part} != fused dense")
+            check(np.array_equal(r_rows, rows) and np.array_equal(r_cols, cols),
+                  f"{label} k={k} {rname}: roots_device")
         if sq is main_sq:
-            check(np.array_equal(main_eds.data, got[0]), "main path EDS")
-            check(main_dah.hash() == got[3].tobytes(), "main path DAH")
-            for a, b in zip(main_levels, levels):
-                check(np.array_equal(a, b), "main path row levels")
-        emit(phase="route_vs_plain", square=label, k=k, dah=got[3].tobytes().hex(),
-             host_oracle=(k == 64))
+            for rname, (r_eds, r_dah, r_levels) in main.items():
+                check(np.array_equal(r_eds.data, got[0]), f"main path EDS on {rname}")
+                check(r_dah.hash() == got[3].tobytes(), f"main path DAH on {rname}")
+                for a, b in zip(r_levels, levels):
+                    check(np.array_equal(a, b), f"main path row levels on {rname}")
+        emit(phase="route_vs_plain", square=label, k=k, routes=list(ROUTES),
+             dah=got[3].tobytes().hex(), host_oracle=(k == 64))
 
     # ---- phase 5: timing
     def cuda_ms(fn, inner: int = 1, reps: int = REPS) -> float:
@@ -302,9 +414,6 @@ def main() -> int:
             times.append(start.elapsed_time(end) / inner)
         return statistics.median(times)
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def host_ms(fn, reps: int = REPS) -> float:
         fn()
         fn()
@@ -324,11 +433,39 @@ def main() -> int:
     nc = n // SHARE_SIZE
     x2 = torch.from_numpy(main_sq.reshape(k, n)).to(dev)
     m2 = rs.encode_matrix(k, dev)
+    ops = xor_cuda.schedule_operands(k, dev)
     ns_pad = rs_cuda.pad_namespaces(torch.from_numpy(main_sq[..., :NAMESPACE_SIZE]).to(dev))
     sha_ops = LEAF_BLOCKS * k * nc * SHA_BLOCK_OPS / INT32_OPS_PER_S
-    k1_bound = bound(max(2 * (8 * k) ** 2 * n / INT8_OPS_PER_S, sha_ops),
-                     2 * k * n + m2.packed.numel() * 4 + k * nc * 32)
-    k2_bound = bound(sha_ops, k * n + 2 * k * nc * 32)
+    # the encode's two known spellings: the dense GF(2) product on the int8
+    # tensor cores (beside the hash on the ALUs), or the compiled schedule's
+    # XORs bit-sliced 32 lanes to an int32 word, each output row assembled
+    # with three-input XORs (LOP3): one operation per node and
+    # ceil((nnz - 1) / 2) per row, beside the hash on the same ALUs
+    dense_ops = 2 * (8 * k) ** 2 * n / INT8_OPS_PER_S
+    nnz = (ops.sched.row_idx != ops.sched.zero).sum(axis=1)
+    xor3_ops = ops.sched.n_nodes + int((nnz // 2).sum())
+    xor_ops = xor3_ops * (n / 32) / INT32_OPS_PER_S
+    operand_bytes = sum(t.numel() * t.element_size()
+                        for t in (ops.node_ab, ops.level_off, ops.row_blk))
+    digest_bytes = k * nc * 32
+
+    def encode_bound(hashed: bool) -> tuple[float, str]:
+        """The bound of the encode's function (dense and XOR kernels alike):
+        the cheaper of its two spellings."""
+        sha, out = (sha_ops, digest_bytes) if hashed else (0.0, 0)
+        return min(bound(max(dense_ops, sha), 2 * k * n + m2.packed.numel() * 4 + out),
+                   bound(xor_ops + sha, 2 * k * n + operand_bytes + out))
+
+    bounds = {
+        "encode2d_hash": encode_bound(True),
+        "leaf_digests2d": bound(sha_ops, k * n + 2 * k * nc * 32),
+        "encode2d": encode_bound(False),
+        "encode2d_xor_hash": encode_bound(True),
+        "encode2d_xor": encode_bound(False),
+    }
+    emit(phase="bounds", k=k, dense_int8_ms=dense_ops * 1e3, xor3_ops_per_word=xor3_ops,
+         xor3_int32_ms=xor_ops * 1e3, sha_ms=sha_ops * 1e3,
+         encode_bound_ms=bounds["encode2d"][0], encode_hash_bound_ms=bounds["encode2d_hash"][0])
     eds_dev = main_eds.device_data
     ns_eds = rs_cuda.pad_namespaces(extend._leaf_namespaces(
         eds_dev[:k, :k, :NAMESPACE_SIZE], k).contiguous())
@@ -337,6 +474,9 @@ def main() -> int:
         "encode2d_hash": lambda: rs_cuda.encode2d_hash(x2, m2),
         "leaf_digests2d": lambda: rs_cuda.leaf_digests2d(x2, ns_pad),
         "leaf_digests2d_eds": lambda: rs_cuda.leaf_digests2d(x_eds, ns_eds),
+        "encode2d": lambda: rs_cuda.encode2d(x2, m2),
+        "encode2d_xor_hash": lambda: xor_cuda.encode2d_xor_hash(x2, ops),
+        "encode2d_xor": lambda: xor_cuda.encode2d_xor(x2, ops),
     }
     # K3 at the shapes of one extend's NMT levels (both tree families
     # stacked): the sum over the 8 levels is one extend's K3 work
@@ -348,68 +488,156 @@ def main() -> int:
         k3_shapes.append((batch, words))
         calls[f"sha256_words_{batch}"] = (lambda w=words: sha256_cuda.sha256_words(w))
         batch //= 2
+    # the routing table's rungs: the fused routes' two encode kernels
+    for kk in TABLE_K:
+        xk = dev_bytes((kk, kk * SHARE_SIZE))
+        m2k, opsk = rs.encode_matrix(kk, dev), xor_cuda.schedule_operands(kk, dev)
+        calls[f"table_dense_{kk}"] = lambda x=xk, m=m2k: rs_cuda.encode2d_hash(x, m)
+        calls[f"table_xor_{kk}"] = lambda x=xk, o=opsk: xor_cuda.encode2d_xor_hash(x, o)
     event_ms = {name: cuda_ms(fn, inner=10) for name, fn in calls.items()}
     plain_ms = {
         "encode2d_hash": cuda_ms(lambda: rs_cuda.encode2d_hash_reference(x2, m2)),
         "leaf_digests2d": cuda_ms(lambda: rs_cuda.leaf_digests2d_reference(x2, ns_pad)),
+        "encode2d": cuda_ms(lambda: rs_cuda.encode2d_reference(x2, m2)),
+        "encode2d_xor_hash": cuda_ms(lambda: xor_cuda.encode2d_xor_hash_reference(x2, ops)),
+        "encode2d_xor": cuda_ms(lambda: xor_cuda.encode2d_xor_reference(x2, ops)),
     }
     for batch, words in k3_shapes:
         plain_ms[f"sha256_words_{batch}"] = cuda_ms(
             lambda w=words: sha256_cuda.sha_core_reference(w))
 
-    roots_ms = {}
-    for kk in (64, 128):
-        sq = main_sq if kk == 128 else realistic(64, 0)
+    # end to end, the routes in turns (sample i of every route back to back,
+    # so the host's noise falls on all of them alike)
+    squares_e2e = {64: realistic(64, 0), 128: main_sq}
+    e2e: dict[tuple, list[float]] = {}
+    for kk, sq in squares_e2e.items():
+        entries = {"roots_device": lambda: extend.roots_device(sq, dev),
+                   "extend_roots_device_resident":
+                       lambda: extend.extend_roots_device_resident(sq, dev)}
+        for rep in range(2 + E2E_REPS):  # two warm-up rounds
+            for rname in ROUTES:
+                with pinned(rname):
+                    for entry, fn in entries.items():
+                        t = time.perf_counter()
+                        fn()  # ends in a D2H copy of the roots, so the device is done
+                        ms = (time.perf_counter() - t) * 1e3
+                        if rep >= 2:
+                            e2e.setdefault((kk, rname, entry), []).append(ms)
+        for rname in ROUTES:
+            for entry in entries:
+                xs = e2e[(kk, rname, entry)]
+                q1, _q2, q3 = statistics.quantiles(xs, n=4)
+                emit(phase="end_to_end", k=kk, route=rname, entry=entry,
+                     ms=statistics.median(xs), min_ms=min(xs), q1_ms=q1, q3_ms=q3,
+                     samples=len(xs))
         eds_kk = extend.extend_roots_device_resident(sq, dev)[0]
-        roots_ms[kk] = host_ms(lambda: extend.roots_device(sq, dev))
-        emit(phase="end_to_end", k=kk, entry="roots_device", ms=roots_ms[kk])
-        emit(phase="end_to_end", k=kk, entry="extend_roots_device_resident",
-             ms=host_ms(lambda: extend.extend_roots_device_resident(sq, dev)))
-        emit(phase="end_to_end", k=kk, entry="eds_row_levels_device",
+        emit(phase="end_to_end", k=kk, route=None, entry="eds_row_levels_device",
              ms=host_ms(lambda: extend.eds_row_levels_device(eds_kk, dev)))
+    roots_ms = {r: {kk: statistics.median(e2e[(kk, r, "roots_device")])
+                    for kk in squares_e2e} for r in ROUTES}
 
     # ONE profiler session (separate sessions in one process lost their
-    # records on the card): REPS launches of each timed kernel, in order,
-    # then one k = 128 roots_device call. Each kernel's device time per
-    # launch comes from its CUDA activity records, split by launch order
-    # (every timed call launches exactly one of the port's kernels); the
-    # device records after the last timed launch are the roots_device
-    # breakdown. The profiler slows the host, so the idle share is taken
-    # against the unprofiled median above.
+    # records on the card): a warm-up pass (the profiler can miss the first
+    # records of a session), then REPS launches of each timed kernel, then
+    # one k = 128 roots_device call per route; every call apart from the
+    # next by a 100 ms host sleep. The device records, split at those idle
+    # gaps, are one segment per call: a timed call's segment holds only its
+    # kernel (one name), and its device time per launch is the mean over
+    # the records there; a route's segment is its roots_device breakdown.
+    # The profiler slows the host, so the idle share is taken against the
+    # unprofiled median above.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for fn in calls.values():
-        fn()
-    extend.roots_device(main_sq, dev)
+    gap_s = 0.1
+    for rname in ROUTES:
+        with pinned(rname):
+            extend.roots_device(main_sq, dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+        for fn in calls.values():
+            time.sleep(gap_s)
             for _ in range(REPS):
                 fn()
-        torch.cuda.synchronize()
-        extend.roots_device(main_sq, dev)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+        for rname in ROUTES:
+            time.sleep(gap_s)
+            with pinned(rname):
+                extend.roots_device(main_sq, dev)
+            torch.cuda.synchronize()
     evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and e.name != "Activity Buffer Request"), key=lambda e: e.time_range.start)
-    timed = [e for e in evs if "celestia::" in e.name][:REPS * len(calls)]
-    check(len(timed) == REPS * len(calls),
-          f"the profiler recorded {len(timed)} of {REPS * len(calls)} timed kernel launches")
-    dev_ms = {name: sum(e.time_range.elapsed_us() for e in timed[i * REPS:(i + 1) * REPS])
-              / 1e3 / REPS for i, name in enumerate(calls)}
-    by_op: dict[str, list] = {}
+    segments: list[list] = []
+    last_end = None
     for e in evs:
-        if e.time_range.start >= timed[-1].time_range.end:
+        if last_end is None or e.time_range.start - last_end > gap_s * 1e6 / 2:  # µs
+            segments.append([])
+        segments[-1].append(e)
+        last_end = e.time_range.end if last_end is None else max(last_end, e.time_range.end)
+    n_calls = len(calls) + len(ROUTES)
+    check(len(segments) in (n_calls, n_calls + 1),  # + 1: the warm-up pass
+          f"the profiler's records split into {len(segments)} calls, expected {n_calls}")
+    segments = segments[-n_calls:]
+    dev_ms, per_launch = {}, {}
+    for name, seg in zip(calls, segments):
+        kern = [e for e in seg if "celestia::" in e.name]
+        check(len(kern) > 0 and len({e.name for e in kern}) == 1,
+              f"the profiler's records of {name} hold {sorted({e.name for e in seg})}")
+        per_launch[name] = [e.time_range.elapsed_us() / 1e3 for e in kern]
+        dev_ms[name] = statistics.fmean(per_launch[name])
+    emit(phase="profile_records", launches_per_call=REPS,
+         records={name: len(v) for name, v in per_launch.items()})
+
+    # the port's dense/XOR routing table, by device time. The fused routes
+    # differ only in their encode kernel (K1 or K5, 3 launches per extend),
+    # so a rung's time per spelling is 3 x that kernel's mean device time
+    # per launch. A rung enters the table only where the two spellings'
+    # launches do not overlap (the faster's slowest below the slower's
+    # fastest); the lookup takes the nearest rung for the others.
+    table = calibration.CrossoverTable({}, time.time(), card_name, power_limit)
+    committed = calibration.load_xor_table()
+    rungs = {}
+    for kk in TABLE_K:
+        d, x = per_launch[f"table_dense_{kk}"], per_launch[f"table_xor_{kk}"]
+        entry = {"dense": 3 * statistics.fmean(d), "xor": 3 * statistics.fmean(x)}
+        resolved = max(d) < min(x) or max(x) < min(d)
+        if resolved:
+            table.entries[kk] = entry
+        rungs[kk] = {**entry, "resolved": resolved,
+                     "dense_launch_range_ms": [min(d), max(d)],
+                     "xor_launch_range_ms": [min(x), max(x)],
+                     "committed_winner": committed.winner(kk) if committed else None}
+    emit(phase="xor_table", basis="device ms of one extend's 3 fused encode launches",
+         rungs=rungs, table=table.to_json(),
+         agrees_with_committed=all(
+             (committed.winner(kk) if committed else "dense") == table.winner(kk)
+             for kk in table.entries))
+    if args.xor_table_out:
+        with open(args.xor_table_out, "w") as f:
+            json.dump(table.to_json(), f, indent=2)
+            f.write("\n")
+    segments = segments[len(calls):]
+    for rname, seg in zip(ROUTES, segments):
+        by_op: dict[str, list] = {}
+        for e in seg:
             entry = by_op.setdefault(e.name[:90], [0.0, 0])
             entry[0] += e.time_range.elapsed_us() / 1e3
             entry[1] += 1
-    busy_ms = sum(v[0] for v in by_op.values())
-    check(busy_ms > 0, "the profiler recorded no device time for roots_device")
+        busy_ms = sum(v[0] for v in by_op.values())
+        check(busy_ms > 0, f"the profiler recorded no device time for roots_device on {rname}")
+        top = sorted(by_op.items(), key=lambda kv: -kv[1][0])
+        emit(phase="profile", k=main_sq.shape[0], route=rname, entry="roots_device",
+             device_busy_ms=busy_ms, roots_device_ms=roots_ms[rname][128],
+             device_idle_share=1 - busy_ms / roots_ms[rname][128], device_ops=len(by_op),
+             launches=sum(v[1] for v in by_op.values()),
+             top=[{"op": name, "ms": v[0], "count": v[1]} for name, v in top[:12]])
 
     results = {}
-    for kname in ("encode2d_hash", "leaf_digests2d"):
-        results[kname] = (dev_ms[kname], event_ms[kname], plain_ms[kname],
-                          k1_bound if kname == "encode2d_hash" else k2_bound)
+    for kname, b in bounds.items():
+        results[kname] = (dev_ms[kname], event_ms[kname], plain_ms[kname], b)
     k3_dev = k3_event = k3_plain = k3_ops = k3_bytes = 0.0
     for batch, _words in k3_shapes:
         name = f"sha256_words_{batch}"
@@ -427,18 +655,17 @@ def main() -> int:
     emit(phase="timing", kernel="leaf_digests2d", shape=[2 * k, 2 * n],
          device_ms=dev_ms["leaf_digests2d_eds"], event_ms=event_ms["leaf_digests2d_eds"],
          bound_ms=bound(4 * sha_ops, 4 * (k * n + 2 * k * nc * 32))[0])
-    top = sorted(by_op.items(), key=lambda kv: -kv[1][0])
-    emit(phase="profile", k=main_sq.shape[0], entry="roots_device",
-         device_busy_ms=busy_ms, roots_device_ms=roots_ms[128],
-         device_idle_share=1 - busy_ms / roots_ms[128], device_ops=len(by_op),
-         launches=sum(v[1] for v in by_op.values()),
-         top=[{"op": name, "ms": v[0], "count": v[1]} for name, v in top[:12]])
 
     sources = {
         "encode2d_hash": ("celestia_tpu_torch/csrc/rs_hash.cu", "celestia_tpu/ops/rs_pallas.py:276"),
         "leaf_digests2d": ("celestia_tpu_torch/csrc/rs_hash.cu", "celestia_tpu/ops/rs_pallas.py:295"),
         "sha256_words": ("celestia_tpu_torch/csrc/sha256_words.cu",
                          "celestia_tpu/ops/sha256_pallas.py:129"),
+        "encode2d": ("celestia_tpu_torch/csrc/rs_hash.cu", "celestia_tpu/ops/rs_pallas.py:270"),
+        "encode2d_xor_hash": ("celestia_tpu_torch/csrc/xor_schedule.cu",
+                              "celestia_tpu/ops/xor_schedule.py:537"),
+        "encode2d_xor": ("celestia_tpu_torch/csrc/xor_schedule.cu",
+                         "celestia_tpu/ops/xor_schedule.py:476"),
     }
     kernels = []
     for kname, (t_d, _t_e, t_p, (b_ms, b_by)) in results.items():
@@ -458,4 +685,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
