@@ -1,33 +1,57 @@
 // K1 encode2d_hash, K4 encode2d and K2 leaf_digests2d for sm_90a.
 //
 // K1 replaces the Pallas kernel rs_pallas.encode2d_hash
-// (celestia_tpu/ops/rs_pallas.py:276, body _fused_kernel :167): the Leopard
-// RS encode of k data shards as a GF(2) bit-matrix product, fused with the
-// SHA-256 NMT leaf digest of every parity cell it produces.
-// K4 replaces rs_pallas.encode2d (rs_pallas.py:270, body _encode_kernel):
-// K1 with the hash stage compiled out (kHash = false), so the contraction
-// has one copy.
+// (celestia_tpu/ops/rs_pallas.py:276, body _fused_kernel :167, pallas_call
+// :217): the Leopard RS encode of k data shards, fused with the SHA-256 NMT
+// leaf digest of every parity cell it produces.
+// K4 replaces rs_pallas.encode2d (rs_pallas.py:270, body _encode_kernel :163,
+// pallas_call :197): K1 with the hash stage compiled out (kHash = false), so
+// the encode has one copy.
 // K2 replaces rs_pallas.leaf_digests2d (rs_pallas.py:295, body
 // _leaf_kernel :178): the leaf digests of existing cells, each with its own
 // namespace.
 //
 // Layouts: x (rows, n) uint8 with the shard axis leading, n a multiple of
 // 512; parity (k, n) uint8; digests (rows, n/512, 8) uint32; ns_pad
-// (rows, n/512, 32) uint8; m2p (8k, W) uint32, row p of the (8k, 8k) GF(2)
-// encode matrix packed LSB-first (bit j of word w is M2[p, 32w + j]),
-// W = max(4, k/4).
+// (rows, n/512, 32) uint8. The encode's operands (ops/rs.py fft_program,
+// built once per k and device): fft_rows (n_const, 256) uint8, row i the
+// products mul(c_i, 0..255) of the i-th distinct nonzero twiddle
+// (n_const = k - 1), and fft_group (2(k - 1),) int16, each butterfly group's
+// row or -1 for a zero twiddle.
 //
-// K1 design. The k bytes of one lane x[:, n], read as little-endian 32-bit
-// words, are the 8k-bit data vector in M2's column order (q = 8*shard + bit),
-// so parity bit p = popcount(AND of M2 row p with the data words) mod 2, and
-// the XOR of the ANDs needs one popcount per bit. One block owns one
-// 512-lane cell column: one thread per lane, M2 in shared memory (every
-// thread of a warp reads the same 16-byte vector, a broadcast), the data
-// words in registers. The (k, 512) parity tile goes to global memory and to
-// shared memory; after a barrier, thread i hashes cell i of the column from
-// shared memory. What bounds it: operations (see ops/rs_cuda.py); this
-// first version runs the contraction on the integer ALUs, not the int8
-// tensor cores, and hashes with k of the 512 threads.
+// K1/K4 design. The encode is gf256.leopard_encode's own spelling, an
+// inverse then a forward additive FFT over the k shards (896 butterflies at
+// k = 128, 769 of them with a multiply by one of 127 constants), not the
+// TPU kernel's GF(2) bit-matrix product on the MXU carried over. One block
+// owns one 512-lane cell column; each of its 256 threads owns 2 adjacent
+// lanes, held as one 16-bit half-word per shard in a register (k registers).
+// The butterflies are unrolled at compile time (k is a template parameter)
+// and run in registers; a multiply x ^= c * y looks up each byte of y in
+// c's product row in shared memory, with the address made by one byte
+// permute (the row sits on a 256-byte boundary), and puts the two products
+// back together with one more. Every lane runs the same program, so the
+// twiddle is a broadcast and the branch over a zero twiddle is uniform
+// (groups narrower than kBranchDist multiply by a zero row instead, to keep
+// the small groups free of branches). K1 also writes its parity into a
+// shared-memory tile with a 516-byte row stride; after a barrier thread i
+// hashes cell i of the column from the tile with sha256.cuh's leaf digest,
+// the one K2 and K5 use.
+// What bounds it (k = 128, N = 65,536, see ops/rs_cuda.py): operations. The
+// cheapest spelling of the FFT counts 9 int32 operations per multiply
+// butterfly on a 4-lane word (4 address permutes, 3 assembling permutes,
+// 2 XORs) and 1 per plain butterfly, 6.9 us on the ALUs, beside 769 byte
+// lookups per lane, 6.0 us on the shared-memory pipe without bank
+// conflicts; K1 adds the leaf SHA on the same ALUs. This kernel holds 2
+// lanes per word (per 2-lane multiply: 2 address permutes, 1 assembling
+// permute, 2 XORs, 2 lookups): at 4 lanes a thread, k = 128 has one warp per
+// SM sub-partition and the dependent lookups stall it; 2 lanes give two
+// warps and measured faster (PERF.md). A product row is 64 words over 32
+// banks, so a warp's 32 lookups cost up to two wavefronts. Compiled for
+// sm_90a (nvcc 12.8), K4's k = 128 instance is 7,360 SASS instructions per
+// thread for its 776 multiply butterflies (7 of them by the zero row) and
+// 120 plain ones: 2,693 PRMT, 1,634 LOP3, 514 IADD3 and 1,858 LDS (the
+// 1,552 lookups and the group table), in 254 registers with no spill
+// (chip_smoke.py's sass_mix and ptxas lines).
 //
 // K2 design. One block owns up to kLeafRows rows of one cell column: it
 // copies the cells into shared memory with coalesced word loads, then each
@@ -45,59 +69,130 @@ namespace celestia {
 constexpr int kCell = 512;            // bytes per share
 constexpr int kTileStride = 129;      // words per shared-memory cell row (516 B)
 constexpr int kLeafRows = 64;         // K2 rows per block
+constexpr int kRow = 256;             // bytes per product row in shared memory
+constexpr int kBranchDist = 8;        // groups this wide branch over a zero twiddle
+constexpr int kLanes = 2;             // lanes (bytes) per state word
+constexpr int kEncodeThreads = kCell / kLanes;  // one block per cell column
 
-template <int W, bool kHash>
-__global__ void __launch_bounds__(kCell)
-encode2d_hash_kernel(const uint8_t* __restrict__ x, const uint32_t* __restrict__ m2p,
-                     uint8_t* __restrict__ parity, uint32_t* __restrict__ digests,
-                     int k, int n) {
+__host__ __device__ constexpr int ilog2(int k) { return k <= 1 ? 0 : 1 + ilog2(k / 2); }
+__host__ __device__ constexpr int groups_of(int k) { return 2 * (k - 1); }
+// the group table comes first; the product rows start on a row boundary
+__host__ __device__ constexpr int rows_offset(int k) {
+  return (groups_of(k) * 4 + kRow - 1) / kRow * kRow;
+}
+
+// c * y in GF(256) for the 2 bytes of y; base is the byte offset of c's
+// product row in `rows`, a multiple of 256, so a byte permute that puts a
+// byte of y into base's low byte makes the lookup address.
+__device__ __forceinline__ uint32_t gf_mul(uint32_t y, uint32_t base, const uint8_t* rows) {
+  const uint32_t p0 = rows[__byte_perm(y, base, 0x7650)];
+  const uint32_t p1 = rows[__byte_perm(y, base, 0x7651)];
+  return __byte_perm(p0, p1, 0x1140);
+}
+
+// The butterflies of gf256.leopard_encode for K shards on state words in
+// registers (every index is a compile-time constant once unrolled). Group
+// g's product row is at grp[g], in the order ops/rs.py fft_program emits;
+// `zero` is the zero row's offset, which a zero twiddle's group points at.
+template <int K>
+struct LeopardFft {
+  static constexpr int kLog = ilog2(K);
+
+  // IFFT level LV: dist = 2^LV; y ^= x, then x ^= c * y
+  template <int LV>
+  static __device__ __forceinline__ void ifft(uint32_t (&w)[K], const uint32_t* grp,
+                                              const uint8_t* rows, uint32_t zero) {
+    if constexpr (LV < kLog) {
+      constexpr int dist = 1 << LV;
+      constexpr int g0 = K - (K >> LV);
+#pragma unroll
+      for (int j = 0; j < K / (2 * dist); ++j) {
+        const int r = 2 * dist * j;
+        const uint32_t base = grp[g0 + j];
+#pragma unroll
+        for (int i = 0; i < dist; ++i) w[r + dist + i] ^= w[r + i];
+        if (dist < kBranchDist || base != zero) {
+#pragma unroll
+          for (int i = 0; i < dist; ++i) w[r + i] ^= gf_mul(w[r + dist + i], base, rows);
+        }
+      }
+      ifft<LV + 1>(w, grp, rows, zero);
+    }
+  }
+
+  // FFT level LV: dist = K / 2^(LV + 1); x ^= c * y, then y ^= x
+  template <int LV>
+  static __device__ __forceinline__ void fft(uint32_t (&w)[K], const uint32_t* grp,
+                                             const uint8_t* rows, uint32_t zero) {
+    if constexpr (LV < kLog) {
+      constexpr int dist = K >> (LV + 1);
+      constexpr int g0 = (K - 1) + (1 << LV) - 1;
+#pragma unroll
+      for (int j = 0; j < (1 << LV); ++j) {
+        const int r = 2 * dist * j;
+        const uint32_t base = grp[g0 + j];
+        if (dist < kBranchDist || base != zero) {
+#pragma unroll
+          for (int i = 0; i < dist; ++i) w[r + i] ^= gf_mul(w[r + dist + i], base, rows);
+        }
+#pragma unroll
+        for (int i = 0; i < dist; ++i) w[r + dist + i] ^= w[r + i];
+      }
+      fft<LV + 1>(w, grp, rows, zero);
+    }
+  }
+};
+
+template <int K, bool kHash>
+__global__ void __launch_bounds__(kEncodeThreads)
+encode2d_fft_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ fft_rows,
+                    const int16_t* __restrict__ fft_group, int n_const,
+                    uint8_t* __restrict__ parity, uint32_t* __restrict__ digests, int n) {
+  constexpr int kGroups = groups_of(K);
   extern __shared__ uint4 smem_vec[];
-  uint32_t* sm2 = reinterpret_cast<uint32_t*>(smem_vec);  // 8k * W words
-  uint32_t* tile = sm2 + 8 * k * W;                        // kHash: k * kTileStride words
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem_vec);
+  uint32_t* grp = reinterpret_cast<uint32_t*>(smem);     // kGroups row offsets
+  uint8_t* rows = smem + rows_offset(K);                  // n_const rows, then a zero row
+  uint32_t* tile = reinterpret_cast<uint32_t*>(rows + (n_const + 1) * kRow);  // kHash
   uint8_t* tile_bytes = reinterpret_cast<uint8_t*>(tile);
+  const uint32_t zero = static_cast<uint32_t>(n_const) * kRow;
 
   const int col = blockIdx.x;
   const int t = threadIdx.x;
-  const size_t lane = static_cast<size_t>(col) * kCell + t;
+  const size_t lane0 = static_cast<size_t>(col) * kCell + kLanes * t;
 
-  for (int i = t; i < 8 * k * W / 4; i += kCell) {
-    smem_vec[i] = reinterpret_cast<const uint4*>(m2p)[i];
+  uint32_t w[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    w[i] = *reinterpret_cast<const uint16_t*>(x + static_cast<size_t>(i) * n + lane0);
   }
 
-  uint32_t d[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    uint32_t v = 0u;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int i = 4 * w + b;
-      if (i < k) v |= static_cast<uint32_t>(x[static_cast<size_t>(i) * n + lane]) << (8 * b);
-    }
-    d[w] = v;
+  const int nvec = n_const * (kRow / 16);
+  for (int i = t; i < nvec + kRow / 16; i += kEncodeThreads) {
+    reinterpret_cast<uint4*>(rows)[i] =
+        i < nvec ? reinterpret_cast<const uint4*>(fft_rows)[i] : make_uint4(0u, 0u, 0u, 0u);
+  }
+  for (int g = t; g < kGroups; g += kEncodeThreads) {
+    const int r = fft_group[g];
+    grp[g] = r < 0 ? zero : static_cast<uint32_t>(r) * kRow;
   }
   __syncthreads();
 
-  for (int j = 0; j < k; ++j) {
-    uint32_t byte = 0u;
+  LeopardFft<K>::template ifft<0>(w, grp, rows, zero);
+  LeopardFft<K>::template fft<0>(w, grp, rows, zero);
+
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const uint4* row = reinterpret_cast<const uint4*>(sm2 + (8 * j + r) * W);
-      uint32_t acc = 0u;
-#pragma unroll
-      for (int q = 0; q < W / 4; ++q) {
-        const uint4 m = row[q];
-        acc ^= (m.x & d[4 * q]) ^ (m.y & d[4 * q + 1]) ^
-               (m.z & d[4 * q + 2]) ^ (m.w & d[4 * q + 3]);
-      }
-      byte |= (__popc(acc) & 1u) << r;
+  for (int i = 0; i < K; ++i) {
+    const uint16_t v = static_cast<uint16_t>(w[i]);
+    *reinterpret_cast<uint16_t*>(parity + static_cast<size_t>(i) * n + lane0) = v;
+    if (kHash) {
+      *reinterpret_cast<uint16_t*>(tile_bytes + i * kTileStride * 4 + kLanes * t) = v;
     }
-    parity[static_cast<size_t>(j) * n + lane] = static_cast<uint8_t>(byte);
-    if (kHash) tile_bytes[j * kTileStride * 4 + t] = static_cast<uint8_t>(byte);
   }
   if (!kHash) return;
   __syncthreads();
 
-  if (t < k) {
+  if (t < K) {
     uint32_t pre[8], st[8];
     leaf_prefix_parity(pre);
     leaf_digest(tile + t * kTileStride, pre, st);
@@ -139,57 +234,65 @@ leaf_digests2d_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__
   }
 }
 
-template <int W, bool kHash>
-static cudaError_t launch_encode(const uint8_t* x, const uint32_t* m2p, uint8_t* parity,
-                                 uint32_t* digests, int k, int n, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(8) * k * W +
-                       (kHash ? static_cast<size_t>(k) * kTileStride : 0)) *
-                      sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(encode2d_hash_kernel<W, kHash>,
+template <int K, bool kHash>
+static cudaError_t launch_encode(const uint8_t* x, const uint8_t* rows, const int16_t* group,
+                                 int n_const, uint8_t* parity, uint32_t* digests, int n,
+                                 cudaStream_t stream) {
+  const size_t smem = rows_offset(K) + static_cast<size_t>(n_const + 1) * kRow +
+                      (kHash ? static_cast<size_t>(K) * kTileStride * 4 : 0);
+  cudaError_t err = cudaFuncSetAttribute(encode2d_fft_kernel<K, kHash>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  encode2d_hash_kernel<W, kHash><<<n / kCell, kCell, smem, stream>>>(x, m2p, parity, digests,
-                                                                     k, n);
+  encode2d_fft_kernel<K, kHash><<<n / kCell, kEncodeThreads, smem, stream>>>(
+      x, rows, group, n_const, parity, digests, n);
   return cudaGetLastError();
 }
 
-// W = packed M2 words per row, max(4, k/4), as a compile-time constant.
+// The butterfly program's shape depends on k alone, so k is a template
+// parameter and every level unrolls; the twiddles stay in memory.
 template <bool kHash>
-static int encode_entry(const void* x, const void* m2p, void* parity, void* digests, int k,
-                        int n, int device, void* stream) {
-  if (k < 1 || k > 128 || (k & (k - 1)) || n <= 0 || n % kCell) {
+static int encode_entry(const void* x, const void* rows, const void* group, int n_const,
+                        void* parity, void* digests, int k, int n, int device, void* stream) {
+  if (k < 1 || k > 128 || (k & (k - 1)) || n <= 0 || n % kCell || n_const < 0 ||
+      n_const > groups_of(k)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto xs = static_cast<const uint8_t*>(x);
-  auto ms = static_cast<const uint32_t*>(m2p);
+  auto rs = static_cast<const uint8_t*>(rows);
+  auto gs = static_cast<const int16_t*>(group);
   auto ps = static_cast<uint8_t*>(parity);
   auto ds = static_cast<uint32_t*>(digests);
   auto s = static_cast<cudaStream_t>(stream);
-  if (k <= 16) {
-    err = launch_encode<4, kHash>(xs, ms, ps, ds, k, n, s);
-  } else if (k == 32) {
-    err = launch_encode<8, kHash>(xs, ms, ps, ds, k, n, s);
-  } else if (k == 64) {
-    err = launch_encode<16, kHash>(xs, ms, ps, ds, k, n, s);
-  } else {
-    err = launch_encode<32, kHash>(xs, ms, ps, ds, k, n, s);
+  switch (k) {
+    case 1: err = launch_encode<1, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
+    case 2: err = launch_encode<2, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
+    case 4: err = launch_encode<4, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
+    case 8: err = launch_encode<8, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
+    case 16: err = launch_encode<16, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
+    case 32: err = launch_encode<32, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
+    case 64: err = launch_encode<64, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
+    default: err = launch_encode<128, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
   }
   return static_cast<int>(err);
 }
 
 }  // namespace celestia
 
-extern "C" int celestia_encode2d_hash(const void* x, const void* m2p, void* parity,
-                                      void* digests, int k, int n, int device, void* stream) {
-  return celestia::encode_entry<true>(x, m2p, parity, digests, k, n, device, stream);
+extern "C" int celestia_encode2d_hash(const void* x, const void* fft_rows, const void* fft_group,
+                                      int n_const, void* parity, void* digests, int k, int n,
+                                      int device, void* stream) {
+  return celestia::encode_entry<true>(x, fft_rows, fft_group, n_const, parity, digests, k, n,
+                                      device, stream);
 }
 
-extern "C" int celestia_encode2d(const void* x, const void* m2p, void* parity, int k, int n,
-                                 int device, void* stream) {
-  return celestia::encode_entry<false>(x, m2p, parity, nullptr, k, n, device, stream);
+extern "C" int celestia_encode2d(const void* x, const void* fft_rows, const void* fft_group,
+                                 int n_const, void* parity, int k, int n, int device,
+                                 void* stream) {
+  return celestia::encode_entry<false>(x, fft_rows, fft_group, n_const, parity, nullptr, k, n,
+                                       device, stream);
 }
 
 extern "C" int celestia_leaf_digests2d(const void* x, const void* ns_pad, void* digests,

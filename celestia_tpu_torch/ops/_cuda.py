@@ -46,10 +46,10 @@ _V = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: every pointer and the stream as c_void_p, every int as c_int
 _SIGNATURES = {
-    # (x, m2_packed, parity, digests, k, n, device, stream)
-    "celestia_encode2d_hash": (_V, _V, _V, _V, _I, _I, _I, _V),
-    # (x, m2_packed, parity, k, n, device, stream)
-    "celestia_encode2d": (_V, _V, _V, _I, _I, _I, _V),
+    # (x, fft_rows, fft_group, n_const, parity, digests, k, n, device, stream)
+    "celestia_encode2d_hash": (_V, _V, _V, _I, _V, _V, _I, _I, _I, _V),
+    # (x, fft_rows, fft_group, n_const, parity, k, n, device, stream)
+    "celestia_encode2d": (_V, _V, _V, _I, _V, _I, _I, _I, _V),
     # (x, node_ab, level_off, n_levels, n_nodes, row_blk, width8, parity,
     #  digests, k, n, device, stream)
     "celestia_encode2d_xor_hash": (_V, _V, _V, _I, _I, _V, _I, _V, _V, _I, _I, _I, _V),

@@ -1,4 +1,5 @@
-"""Reed-Solomon extension as a GF(2) bit-matrix product (port of ops/rs_tpu.py).
+"""Reed-Solomon extension (port of ops/rs_tpu.py): the plain GF(2)
+bit-matrix product and the operands of the CUDA kernels' additive FFT.
 
 The Leopard code (pkg/appconsts/global_consts.go:92 selects it) is linear
 over GF(2^8): parity shard j = sum_i M[j, i] * data_i with
@@ -11,15 +12,16 @@ Bit order: a byte unpacks LSB-first to 8 bit lanes, contraction index
 q = 8*shard + bit; M2 block (j, i) is the 8x8 companion matrix of
 multiply-by-M[j, i]: M2[8j+r, 8i+c] = bit_r(M[j, i] * x^c).
 
-This code has no weights: M2 is its only parameter, and
-``encode_matrix_from_numpy`` carries the JAX package's M2 across into the
-port's two forms (the 0/1 tensor the plain version multiplies, and the
-bit-packed words the CUDA kernel K1 reads).
+The plain functions here multiply by M2; they are the reference the kernels
+are held against, and M2 feeds the XOR-schedule compiler. The CUDA kernels
+K1 and K4 (csrc/rs_hash.cu) do not: they run ``gf256.leopard_encode``'s own
+spelling, an inverse then a forward additive FFT over the k shards, from
+the butterfly program ``fft_program(k)`` builds. ``encode_matrix_from_numpy``
+carries the JAX package's M2 across and pairs it with that program.
 
-The plain functions here are the reference the kernels are held against. The
-contraction runs in float32: the operands are 0/1 and a sum has at most 1024
-terms, so every partial sum is an exact integer in float32 (and in TF32,
-whose inputs 0 and 1 are exact too); ``& 1`` then gives the GF(2) bit.
+The contraction runs in float32: the operands are 0/1 and a sum has at most
+1024 terms, so every partial sum is an exact integer in float32 (and in
+TF32, whose inputs 0 and 1 are exact too); ``& 1`` then gives the GF(2) bit.
 """
 
 from __future__ import annotations
@@ -51,44 +53,81 @@ def encode_bit_matrix(k: int) -> np.ndarray:
     return expand_bit_matrix(gf256.encode_matrix(k))
 
 
+@functools.lru_cache(maxsize=16)
+def fft_program(k: int) -> tuple[np.ndarray, np.ndarray]:
+    """The butterfly program of ``gf256.leopard_encode`` for k shards, as
+    the kernels read it: ``(rows, group)``.
+
+    Groups in the order the encode runs them: the IFFT levels (dist 1 ->
+    k/2, r ascending, twiddle ``skew[k - 1 + r + dist]``: y ^= x, then
+    x ^= c·y), then the FFT levels (dist k/2 -> 1, r ascending, twiddle
+    ``skew[r + dist - 1]``: x ^= c·y, then y ^= x), where x is shards
+    [r, r + dist) and y shards [r + dist, r + 2·dist).
+
+    rows:  (n_const, 256) uint8; row i is mul(c_i, ·) for the i-th distinct
+           nonzero twiddle c_i, from ``gf256.mul_table()``.
+    group: (2(k - 1),) int16; group g's row index, or -1 where its twiddle's
+           log is 255 (a zero twiddle: the butterfly skips its multiply).
+    k = 1 has no group (the encode is a copy)."""
+    if k < 1 or k & (k - 1):
+        raise ValueError(f"k must be a power of two, got {k}")
+    skew = gf256.fft_skew()
+    logs = []
+    dist = 1
+    while dist < k:
+        logs += [int(skew[k - 1 + r + dist]) for r in range(0, k, 2 * dist)]
+        dist *= 2
+    dist = k >> 1
+    while dist >= 1:
+        logs += [int(skew[r + dist - 1]) for r in range(0, k, 2 * dist)]
+        dist >>= 1
+    distinct = sorted({lg for lg in logs if lg != gf256.K_MODULUS})
+    index = {lg: i for i, lg in enumerate(distinct)}
+    group = np.array([index.get(lg, -1) for lg in logs], dtype=np.int16)
+    consts = gf256.exp_table()[np.array(distinct, dtype=np.int64)]
+    rows = gf256.mul_table()[consts].reshape(len(distinct), 256)
+    rows.flags.writeable = group.flags.writeable = False  # shared by the cache
+    return rows, group
+
+
 @dataclasses.dataclass(frozen=True)
 class EncodeMatrix:
-    """M2 on a device in the two forms the port reads.
+    """The encode of square size k on a device, in the forms the port reads.
 
-    bits:   (8k, 8k) uint8 0/1 — the plain version's operand.
-    packed: (8k, W) uint32 — row p of M2 packed LSB-first into 32-bit words
-            (bit j of word w is M2[p, 32w + j]), W = max(4, k/4) so that a
-            row is whole 16-byte vectors. Read little-endian, k data bytes of
-            one lane are the same 8k-bit vector in the same order, so parity
-            bit p is popcount(AND of the words) mod 2 (csrc/rs_hash.cu)."""
+    bits:      (8k, 8k) uint8 0/1 — M2, the plain version's operand.
+    fft_rows:  (n_const, 256) uint8 — the FFT's product rows, n_const = k - 1.
+    fft_group: (2(k - 1),) int16 — each butterfly group's row, -1 to skip.
+    The last two are ``fft_program(k)``, read by kernels K1 and K4."""
 
     bits: torch.Tensor
-    packed: torch.Tensor
+    fft_rows: torch.Tensor
+    fft_group: torch.Tensor
 
-
-def packed_words(k: int) -> int:
-    """Words per packed M2 row (whole uint4 vectors, as the kernel loads)."""
-    return max(4, (8 * k) // 32)
+    @property
+    def k(self) -> int:
+        return self.bits.shape[0] // 8
 
 
 def encode_matrix_from_numpy(m2: np.ndarray, device) -> EncodeMatrix:
     """The JAX package's M2 (``rs_tpu.encode_bit_matrix(k)``, a numpy
-    (8k, 8k) 0/1 array) -> the port's EncodeMatrix on ``device``."""
+    (8k, 8k) 0/1 array) -> the port's EncodeMatrix on ``device``.
+
+    The kernels compute the Leopard code through its FFT program, not
+    through M2, so an M2 that is not Leopard's for its k is refused: the
+    kernels and the plain version would compute different codes."""
     m2 = np.asarray(m2)
     if m2.ndim != 2 or m2.shape[0] != m2.shape[1] or m2.shape[0] % 8:
         raise ValueError(f"M2 must be (8k, 8k), got {m2.shape}")
     if not np.isin(m2, (0, 1)).all():
         raise ValueError("M2 must be a 0/1 matrix")
-    rows = m2.shape[0]
-    words = packed_words(rows // 8)
-    padded = np.zeros((rows, words * 32), dtype=np.uint64)
-    padded[:, :rows] = m2
-    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
-    packed = (padded.reshape(rows, words, 32) * weights).sum(axis=-1)
-    packed = packed.astype(np.uint32).view(np.int32)
+    k = m2.shape[0] // 8
+    if k & (k - 1) or not np.array_equal(m2, encode_bit_matrix(k)):
+        raise ValueError(f"M2 is not the Leopard encode's bit matrix for k = {k}")
+    rows, group = fft_program(k)
     return EncodeMatrix(
         bits=torch.as_tensor(m2.astype(np.uint8), device=device),
-        packed=torch.as_tensor(packed, device=device).view(torch.uint32),
+        fft_rows=torch.tensor(rows, device=device),
+        fft_group=torch.tensor(group, device=device),
     )
 
 
@@ -98,7 +137,8 @@ def _encode_matrix_cached(k: int, device: str) -> EncodeMatrix:
 
 
 def encode_matrix(k: int, device: torch.device) -> EncodeMatrix:
-    """M2 for square size k on ``device``, built once per (k, device)."""
+    """The encode operands for square size k on ``device``, built once per
+    (k, device)."""
     return _encode_matrix_cached(k, str(device))
 
 

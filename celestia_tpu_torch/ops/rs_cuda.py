@@ -5,17 +5,26 @@ Counterpart of the JAX package's ops/rs_pallas.py. Sources:
 ``csrc/rs_hash.cu`` with the SHA-256 compression of ``csrc/sha256.cuh``.
 
 K1 ``encode2d_hash(x2, m2)`` replaces ``rs_pallas.encode2d_hash``
-(rs_pallas.py:276, ``pallas_call`` at :217): the GF(2) bit-matrix Leopard
-encode of k data shards and, in the same pass, the SHA-256 NMT leaf digest
-of every produced cell (0x00 ‖ parity namespace ‖ 512-byte cell, 542 bytes,
-9 blocks). The parity tile of a 512-lane cell column is written to shared
-memory next to global memory, so the hash stage reads it without another
-trip through device memory.
+(rs_pallas.py:276, body ``_fused_kernel`` :167, ``pallas_call`` at :217):
+the Leopard encode of k data shards and, in the same pass, the SHA-256 NMT
+leaf digest of every produced cell (0x00 ‖ parity namespace ‖ 512-byte cell,
+542 bytes, 9 blocks). The parity tile of a 512-lane cell column is written
+to shared memory next to global memory, so the hash stage reads it without
+another trip through device memory.
 
 K4 ``encode2d(x2, m2)`` replaces ``rs_pallas.encode2d`` (rs_pallas.py:270,
-``pallas_call`` at :197): K1's encode with the hash stage compiled out (one
-template flag on the same kernel, so the contraction has one copy). It is
-the quadrant encode of ``extend_square``, the unfused dense route.
+body ``_encode_kernel`` :163, ``pallas_call`` at :197): K1's encode with
+the hash stage compiled out (one template flag on the same kernel, so the
+encode has one copy). It is the quadrant encode of ``extend_square``, the
+unfused dense route.
+
+The encode is not the TPU kernels' GF(2) bit-matrix product on the MXU: it
+is ``gf256.leopard_encode``'s own additive FFT (an inverse then a forward
+transform over the k shards, 896 butterflies at k = 128), run from the
+butterfly program in ``m2.fft_rows`` / ``m2.fft_group`` (``rs.fft_program``),
+with each multiply by a constant a byte lookup in that constant's product
+row in shared memory. The plain versions still multiply by M2 (``m2.bits``),
+so the kernels are held against an independent spelling of the same code.
 
 K2 ``leaf_digests2d(x2, ns_pad)`` replaces ``rs_pallas.leaf_digests2d``
 (rs_pallas.py:295, ``pallas_call`` at :243): the leaf digests of cells that
@@ -27,19 +36,26 @@ parity is (k, N) uint8; digests are (k, N/512, 8) uint32, the big-endian
 word values of SHA-256; ns_pad is (k, N/512, 32) uint8, the 29-byte
 namespace zero-padded to 32.
 
-What bounds them on the H100, at k = 128 (N = 65,536). The encode has two
-known spellings, and its bound is the cheaper one's:
+What bounds them on the H100, at k = 128 (N = 65,536). The encode has three
+known spellings, and its bound is the cheapest one's:
 - as a dense product, 2·(8k)²·N = 137 G bit operations, 69 µs at the
   1,979 TOP/s int8 tensor-core rate;
 - as the compiled XOR schedule (``ops/xor_schedule.py``) bit-sliced 32 lanes
-  to a word, with each output row assembled from three-input XORs: 123,520
-  operations per word, 2.5e8 int32 operations, 15 µs at ~16.7 T int32 op/s
-  (64 INT32 lanes × 132 SMs × 1.98 GHz, an estimate from the SM layout).
-So K4 is bound at 15 µs by operations. K1 adds the 147,456 leaf SHA blocks
-(~2.2k int32 operations each, ~19 µs) on the same ALUs: 34.5 µs, bound by
-operations; the ~18 MB it moves are 5.5 µs at 3.35 TB/s. This first kernel
-does the dense contraction on the integer ALUs (32 AND/XOR lanes per word
-operation, one popcount per parity bit).
+  to a word, rows assembled from three-input XORs: 2.5e8 int32 operations,
+  15 µs at ~16.7 T int32 op/s (64 INT32 lanes × 132 SMs × 1.98 GHz, an
+  estimate from the SM layout);
+- as the Leopard FFT, 769 multiply butterflies and 127 plain ones per lane:
+  with 4 lanes to a word, 9 int32 operations per multiply butterfly (4
+  byte permutes that make the lookup addresses, 3 that assemble the
+  products, 2 XORs) and 1 per plain one, 1.2e8 operations, 6.9 µs; beside
+  them 769 byte lookups per lane, 5.0e7 in all, 6.0 µs on the shared-memory
+  pipe (32 lookups per clock per SM, without bank conflicts).
+So K4 is bound at 6.9 µs by operations. K1 adds the 147,456 leaf SHA blocks
+(~2.2k int32 operations each, ~19 µs) on the same ALUs: 26 µs, bound by
+operations; the ~18 MB it moves are 5.5 µs at 3.35 TB/s. The kernel holds
+2 lanes per word (5 operations and 2 lookups per multiply butterfly): at 4
+lanes a thread, k = 128 leaves one warp per SM sub-partition to wait on its
+own lookups.
 - K2: the same 147,456 SHA blocks, ~19 µs, operation-bound; 9 MB moved.
 K1 and K2 share one hash stage: one thread hashes one cell from a shared
 memory tile whose row stride (516 bytes) spreads a warp's reads over all
@@ -58,7 +74,7 @@ from celestia_tpu_torch.ops.sha256_cuda import message_words, sha_core_reference
 
 # namespaces ride to the leaf-hash kernel padded to a 4-byte-aligned width
 NS_PAD = 32
-MAX_K = 128  # K1 keeps the packed (8k, k/4) M2 in shared memory
+MAX_K = 128  # the FFT encode holds k state registers per thread; one instance per k
 PARITY_NS = np.frombuffer(ns.PARITY_SHARES_NAMESPACE.bytes, dtype=np.uint8).copy()
 
 
@@ -118,8 +134,10 @@ def _check_encode_inputs(x2: torch.Tensor, m2: rs.EncodeMatrix) -> None:
     if k & (k - 1) or k > MAX_K:
         raise ValueError(f"k must be a power of two <= {MAX_K}, got {k}")
     _cuda.require(x2, "x2", torch.uint8, (k, n), x2.device)
-    _cuda.require(m2.packed, "m2.packed", torch.uint32,
-                  (8 * k, rs.packed_words(k)), x2.device)
+    if m2.k != k:
+        raise ValueError(f"the encode operands are for k = {m2.k}, x2 has {k} shards")
+    _cuda.require(m2.fft_rows, "m2.fft_rows", torch.uint8, (max(k - 1, 0), 256), x2.device)
+    _cuda.require(m2.fft_group, "m2.fft_group", torch.int16, (2 * (k - 1),), x2.device)
 
 
 def encode2d(x2: torch.Tensor, m2: rs.EncodeMatrix) -> torch.Tensor:
@@ -132,8 +150,9 @@ def encode2d(x2: torch.Tensor, m2: rs.EncodeMatrix) -> torch.Tensor:
     k, n = x2.shape
     parity = torch.empty((k, n), dtype=torch.uint8, device=x2.device)
     rc = _cuda.library().celestia_encode2d(
-        x2.data_ptr(), m2.packed.data_ptr(), parity.data_ptr(), k, n,
-        x2.device.index or 0, _cuda.stream_of(x2))
+        x2.data_ptr(), m2.fft_rows.data_ptr(), m2.fft_group.data_ptr(),
+        m2.fft_rows.shape[0], parity.data_ptr(), k, n, x2.device.index or 0,
+        _cuda.stream_of(x2))
     _cuda.check(rc, "encode2d")
     _cuda.LAUNCHES["encode2d"] += 1
     return parity
@@ -154,8 +173,9 @@ def encode2d_hash(x2: torch.Tensor, m2: rs.EncodeMatrix):
                           device=x2.device)
     lib = _cuda.library()
     rc = lib.celestia_encode2d_hash(
-        x2.data_ptr(), m2.packed.data_ptr(), parity.data_ptr(),
-        digests.data_ptr(), k, n, x2.device.index or 0, _cuda.stream_of(x2))
+        x2.data_ptr(), m2.fft_rows.data_ptr(), m2.fft_group.data_ptr(),
+        m2.fft_rows.shape[0], parity.data_ptr(), digests.data_ptr(), k, n,
+        x2.device.index or 0, _cuda.stream_of(x2))
     _cuda.check(rc, "encode2d_hash")
     _cuda.LAUNCHES["encode2d_hash"] += 1
     return parity, digests

@@ -22,8 +22,9 @@ prints no result; it also exits non-zero when no CUDA device is present):
    XOR schedule's host compile at k = 128 and its seconds.
 2. Each kernel against its plain PyTorch version on the card, byte for byte:
    K3 on messages of every length 0..600 (and against hashlib) and at the
-   NMT level shapes; K1, K2, K4, K5 and K6 at k = 1, 2, 16, 64 and 128; and
-   the dense and XOR kernels against each other (K5 = K1, K6 = K4).
+   NMT level shapes; K1, K2, K4, K5 and K6 at every power of two k from 1
+   to 128 (the FFT program of K1/K4 differs per k); and the FFT and XOR
+   kernels against each other (K5 = K1, K6 = K4).
 3. The reference DAH hashes (MIN k = 1, TYPICAL k = 2, MAX k = 128) through
    da.extend_shares -> new_data_availability_header(...).hash(), and the DAH
    computed on the device by extend_and_root_device equal to the host's, on
@@ -57,10 +58,12 @@ last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -70,12 +73,19 @@ import numpy as np
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and int8
 # tensor-core rate. The int32 ALU rate is an estimate from the SM layout
-# (64 INT32 lanes x 132 SMs x 1.98 GHz); one SHA-256 block is ~2.2k int32
-# operations.
+# (64 INT32 lanes x 132 SMs x 1.98 GHz), and so is the shared-memory lookup
+# rate (one 32-bank wavefront per clock per SM: 32 byte lookups without bank
+# conflicts); one SHA-256 block is ~2.2k int32 operations.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+LOOKUPS_PER_S = 32 * 132 * 1.98e9
 SHA_BLOCK_OPS = 2200
+# the FFT spelling of the encode, per 4-lane word: a multiply butterfly is 4
+# byte permutes (lookup addresses), 3 permutes (assembly) and 2 XORs beside
+# its 4 lookups; a butterfly with a zero twiddle is 1 XOR
+FFT_MUL_OPS = 9
+FFT_PLAIN_OPS = 1
 LEAF_BLOCKS = 9  # 542-byte NMT leaf message
 NODE_BLOCKS = 3  # 181-byte NMT node message
 
@@ -132,6 +142,54 @@ def card() -> tuple[str, str, str]:
     return line, name, limit
 
 
+def fft_butterflies(group: np.ndarray) -> tuple[int, int]:
+    """(multiply, plain) butterflies per lane of the FFT program whose
+    groups are ``group`` (ops/rs.py fft_program order: IFFT levels with
+    dist 1 -> k/2, then FFT levels with dist k/2 -> 1; -1 marks a zero
+    twiddle, whose butterflies skip the multiply)."""
+    k = len(group) // 2 + 1
+    levels = [1 << lv for lv in range(k.bit_length() - 1)]
+    dists = [d for d in levels for _ in range(k // (2 * d))]
+    dists += [d for d in reversed(levels) for _ in range(k // (2 * d))]
+    mul = sum(d for d, g in zip(dists, group.tolist()) if g >= 0)
+    return mul, sum(dists) - mul
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """Registers, spill bytes and static shared memory per kernel, from
+    nvcc's ``-Xptxas -v`` log, keyed by the mangled kernel name."""
+    out: dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if name and m:
+                out[name][key] = int(m.group(1))
+    return out
+
+
+def sass_mix(sass: str, fragment: str) -> dict[str, collections.Counter]:
+    """Opcode counts of each kernel in ``cuobjdump -sass`` output whose
+    mangled name contains ``fragment``."""
+    out: dict[str, collections.Counter] = {}
+    for m in re.finditer(r"Function : (\S+)\n(.*?)(?=\n\s*Function :|\Z)", sass, re.S):
+        if fragment in m.group(1):
+            ops = collections.Counter()
+            for line in m.group(2).splitlines():
+                op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+                if op:
+                    ops[op.group(1)] += 1
+            out[m.group(1)] = ops
+    return out
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -185,11 +243,20 @@ def main(argv: list[str]) -> int:
     emit(phase="environment", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device_count=torch.cuda.device_count())
     t0 = time.perf_counter()
-    _cuda.library()
+    lib = _cuda.library()
     emit(phase="build", seconds=time.perf_counter() - t0)
     for line in _cuda.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line or "error" in line:
             print("ptxas:", line.strip(), file=sys.stderr)
+    for name, report in ptxas_report(_cuda.build_log()).items():
+        if "encode2d_fft_kernel" in name:
+            emit(phase="ptxas", kernel=name, **report)
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib._name], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    for kname, mix in sass_mix(sass, "encode2d_fft_kernelILi128E").items():
+        emit(phase="sass_mix", kernel=kname, instructions=sum(mix.values()),
+             ops=dict(mix.most_common(8)))
     t0 = time.perf_counter()
     xor_schedule.compile_schedule(128)  # host time at first use, before any timing
     emit(phase="xor_compile", k=128, seconds=time.perf_counter() - t0,
@@ -222,7 +289,7 @@ def main(argv: list[str]) -> int:
     def identical(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
         check(a.shape == b.shape and bool(torch.equal(a, b)), f"{what}: not byte-identical")
 
-    for k in (1, 2, 16, 64, 128):
+    for k in (1, 2, 4, 8, 16, 32, 64, 128):
         x2 = dev_bytes((k, k * SHARE_SIZE))
         m2 = rs.encode_matrix(k, dev)
         ops = xor_cuda.schedule_operands(k, dev)
@@ -241,7 +308,7 @@ def main(argv: list[str]) -> int:
         same("encode2d_xor_hash", d5, ref_d5, f"K5 digests k={k}")
         p6 = xor_cuda.encode2d_xor(x2, ops)
         same("encode2d_xor", p6, xor_cuda.encode2d_xor_reference(x2, ops), f"K6 k={k}")
-        # the dense and XOR spellings are one code: their kernels agree
+        # the FFT and XOR spellings are one code: their kernels agree
         identical(p5, parity, f"K5 parity vs K1, k={k}")
         identical(d5, digests, f"K5 digests vs K1, k={k}")
         identical(p6, p4, f"K6 vs K4, k={k}")
@@ -436,25 +503,32 @@ def main(argv: list[str]) -> int:
     ops = xor_cuda.schedule_operands(k, dev)
     ns_pad = rs_cuda.pad_namespaces(torch.from_numpy(main_sq[..., :NAMESPACE_SIZE]).to(dev))
     sha_ops = LEAF_BLOCKS * k * nc * SHA_BLOCK_OPS / INT32_OPS_PER_S
-    # the encode's two known spellings: the dense GF(2) product on the int8
-    # tensor cores (beside the hash on the ALUs), or the compiled schedule's
-    # XORs bit-sliced 32 lanes to an int32 word, each output row assembled
-    # with three-input XORs (LOP3): one operation per node and
-    # ceil((nnz - 1) / 2) per row, beside the hash on the same ALUs
+    # the encode's three known spellings: the dense GF(2) product on the
+    # int8 tensor cores (beside the hash on the ALUs); the compiled
+    # schedule's XORs bit-sliced 32 lanes to an int32 word, each output row
+    # assembled with three-input XORs (LOP3): one operation per node and
+    # ceil((nnz - 1) / 2) per row, beside the hash on the same ALUs; and
+    # Leopard's additive FFT, 4 lanes to a word, its ALU work beside the
+    # hash and its byte lookups on the shared-memory pipe
     dense_ops = 2 * (8 * k) ** 2 * n / INT8_OPS_PER_S
     nnz = (ops.sched.row_idx != ops.sched.zero).sum(axis=1)
     xor3_ops = ops.sched.n_nodes + int((nnz // 2).sum())
     xor_ops = xor3_ops * (n / 32) / INT32_OPS_PER_S
     operand_bytes = sum(t.numel() * t.element_size()
                         for t in (ops.node_ab, ops.level_off, ops.row_blk))
+    fft_mul, fft_plain = fft_butterflies(m2.fft_group.cpu().numpy())
+    fft_ops = (fft_mul * FFT_MUL_OPS + fft_plain * FFT_PLAIN_OPS) * (n / 4) / INT32_OPS_PER_S
+    fft_lookups = fft_mul * n / LOOKUPS_PER_S
+    fft_bytes = m2.fft_rows.numel() + 2 * m2.fft_group.numel()
     digest_bytes = k * nc * 32
 
     def encode_bound(hashed: bool) -> tuple[float, str]:
-        """The bound of the encode's function (dense and XOR kernels alike):
-        the cheaper of its two spellings."""
+        """The bound of the encode's function (FFT and XOR kernels alike):
+        the cheapest of its three spellings."""
         sha, out = (sha_ops, digest_bytes) if hashed else (0.0, 0)
-        return min(bound(max(dense_ops, sha), 2 * k * n + m2.packed.numel() * 4 + out),
-                   bound(xor_ops + sha, 2 * k * n + operand_bytes + out))
+        return min(bound(max(dense_ops, sha), 2 * k * n + (8 * k) ** 2 // 8 + out),
+                   bound(xor_ops + sha, 2 * k * n + operand_bytes + out),
+                   bound(max(fft_ops + sha, fft_lookups), 2 * k * n + fft_bytes + out))
 
     bounds = {
         "encode2d_hash": encode_bound(True),
@@ -464,7 +538,9 @@ def main(argv: list[str]) -> int:
         "encode2d_xor": encode_bound(False),
     }
     emit(phase="bounds", k=k, dense_int8_ms=dense_ops * 1e3, xor3_ops_per_word=xor3_ops,
-         xor3_int32_ms=xor_ops * 1e3, sha_ms=sha_ops * 1e3,
+         xor3_int32_ms=xor_ops * 1e3, fft_mul_butterflies=fft_mul,
+         fft_plain_butterflies=fft_plain, fft_int32_ms=fft_ops * 1e3,
+         fft_lookup_ms=fft_lookups * 1e3, sha_ms=sha_ops * 1e3,
          encode_bound_ms=bounds["encode2d"][0], encode_hash_bound_ms=bounds["encode2d_hash"][0])
     eds_dev = main_eds.device_data
     ns_eds = rs_cuda.pad_namespaces(extend._leaf_namespaces(
@@ -494,6 +570,8 @@ def main(argv: list[str]) -> int:
         m2k, opsk = rs.encode_matrix(kk, dev), xor_cuda.schedule_operands(kk, dev)
         calls[f"table_dense_{kk}"] = lambda x=xk, m=m2k: rs_cuda.encode2d_hash(x, m)
         calls[f"table_xor_{kk}"] = lambda x=xk, o=opsk: xor_cuda.encode2d_xor_hash(x, o)
+        if kk == 64:  # K4 at the governance-default square, beside K1's rung
+            calls["encode2d_64"] = lambda x=xk, m=m2k: rs_cuda.encode2d(x, m)
     event_ms = {name: cuda_ms(fn, inner=10) for name, fn in calls.items()}
     plain_ms = {
         "encode2d_hash": cuda_ms(lambda: rs_cuda.encode2d_hash_reference(x2, m2)),
@@ -655,6 +733,9 @@ def main(argv: list[str]) -> int:
     emit(phase="timing", kernel="leaf_digests2d", shape=[2 * k, 2 * n],
          device_ms=dev_ms["leaf_digests2d_eds"], event_ms=event_ms["leaf_digests2d_eds"],
          bound_ms=bound(4 * sha_ops, 4 * (k * n + 2 * k * nc * 32))[0])
+    for kname, call in (("encode2d_hash", "table_dense_64"), ("encode2d", "encode2d_64")):
+        emit(phase="timing", kernel=kname, k=64, device_ms=dev_ms[call],
+             event_ms=event_ms[call])
 
     sources = {
         "encode2d_hash": ("celestia_tpu_torch/csrc/rs_hash.cu", "celestia_tpu/ops/rs_pallas.py:276"),

@@ -45,12 +45,11 @@ def test_encode_matrix_from_numpy_round_trips(k):
     m2 = rs_tpu.encode_bit_matrix(k)
     em = rs.encode_matrix_from_numpy(m2, "cpu")
     assert np.array_equal(em.bits.numpy(), m2)
-    words = em.packed.view(torch.int32).numpy().view(np.uint32)
-    assert words.shape == (8 * k, rs.packed_words(k))
-    bits = (words[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
-    bits = bits.reshape(8 * k, -1)
-    assert np.array_equal(bits[:, :8 * k], m2)
-    assert not bits[:, 8 * k:].any()
+    rows, group = rs.fft_program(k)
+    assert em.fft_rows.dtype == torch.uint8 and em.fft_group.dtype == torch.int16
+    assert np.array_equal(em.fft_rows.numpy(), rows)
+    assert np.array_equal(em.fft_group.numpy(), group)
+    assert em.fft_rows.shape == (max(k - 1, 0), 256) and em.fft_group.shape == (2 * (k - 1),)
 
 
 def test_encode_matrix_from_numpy_rejects_malformed():
