@@ -35,7 +35,7 @@
 // the small groups free of branches). K1 also writes its parity into a
 // shared-memory tile with a 516-byte row stride; after a barrier thread i
 // hashes cell i of the column from the tile with sha256.cuh's leaf digest,
-// the one K2 and K5 use.
+// the one K5 uses.
 // What bounds it (k = 128, N = 65,536, see ops/rs_cuda.py): operations. The
 // cheapest spelling of the FFT counts 9 int32 operations per multiply
 // butterfly on a 4-lane word (4 address permutes, 3 assembling permutes,
@@ -53,13 +53,32 @@
 // 1,552 lookups and the group table), in 254 registers with no spill
 // (chip_smoke.py's sass_mix and ptxas lines).
 //
-// K2 design. One block owns up to kLeafRows rows of one cell column: it
-// copies the cells into shared memory with coalesced word loads, then each
-// thread hashes one cell. Bound by the SHA work.
+// K2 design. x, ns_pad and the digests are all cell-major (cell = row * n/512
+// + column), so the kernel is one flat grid over cells, any row count and no
+// tiles. One thread hashes one leaf, with no shared memory and no barrier: it
+// streams its own 512-byte cell through registers in 16-byte read-only loads,
+// the loads of message block b + 1 written before block b's compression.
+// ptxas issues them about four fifths of the way through it (SASS), which
+// still leaves ~300 instructions to cover their latency; an explicit L1
+// prefetch at the top was moved down beside them and gained nothing
+// (PERF.md). A warp's loads touch 32 cells, but each 32-byte sector is read
+// by two loads of one thread and the second hits L1, so DRAM sees each byte
+// once. With no shared memory the registers alone set the residency: the
+// launch bounds hold a thread to 128 registers, so 8 blocks of 64 fit an SM
+// and the k = 128 EDS (65,536 leaves) runs in one wave. Bound by the SHA work
+// on the integer pipes (9 compressions a leaf); the 9 MB it moves at k = 128
+// are 2.7 us at 3.35 TB/s. Compiled for sm_90a (nvcc 12.8) it takes 80
+// registers with no spill, and its 4,256 SASS instructions hold three copies
+// of the compression (block 0, the loop, block 8): 1,980 SHF, 1,048 LOP3, 708
+// IADD3, 354 IMAD and 41 PRMT. ptxas already issues the two-input adds as
+// IMAD on the FMA pipe; moving the three-input adds there too was 4% faster
+// on the k = 128 EDS but 7% slower on Q0, where one warp per sub-partition
+// waits on the longer chains (PERF.md), so it is not done.
 //
 // Every entry checks its launch with cudaGetLastError() and returns it.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "sha256.cuh"
@@ -67,8 +86,10 @@
 namespace celestia {
 
 constexpr int kCell = 512;            // bytes per share
+constexpr int kCellVecs = kCell / 16;  // 16-byte loads per cell
 constexpr int kTileStride = 129;      // words per shared-memory cell row (516 B)
-constexpr int kLeafRows = 64;         // K2 rows per block
+constexpr int kLeafThreads = 64;      // K2 threads (leaves) per block
+constexpr int kLeafMinBlocks = 8;     // K2 blocks per SM: at most 128 registers a thread
 constexpr int kRow = 256;             // bytes per product row in shared memory
 constexpr int kBranchDist = 8;        // groups this wide branch over a zero twiddle
 constexpr int kLanes = 2;             // lanes (bytes) per state word
@@ -202,36 +223,71 @@ encode2d_fft_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ f
   }
 }
 
-__global__ void __launch_bounds__(kLeafRows)
-leaf_digests2d_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ ns_pad,
-                      uint32_t* __restrict__ digests, int rows, int n) {
-  __shared__ uint32_t tile[kLeafRows * kTileStride];
-  const int col = blockIdx.x;
-  const int row0 = blockIdx.y * kLeafRows;
-  const int nrows = min(kLeafRows, rows - row0);
-  const int ncells = n / kCell;
+__global__ void __launch_bounds__(kLeafThreads, kLeafMinBlocks)
+leaf_digests2d_kernel(const uint4* __restrict__ x, const uint4* __restrict__ ns_pad,
+                      uint4* __restrict__ digests, int cells) {
+  const int cell = blockIdx.x * kLeafThreads + threadIdx.x;
+  if (cell >= cells) return;
+  const uint4* src = x + static_cast<size_t>(cell) * kCellVecs;
 
-  for (int idx = threadIdx.x; idx < nrows * (kCell / 4); idx += blockDim.x) {
-    const int r = idx / (kCell / 4), wd = idx % (kCell / 4);
-    const uint32_t* src = reinterpret_cast<const uint32_t*>(
-        x + static_cast<size_t>(row0 + r) * n + static_cast<size_t>(col) * kCell);
-    tile[r * kTileStride + wd] = src[wd];
-  }
-  __syncthreads();
-
-  const int r = threadIdx.x;
-  if (r < nrows) {
-    const size_t cell = static_cast<size_t>(row0 + r) * ncells + col;
-    const uint4* nsv = reinterpret_cast<const uint4*>(ns_pad + cell * 32);
-    const uint4 lo = nsv[0], hi = nsv[1];
-    const uint32_t nsw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    uint32_t pre[8], st[8];
-    leaf_prefix_from_ns(nsw, pre);
-    leaf_digest(tile + r * kTileStride, pre, st);
-    uint32_t* out = digests + cell * 8;
+  // block 0 reads v[0..2]; v[3..6] are the new words of block 1
+  uint4 v0 = __ldg(src), v1 = __ldg(src + 1), carry = __ldg(src + 2);
+  uint4 next[4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = st[i];
+  for (int i = 0; i < 4; ++i) next[i] = __ldg(src + 3 + i);
+  const uint4 lo = __ldg(ns_pad + 2 * static_cast<size_t>(cell));
+  const uint4 hi = __ldg(ns_pad + 2 * static_cast<size_t>(cell) + 1);
+  const uint32_t nsw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+
+  uint32_t w[16], st[8];
+  sha256_init(st);
+  // block 0: 0x00 ‖ namespace, then cell bytes 0..33 (cell words 0..8)
+  leaf_prefix_from_ns(nsw, w);
+  w[7] |= __byte_perm(v0.x, 0u, 0x4401);
+  {
+    const uint32_t c[9] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w, carry.x};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w[8 + j] = cell_word(c[j], c[j + 1]);
   }
+  sha256_compress(st, w);
+
+  // blocks 1..7: block b reads v[4b-2 .. 4b+2]; the loads of v[4b+3 ..
+  // 4b+6] for block b + 1 come first (clamped to v[31]: block 8 reads only
+  // v[30] and v[31])
+#pragma unroll 1
+  for (int b = 1; b < 8; ++b) {
+    const uint4 win[5] = {carry, next[0], next[1], next[2], next[3]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) next[i] = __ldg(src + min(4 * b + 3 + i, kCellVecs - 1));
+    carry = win[4];
+    // cell words 16b-8 .. 16b+11; the block reads the first 17
+    uint32_t c[20];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      c[4 * i] = win[i].x; c[4 * i + 1] = win[i].y;
+      c[4 * i + 2] = win[i].z; c[4 * i + 3] = win[i].w;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) w[j] = cell_word(c[j], c[j + 1]);
+    sha256_compress(st, w);
+  }
+
+  // block 8: cell words 120..127 (v[30] = carry, v[31] = next[0]), the 0x80
+  // that ends the message, the zero fill and the bit length 542 * 8
+  {
+    const uint32_t c[9] = {carry.x, carry.y, carry.z, carry.w,
+                           next[0].x, next[0].y, next[0].z, next[0].w, 0x80u};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w[j] = cell_word(c[j], c[j + 1]);
+  }
+#pragma unroll
+  for (int j = 8; j < 15; ++j) w[j] = 0u;
+  w[15] = 542u * 8u;
+  sha256_compress(st, w);
+
+  uint4* out = digests + 2 * static_cast<size_t>(cell);
+  out[0] = make_uint4(st[0], st[1], st[2], st[3]);
+  out[1] = make_uint4(st[4], st[5], st[6], st[7]);
 }
 
 template <int K, bool kHash>
@@ -298,12 +354,15 @@ extern "C" int celestia_encode2d(const void* x, const void* fft_rows, const void
 extern "C" int celestia_leaf_digests2d(const void* x, const void* ns_pad, void* digests,
                                        int rows, int n, int device, void* stream) {
   using namespace celestia;
-  if (rows <= 0 || n <= 0 || n % kCell) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || n <= 0 || n % kCell || rows > INT_MAX / (n / kCell)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n / kCell, (rows + kLeafRows - 1) / kLeafRows);
-  leaf_digests2d_kernel<<<grid, kLeafRows, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(ns_pad),
-      static_cast<uint32_t*>(digests), rows, n);
+  const int cells = rows * (n / kCell);
+  leaf_digests2d_kernel<<<(cells + kLeafThreads - 1) / kLeafThreads, kLeafThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<const uint4*>(ns_pad),
+      static_cast<uint4*>(digests), cells);
   return static_cast<int>(cudaGetLastError());
 }

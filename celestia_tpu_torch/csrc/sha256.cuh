@@ -1,13 +1,14 @@
-// SHA-256 compression shared by the port's three kernels (K1, K2, K3).
+// SHA-256 compression shared by the port's hashing kernels (K1, K2, K3, K5).
 //
 // One thread runs one message: the 16-word schedule window and the 8 state
 // words stay in registers, the 64 rounds are fully unrolled so every
 // schedule index is a compile-time constant, and the rotates are funnel
 // shifts. The NMT leaf message (0x00 ‖ 29-byte namespace ‖ 512-byte cell,
-// 542 bytes, 9 blocks) is assembled here from a cell held as 128
-// little-endian words in shared memory: cell byte b sits at message byte
-// 30 + b, so every big-endian message word straddles two aligned cell words
-// by two bytes and is put together with one byte permute.
+// 542 bytes, 9 blocks) is assembled from a cell held as 128 little-endian
+// words (in shared memory for K1 and K5, in registers for K2): cell byte b
+// sits at message byte 30 + b, so every big-endian message word straddles
+// two aligned cell words by two bytes and is put together with one byte
+// permute.
 #pragma once
 
 #include <stdint.h>

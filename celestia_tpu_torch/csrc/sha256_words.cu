@@ -8,9 +8,11 @@
 //
 // One thread hashes one message. Word row w of message b is read at
 // words[w * batch + b], so the 32 loads of a warp are one coalesced
-// 128-byte line. What bounds it: the ~2.2k int32 operations of each 64-byte
-// block against the ~16.7 T int32 op/s of the SM array (an estimate from the
-// SM layout); the 64 bytes read per block are far below the memory line.
+// 128-byte line. What bounds it: each 64-byte block is 1,265 operations on
+// the ALU pipe (576 rotates and 96 shifts as SHF, 352 LOP3, 241 IADD3) and
+// 118 IMAD on the FMA pipe, as nvcc 12.8 compiles this loop for sm_90a
+// (chip_smoke.py counts them from the SASS), at 64 ALU lanes per SM and
+// clock; the 64 bytes read per block are far below the memory line.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

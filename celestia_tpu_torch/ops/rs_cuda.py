@@ -42,8 +42,8 @@ known spellings, and its bound is the cheapest one's:
   1,979 TOP/s int8 tensor-core rate;
 - as the compiled XOR schedule (``ops/xor_schedule.py``) bit-sliced 32 lanes
   to a word, rows assembled from three-input XORs: 2.5e8 int32 operations,
-  15 µs at ~16.7 T int32 op/s (64 INT32 lanes × 132 SMs × 1.98 GHz, an
-  estimate from the SM layout);
+  15 µs at 16.7 T int32 op/s on the ALU pipe (64 INT32 lanes per SM, the
+  Hopper white paper, × 132 SMs × 1.98 GHz);
 - as the Leopard FFT, 769 multiply butterflies and 127 plain ones per lane:
   with 4 lanes to a word, 9 int32 operations per multiply butterfly (4
   byte permutes that make the lookup addresses, 3 that assemble the
@@ -51,15 +51,18 @@ known spellings, and its bound is the cheapest one's:
   them 769 byte lookups per lane, 5.0e7 in all, 6.0 µs on the shared-memory
   pipe (32 lookups per clock per SM, without bank conflicts).
 So K4 is bound at 6.9 µs by operations. K1 adds the 147,456 leaf SHA blocks
-(~2.2k int32 operations each, ~19 µs) on the same ALUs: 26 µs, bound by
-operations; the ~18 MB it moves are 5.5 µs at 3.35 TB/s. The kernel holds
-2 lanes per word (5 operations and 2 lookups per multiply butterfly): at 4
-lanes a thread, k = 128 leaves one warp per SM sub-partition to wait on its
-own lookups.
-- K2: the same 147,456 SHA blocks, ~19 µs, operation-bound; 9 MB moved.
-K1 and K2 share one hash stage: one thread hashes one cell from a shared
-memory tile whose row stride (516 bytes) spreads a warp's reads over all
-banks.
+on the same ALU pipe: a block compiles to 1,265 ALU-pipe operations (SHF,
+LOP3, IADD3) and 118 IMAD on the FMA pipe (counted from the SASS of K3's
+block loop by ``chip_smoke.py``), 11.2 µs for the leaves, so K1 is bound at
+18.1 µs by operations; the ~18 MB it moves are 5.5 µs at 3.35 TB/s. The
+kernel holds 2 lanes per word (5 operations and 2 lookups per multiply
+butterfly): at 4 lanes a thread, k = 128 leaves one warp per SM
+sub-partition to wait on its own lookups. K1's hash stage reads the parity
+from a shared-memory tile whose row stride (516 bytes) spreads a warp's
+reads over all banks.
+- K2: the same 147,456 SHA blocks, 11.2 µs, operation-bound; 9 MB moved.
+One thread hashes one cell, read from device memory into registers in
+16-byte loads, no shared memory (``csrc/rs_hash.cu``).
 """
 
 from __future__ import annotations
@@ -125,6 +128,9 @@ def encode2d_hash_reference(x2: torch.Tensor, m2: rs.EncodeMatrix):
 def leaf_digests2d_reference(x2: torch.Tensor, ns_pad: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K2: (R, N/512, 8) uint32 leaf digests."""
     check_lanes(x2)
+    expect = (x2.shape[0], x2.shape[1] // SHARE_SIZE, NS_PAD)
+    if tuple(ns_pad.shape) != expect:
+        raise ValueError(f"ns_pad has shape {tuple(ns_pad.shape)}, expected {expect}")
     return _leaf_digests_plain(x2, ns_pad[..., :NAMESPACE_SIZE])
 
 

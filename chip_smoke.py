@@ -3,10 +3,11 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--xor-table-out PATH]
+    python3 chip_smoke.py [--xor-table-out PATH] [--sass-out PATH]
 
 ``--xor-table-out`` also writes the dense/XOR routing table this run measured
-(phase 5) to PATH, in the format of celestia_tpu_torch/config/xor_schedule.json.
+(phase 5) to PATH, in the format of celestia_tpu_torch/config/xor_schedule.json;
+``--sass-out`` writes the SASS of K2 and K3 to PATH.
 
 The port has four extend routes (fused/unfused × dense/XOR); a route is
 picked with the env pins CELESTIA_FUSED_KERNELS and CELESTIA_XOR_SCHEDULE,
@@ -17,14 +18,21 @@ encode2d_xor.
 Phases, in order (any failed check raises, so the script exits non-zero and
 prints no result; it also exits non-zero when no CUDA device is present):
 
-1. Environment: versions, the card's name and power limit, the kernel build
-   (nvcc for sm_90a, from celestia_tpu_torch/csrc/) and its seconds, and the
-   XOR schedule's host compile at k = 128 and its seconds.
+1. Environment: versions, the card's name, power limit, SM count and
+   maximum SM clock, the kernel build (nvcc for sm_90a, from
+   celestia_tpu_torch/csrc/) and its seconds, the ptxas report (registers,
+   spills) and SASS opcode mix of the k = 128 encode, K2 and K3, the
+   operations of one SHA-256 block counted from K3's compiled block loop
+   (ALU pipe: LOP3, SHF, IADD3, PRMT; FMA pipe: IMAD), which every SHA
+   bound below uses, and the XOR schedule's host compile at k = 128 and its
+   seconds.
 2. Each kernel against its plain PyTorch version on the card, byte for byte:
    K3 on messages of every length 0..600 (and against hashlib) and at the
-   NMT level shapes; K1, K2, K4, K5 and K6 at every power of two k from 1
-   to 128 (the FFT program of K1/K4 differs per k); and the FFT and XOR
-   kernels against each other (K5 = K1, K6 = K4).
+   NMT level shapes; K1, K4, K5 and K6 at every power of two k from 1 to
+   128 (the FFT program of K1/K4 differs per k), K2 at the same k on both
+   of its main-path shapes, (k, k·512) and (2k, 2k·512), and at 1, 3 and
+   65 rows; and the FFT and XOR kernels against each other (K5 = K1,
+   K6 = K4).
 3. The reference DAH hashes (MIN k = 1, TYPICAL k = 2, MAX k = 128) through
    da.extend_shares -> new_data_availability_header(...).hash(), and the DAH
    computed on the device by extend_and_root_device equal to the host's, on
@@ -38,11 +46,12 @@ prints no result; it also exits non-zero when no CUDA device is present):
    (EDS, roots, DAH) and the fused dense route; on the fused dense route the
    row levels equal the plain ones, and at k = 64 the roots equal the host
    oracle (gf256 + nmt_host).
-5. Timing, after warm-up: each kernel at its main-path shapes, as its own
-   device time per launch (torch.profiler's CUDA records, mean of 10
-   launches) and as CUDA-event time per launch (median of 10 samples of 10
-   back-to-back launches), beside its plain version (CUDA events, median of
-   10 calls); end to end (host clock, H2D and D2H included) at k = 64 and
+5. Timing, after warm-up: each kernel at its main-path shapes (K2 at
+   k = 64 and 128, on Q0 and on the EDS), as its own device time per launch
+   (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
+   time per launch (median of 10 samples of 10 back-to-back launches),
+   beside its bound and its plain version (CUDA events, median of 10 calls;
+   3 for K2 on the k = 128 EDS); end to end (host clock, H2D and D2H included) at k = 64 and
    128, 20 calls of roots_device and extend_roots_device_resident per route
    with the routes in turns (median, quartiles, best), and the median of 10
    calls of eds_row_levels_device (which takes an EDS and runs no extend, so
@@ -71,16 +80,26 @@ import time
 
 import numpy as np
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and int8
-# tensor-core rate. The int32 ALU rate is an estimate from the SM layout
-# (64 INT32 lanes x 132 SMs x 1.98 GHz), and so is the shared-memory lookup
-# rate (one 32-bank wavefront per clock per SM: 32 byte lookups without bank
-# conflicts); one SHA-256 block is ~2.2k int32 operations.
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, int8
+# tensor-core rate, and 67 TFLOP/s fp32, which is 132 SMs x 128 FP32 lanes x
+# 2 x the 1.98 GHz clock used below. Per SM and clock (NVIDIA H100 Tensor
+# Core GPU Architecture white paper, the GH100 SM: four sub-partitions, each
+# with 16 INT32 lanes, 32 FP32 lanes and one warp instruction dispatched per
+# clock): 64 lanes on the integer ALU pipe (LOP3, SHF, IADD3, PRMT), 128 on
+# the FMA pipe that also runs IMAD, and 128 issue slots for both together.
+# The shared-memory lookup rate is an estimate (one 32-bank wavefront per
+# clock per SM: 32 byte lookups without bank conflicts). One SHA-256
+# compression's operations are counted from the compiled SASS of K3's block
+# loop (phase 1), not estimated.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-LOOKUPS_PER_S = 32 * 132 * 1.98e9
-SHA_BLOCK_OPS = 2200
+SMS = 132
+CLOCK_HZ = 1.98e9
+ALU_LANES = 64
+FMA_LANES = 128
+ISSUE_LANES = 128
+LOOKUPS_PER_S = 32 * SMS * CLOCK_HZ
+SHA_ALU_OPS = ("LOP3", "SHF", "IADD3", "PRMT")
 # the FFT spelling of the encode, per 4-lane word: a multiply butterfly is 4
 # byte permutes (lookup addresses), 3 permutes (assembly) and 2 XORs beside
 # its 4 lookups; a butterfly with a zero twiddle is 1 XOR
@@ -133,11 +152,16 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def card() -> tuple[str, str, str]:
-    line = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def smi(query: str) -> str:
+    """The first card's ``nvidia-smi --query-gpu`` line."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def card() -> tuple[str, str, str]:
+    line = smi("name,power.limit")
     name, limit = (s.strip() for s in line.split(",", 1))
     return line, name, limit
 
@@ -175,19 +199,64 @@ def ptxas_report(log: str) -> dict[str, dict]:
     return out
 
 
-def sass_mix(sass: str, fragment: str) -> dict[str, collections.Counter]:
-    """Opcode counts of each kernel in ``cuobjdump -sass`` output whose
-    mangled name contains ``fragment``."""
-    out: dict[str, collections.Counter] = {}
+def sass_functions(sass: str) -> dict[str, list[tuple[int, str, str]]]:
+    """(address, opcode with its modifiers, operands) of every instruction of
+    every kernel in ``cuobjdump -sass`` output, by mangled kernel name."""
+    insn = re.compile(r"/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;\n]*);")
+    out = {}
     for m in re.finditer(r"Function : (\S+)\n(.*?)(?=\n\s*Function :|\Z)", sass, re.S):
-        if fragment in m.group(1):
-            ops = collections.Counter()
-            for line in m.group(2).splitlines():
-                op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-                if op:
-                    ops[op.group(1)] += 1
-            out[m.group(1)] = ops
+        out[m.group(1)] = [(int(i.group(1), 16), i.group(2), i.group(3).strip())
+                           for i in insn.finditer(m.group(2))]
     return out
+
+
+def sass_mix(sass: str, fragment: str) -> dict[str, collections.Counter]:
+    """Opcode counts (without modifiers) of each kernel whose mangled name
+    contains ``fragment``."""
+    return {name: collections.Counter(op.split(".")[0] for _a, op, _r in lines)
+            for name, lines in sass_functions(sass).items() if fragment in name}
+
+
+def sass_lines(sass: str, fragment: str) -> list[tuple[int, str, str]]:
+    """The instructions of the one kernel whose mangled name contains
+    ``fragment``."""
+    funcs = [lines for name, lines in sass_functions(sass).items() if fragment in name]
+    if len(funcs) != 1:
+        raise ValueError(f"{len(funcs)} kernels match {fragment!r}")
+    return funcs[0]
+
+
+def block_loop_mix(sass: str, fragment: str) -> collections.Counter:
+    """Opcode counts (with modifiers) of one pass of the kernel's loop: the
+    instructions from the target of its widest backward branch to that
+    branch."""
+    lines = sass_lines(sass, fragment)
+    loops = []
+    for addr, op, args in lines:
+        target = re.findall(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else []
+        if target and int(target[-1], 16) < addr:
+            loops.append((int(target[-1], 16), addr))
+    if not loops:
+        raise ValueError(f"no loop in the SASS of {fragment!r}")
+    lo, hi = max(loops, key=lambda t: t[1] - t[0])
+    return collections.Counter(op for addr, op, _ in lines if lo <= addr <= hi)
+
+
+def sha_block_ops(loop: collections.Counter) -> tuple[int, int]:
+    """(ALU-pipe, FMA-pipe) operations of one SHA-256 block in K3's loop:
+    LOP3, SHF, IADD3 and PRMT, and IMAD other than the 64-bit IMAD.WIDE
+    of the loads' addresses."""
+    base = collections.Counter()
+    for op, n in loop.items():
+        base[op.split(".")[0] if not op.startswith("IMAD.WIDE") else "IMAD.WIDE"] += n
+    return sum(base[op] for op in SHA_ALU_OPS), base["IMAD"]
+
+
+def pipe_seconds(alu: float, fma: float) -> float:
+    """The least time for ``alu`` ALU-pipe and ``fma`` FMA-pipe lane
+    operations on the card: each pipe at its lane rate, and both within the
+    issue rate."""
+    return max(alu / ALU_LANES, fma / FMA_LANES, (alu + fma) / ISSUE_LANES) / (SMS * CLOCK_HZ)
 
 
 def main(argv: list[str]) -> int:
@@ -198,6 +267,8 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--xor-table-out", default=None,
                     help="also write the measured dense/XOR routing table here")
+    ap.add_argument("--sass-out", default=None,
+                    help="also write the SASS of K2 and K3 (cuobjdump -sass) here")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -241,22 +312,40 @@ def main(argv: list[str]) -> int:
 
     # ---- phase 1: environment and build
     emit(phase="environment", python=sys.version.split()[0], torch=torch.__version__,
-         cuda=torch.version.cuda, device_count=torch.cuda.device_count())
+         cuda=torch.version.cuda, device_count=torch.cuda.device_count(),
+         sm_count=torch.cuda.get_device_properties(0).multi_processor_count,
+         max_sm_clock=smi("clocks.max.sm"))
     t0 = time.perf_counter()
     lib = _cuda.library()
     emit(phase="build", seconds=time.perf_counter() - t0)
     for line in _cuda.build_log().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line or "error" in line:
             print("ptxas:", line.strip(), file=sys.stderr)
+    sha_kernels = ("leaf_digests2d_kernel", "sha256_words_kernel")
     for name, report in ptxas_report(_cuda.build_log()).items():
-        if "encode2d_fft_kernel" in name:
+        if any(f in name for f in ("encode2d_fft_kernel", *sha_kernels)):
             emit(phase="ptxas", kernel=name, **report)
     cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib._name], check=True, capture_output=True,
                           text=True, timeout=300).stdout
-    for kname, mix in sass_mix(sass, "encode2d_fft_kernelILi128E").items():
-        emit(phase="sass_mix", kernel=kname, instructions=sum(mix.values()),
-             ops=dict(mix.most_common(8)))
+    for fragment in ("encode2d_fft_kernelILi128E", *sha_kernels):
+        for kname, mix in sass_mix(sass, fragment).items():
+            emit(phase="sass_mix", kernel=kname, instructions=sum(mix.values()),
+                 ops=dict(mix.most_common(10)))
+    if args.sass_out:
+        with open(args.sass_out, "w") as f:
+            for fragment in sha_kernels:
+                f.writelines(f"/*{a:04x}*/ {op} {arg};\n"
+                             for a, op, arg in sass_lines(sass, fragment))
+    # one SHA-256 block as compiled: a pass of K3's block loop (its 16 loads,
+    # their addresses and the loop's own counter aside)
+    k3_loop = block_loop_mix(sass, "sha256_words_kernel")
+    sha_alu, sha_fma = sha_block_ops(k3_loop)
+    check(1000 < sha_alu + sha_fma < 3000,
+          f"K3's loop holds {sha_alu} + {sha_fma} SHA operations: not one compression")
+    emit(phase="sha_block_count", kernel="sha256_words_kernel", alu_ops=sha_alu,
+         fma_ops=sha_fma, loop_instructions=sum(k3_loop.values()),
+         loop_ops=dict(k3_loop.most_common()))
     t0 = time.perf_counter()
     xor_schedule.compile_schedule(128)  # host time at first use, before any timing
     emit(phase="xor_compile", k=128, seconds=time.perf_counter() - t0,
@@ -297,9 +386,12 @@ def main(argv: list[str]) -> int:
         ref_parity, ref_digests = rs_cuda.encode2d_hash_reference(x2, m2)
         same("encode2d_hash", parity, ref_parity, f"K1 parity k={k}")
         same("encode2d_hash", digests, ref_digests, f"K1 digests k={k}")
-        ns_pad = dev_bytes((k, k, rs_cuda.NS_PAD))
-        same("leaf_digests2d", rs_cuda.leaf_digests2d(x2, ns_pad),
-             rs_cuda.leaf_digests2d_reference(x2, ns_pad), f"K2 k={k}")
+        # K2 at the main path's two shapes: Q0 (k, k·512) and an EDS (2k, 2k·512)
+        for rows in (k, 2 * k):
+            xl = x2 if rows == k else dev_bytes((rows, rows * SHARE_SIZE))
+            ns_pad = dev_bytes((rows, rows, rs_cuda.NS_PAD))
+            same("leaf_digests2d", rs_cuda.leaf_digests2d(xl, ns_pad),
+                 rs_cuda.leaf_digests2d_reference(xl, ns_pad), f"K2 ({rows}, {rows}*512)")
         p4 = rs_cuda.encode2d(x2, m2)
         same("encode2d", p4, rs_cuda.encode2d_reference(x2, m2), f"K4 k={k}")
         p5, d5 = xor_cuda.encode2d_xor_hash(x2, ops)
@@ -318,10 +410,14 @@ def main(argv: list[str]) -> int:
                       "encode2d_xor"],
              max_abs_err=max(max_err[n] for n in max_err if n != "sha256_words"),
              dense_equals_xor=True)
-    x_eds, ns_eds = dev_bytes((256, 256 * SHARE_SIZE)), dev_bytes((256, 256, rs_cuda.NS_PAD))
-    same("leaf_digests2d", rs_cuda.leaf_digests2d(x_eds, ns_eds),
-         rs_cuda.leaf_digests2d_reference(x_eds, ns_eds), "K2 on a k=128 EDS")
-    del x_eds, ns_eds
+    # K2 at row counts that are no multiple of its 64-thread block
+    for rows in (1, 3, 65):
+        xl, ns_pad = dev_bytes((rows, 2 * SHARE_SIZE)), dev_bytes((rows, 2, rs_cuda.NS_PAD))
+        same("leaf_digests2d", rs_cuda.leaf_digests2d(xl, ns_pad),
+             rs_cuda.leaf_digests2d_reference(xl, ns_pad), f"K2 ({rows}, 1024)")
+    emit(phase="kernel_vs_plain", kernel="leaf_digests2d", tolerance=0,
+         shapes="(k, k*512) and (2k, 2k*512) for k = 1..128; (1|3|65, 1024)",
+         max_abs_err=max_err["leaf_digests2d"])
     torch.cuda.synchronize()
 
     # ---- phase 3: the reference DAH hashes through the port's main path
@@ -502,22 +598,23 @@ def main(argv: list[str]) -> int:
     m2 = rs.encode_matrix(k, dev)
     ops = xor_cuda.schedule_operands(k, dev)
     ns_pad = rs_cuda.pad_namespaces(torch.from_numpy(main_sq[..., :NAMESPACE_SIZE]).to(dev))
-    sha_ops = LEAF_BLOCKS * k * nc * SHA_BLOCK_OPS / INT32_OPS_PER_S
+    # SHA blocks cost the counted ALU- and FMA-pipe operations each (phase 1)
+    leaf_blocks = LEAF_BLOCKS * k * nc
     # the encode's three known spellings: the dense GF(2) product on the
-    # int8 tensor cores (beside the hash on the ALUs); the compiled
+    # int8 tensor cores (beside the hash on the integer pipes); the compiled
     # schedule's XORs bit-sliced 32 lanes to an int32 word, each output row
     # assembled with three-input XORs (LOP3): one operation per node and
-    # ceil((nnz - 1) / 2) per row, beside the hash on the same ALUs; and
+    # ceil((nnz - 1) / 2) per row, on the ALU pipe with the hash; and
     # Leopard's additive FFT, 4 lanes to a word, its ALU work beside the
     # hash and its byte lookups on the shared-memory pipe
     dense_ops = 2 * (8 * k) ** 2 * n / INT8_OPS_PER_S
     nnz = (ops.sched.row_idx != ops.sched.zero).sum(axis=1)
     xor3_ops = ops.sched.n_nodes + int((nnz // 2).sum())
-    xor_ops = xor3_ops * (n / 32) / INT32_OPS_PER_S
+    xor_alu = xor3_ops * (n / 32)
     operand_bytes = sum(t.numel() * t.element_size()
                         for t in (ops.node_ab, ops.level_off, ops.row_blk))
     fft_mul, fft_plain = fft_butterflies(m2.fft_group.cpu().numpy())
-    fft_ops = (fft_mul * FFT_MUL_OPS + fft_plain * FFT_PLAIN_OPS) * (n / 4) / INT32_OPS_PER_S
+    fft_alu = (fft_mul * FFT_MUL_OPS + fft_plain * FFT_PLAIN_OPS) * (n / 4)
     fft_lookups = fft_mul * n / LOOKUPS_PER_S
     fft_bytes = m2.fft_rows.numel() + 2 * m2.fft_group.numel()
     digest_bytes = k * nc * 32
@@ -525,31 +622,55 @@ def main(argv: list[str]) -> int:
     def encode_bound(hashed: bool) -> tuple[float, str]:
         """The bound of the encode's function (FFT and XOR kernels alike):
         the cheapest of its three spellings."""
-        sha, out = (sha_ops, digest_bytes) if hashed else (0.0, 0)
-        return min(bound(max(dense_ops, sha), 2 * k * n + (8 * k) ** 2 // 8 + out),
-                   bound(xor_ops + sha, 2 * k * n + operand_bytes + out),
-                   bound(max(fft_ops + sha, fft_lookups), 2 * k * n + fft_bytes + out))
+        alu, fma, out = ((leaf_blocks * sha_alu, leaf_blocks * sha_fma, digest_bytes)
+                         if hashed else (0, 0, 0))
+        return min(bound(max(dense_ops, pipe_seconds(alu, fma)),
+                         2 * k * n + (8 * k) ** 2 // 8 + out),
+                   bound(pipe_seconds(xor_alu + alu, fma), 2 * k * n + operand_bytes + out),
+                   bound(max(pipe_seconds(fft_alu + alu, fma), fft_lookups),
+                         2 * k * n + fft_bytes + out))
+
+    def leaf_bound(rows: int) -> tuple[float, str]:
+        """K2's bound on (rows, rows·512): its SHA blocks, and each cell,
+        namespace and digest moved once."""
+        blocks = LEAF_BLOCKS * rows * rows
+        return bound(pipe_seconds(blocks * sha_alu, blocks * sha_fma),
+                     rows * rows * (SHARE_SIZE + 2 * 32))
 
     bounds = {
         "encode2d_hash": encode_bound(True),
-        "leaf_digests2d": bound(sha_ops, k * n + 2 * k * nc * 32),
+        "leaf_digests2d": leaf_bound(k),
         "encode2d": encode_bound(False),
         "encode2d_xor_hash": encode_bound(True),
         "encode2d_xor": encode_bound(False),
     }
     emit(phase="bounds", k=k, dense_int8_ms=dense_ops * 1e3, xor3_ops_per_word=xor3_ops,
-         xor3_int32_ms=xor_ops * 1e3, fft_mul_butterflies=fft_mul,
-         fft_plain_butterflies=fft_plain, fft_int32_ms=fft_ops * 1e3,
-         fft_lookup_ms=fft_lookups * 1e3, sha_ms=sha_ops * 1e3,
+         xor3_int32_ms=pipe_seconds(xor_alu, 0) * 1e3, fft_mul_butterflies=fft_mul,
+         fft_plain_butterflies=fft_plain, fft_int32_ms=pipe_seconds(fft_alu, 0) * 1e3,
+         fft_lookup_ms=fft_lookups * 1e3, sha_block_alu_ops=sha_alu, sha_block_fma_ops=sha_fma,
+         sha_ms=pipe_seconds(leaf_blocks * sha_alu, leaf_blocks * sha_fma) * 1e3,
          encode_bound_ms=bounds["encode2d"][0], encode_hash_bound_ms=bounds["encode2d_hash"][0])
     eds_dev = main_eds.device_data
     ns_eds = rs_cuda.pad_namespaces(extend._leaf_namespaces(
         eds_dev[:k, :k, :NAMESPACE_SIZE], k).contiguous())
     x_eds = eds_dev.reshape(2 * k, 2 * n)
+    # K2 at the governance-default square, k = 64: its Q0 and its EDS
+    sq64 = squares[0][2]
+    x64 = torch.from_numpy(sq64.reshape(64, 64 * SHARE_SIZE)).to(dev)
+    ns64 = rs_cuda.pad_namespaces(torch.from_numpy(sq64[..., :NAMESPACE_SIZE]).to(dev))
+    eds64 = da.extend_shares(sq64.reshape(-1, SHARE_SIZE), dev).device_data
+    ns_eds64 = rs_cuda.pad_namespaces(extend._leaf_namespaces(
+        eds64[:64, :64, :NAMESPACE_SIZE], 64).contiguous())
+    x_eds64 = eds64.reshape(128, 128 * SHARE_SIZE)
+    # (call, k, rows) of K2's four timed shapes
+    leaf_shapes = (("leaf_digests2d", k, k), ("leaf_digests2d_eds", k, 2 * k),
+                   ("leaf_digests2d_64", 64, 64), ("leaf_digests2d_eds_64", 64, 128))
     calls = {
         "encode2d_hash": lambda: rs_cuda.encode2d_hash(x2, m2),
         "leaf_digests2d": lambda: rs_cuda.leaf_digests2d(x2, ns_pad),
         "leaf_digests2d_eds": lambda: rs_cuda.leaf_digests2d(x_eds, ns_eds),
+        "leaf_digests2d_64": lambda: rs_cuda.leaf_digests2d(x64, ns64),
+        "leaf_digests2d_eds_64": lambda: rs_cuda.leaf_digests2d(x_eds64, ns_eds64),
         "encode2d": lambda: rs_cuda.encode2d(x2, m2),
         "encode2d_xor_hash": lambda: xor_cuda.encode2d_xor_hash(x2, ops),
         "encode2d_xor": lambda: xor_cuda.encode2d_xor(x2, ops),
@@ -576,6 +697,11 @@ def main(argv: list[str]) -> int:
     plain_ms = {
         "encode2d_hash": cuda_ms(lambda: rs_cuda.encode2d_hash_reference(x2, m2)),
         "leaf_digests2d": cuda_ms(lambda: rs_cuda.leaf_digests2d_reference(x2, ns_pad)),
+        "leaf_digests2d_eds": cuda_ms(
+            lambda: rs_cuda.leaf_digests2d_reference(x_eds, ns_eds), reps=3),
+        "leaf_digests2d_64": cuda_ms(lambda: rs_cuda.leaf_digests2d_reference(x64, ns64)),
+        "leaf_digests2d_eds_64": cuda_ms(
+            lambda: rs_cuda.leaf_digests2d_reference(x_eds64, ns_eds64)),
         "encode2d": cuda_ms(lambda: rs_cuda.encode2d_reference(x2, m2)),
         "encode2d_xor_hash": cuda_ms(lambda: xor_cuda.encode2d_xor_hash_reference(x2, ops)),
         "encode2d_xor": cuda_ms(lambda: xor_cuda.encode2d_xor_reference(x2, ops)),
@@ -716,7 +842,7 @@ def main(argv: list[str]) -> int:
     results = {}
     for kname, b in bounds.items():
         results[kname] = (dev_ms[kname], event_ms[kname], plain_ms[kname], b)
-    k3_dev = k3_event = k3_plain = k3_ops = k3_bytes = 0.0
+    k3_dev = k3_event = k3_plain = k3_blocks = k3_bytes = 0.0
     for batch, _words in k3_shapes:
         name = f"sha256_words_{batch}"
         emit(phase="timing", kernel="sha256_words", shape=[16 * NODE_BLOCKS, batch],
@@ -724,15 +850,20 @@ def main(argv: list[str]) -> int:
         k3_dev += dev_ms[name]
         k3_event += event_ms[name]
         k3_plain += plain_ms[name]
-        k3_ops += NODE_BLOCKS * batch * SHA_BLOCK_OPS / INT32_OPS_PER_S
+        k3_blocks += NODE_BLOCKS * batch
         k3_bytes += 16 * NODE_BLOCKS * batch * 4 + 8 * batch * 4
-    results["sha256_words"] = (k3_dev, k3_event, k3_plain, bound(k3_ops, k3_bytes))
+    results["sha256_words"] = (k3_dev, k3_event, k3_plain,
+                               bound(pipe_seconds(k3_blocks * sha_alu, k3_blocks * sha_fma),
+                                     k3_bytes))
     for kname, (t_d, t_e, t_p, (b_ms, b_by)) in results.items():
-        emit(phase="timing", kernel=kname, k=k, device_ms=t_d, event_ms=t_e, plain_ms=t_p,
-             bound_ms=b_ms, bound_by=b_by)
-    emit(phase="timing", kernel="leaf_digests2d", shape=[2 * k, 2 * n],
-         device_ms=dev_ms["leaf_digests2d_eds"], event_ms=event_ms["leaf_digests2d_eds"],
-         bound_ms=bound(4 * sha_ops, 4 * (k * n + 2 * k * nc * 32))[0])
+        if kname != "leaf_digests2d":
+            emit(phase="timing", kernel=kname, k=k, device_ms=t_d, event_ms=t_e, plain_ms=t_p,
+                 bound_ms=b_ms, bound_by=b_by)
+    for call, kk, rows in leaf_shapes:
+        b_ms, b_by = leaf_bound(rows)
+        emit(phase="timing", kernel="leaf_digests2d", k=kk, shape=[rows, rows * SHARE_SIZE],
+             device_ms=dev_ms[call], launch_range_ms=[min(per_launch[call]), max(per_launch[call])],
+             event_ms=event_ms[call], plain_ms=plain_ms[call], bound_ms=b_ms, bound_by=b_by)
     for kname, call in (("encode2d_hash", "table_dense_64"), ("encode2d", "encode2d_64")):
         emit(phase="timing", kernel=kname, k=64, device_ms=dev_ms[call],
              event_ms=event_ms[call])
