@@ -22,6 +22,8 @@ find; nothing here imports jax or celestia_tpu):
   evaluators
 - ``ops.xor_cuda``       — XOR-schedule encode+leaf-hash (K5) and encode (K6)
   kernels; ``extend_square_xor``, the unfused XOR extend
+- ``ops.nmt_cuda``       — the NMT tree kernel (leaf-digest grid -> row and column
+  roots and the row levels, one launch) and its plain level loop
 - ``ops.nmt_host``       — hashlib NMT / RFC-6962 merkle (host oracle, DAH hash)
 - ``ops.extend``         — the main path: square -> EDS -> roots -> DAH, on
   four routes (fused/unfused × dense/XOR) picked per k

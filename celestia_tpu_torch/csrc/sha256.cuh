@@ -1,4 +1,5 @@
-// SHA-256 compression shared by the port's hashing kernels (K1, K2, K3, K5).
+// SHA-256 compression shared by the port's hashing kernels (K1, K2, K3, K5 and
+// the NMT tree kernel).
 //
 // One thread runs one message: the 16-word schedule window and the 8 state
 // words stay in registers, the 64 rounds are fully unrolled so every

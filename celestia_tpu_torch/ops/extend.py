@@ -32,9 +32,15 @@ Routes (``_roots_of``, as in the JAX package's extend_tpu._roots_of):
   (``rs_cuda.encode2d``), then K2 hashes every leaf of the EDS;
 - unfused XOR: the same with K6 (``xor_cuda.encode2d_xor``).
 
-Every tree level and the DAH merkle run K3 (``sha256_cuda.sha256_words``)
-through ``sha256.sha256_fixed``. The leaves of an existing EDS
-(``eds_roots_device``, ``eds_row_levels_device``) run K2.
+Every route ends in one launch of the tree kernel (``nmt_cuda.nmt_tree``):
+it reads the four quadrant tiles of leaf digests in place (on the fused
+route K1's [col, row] outputs as transposed views, on the unfused routes
+four slices of K2's grid) and the Q0 namespaces as a view of the shares,
+and returns the row and column roots, with the row levels for
+``eds_row_levels_device``. The device DAH merkle (``merkle_root_pow2``)
+runs K3 (``sha256_cuda.sha256_words``) through ``sha256.sha256_fixed``. The
+leaves of an existing EDS (``eds_roots_device``, ``eds_row_levels_device``)
+run K2.
 
 The route is chosen per k as the JAX package chooses it: the env pins
 ``CELESTIA_FUSED_KERNELS`` and ``CELESTIA_XOR_SCHEDULE`` ("0"/"off"/"false"
@@ -65,12 +71,12 @@ from celestia_tpu_torch.appconsts import (
     SHARE_SIZE,
 )
 from celestia_tpu_torch.app import calibration
-from celestia_tpu_torch.ops import rs, rs_cuda, sha256_cuda, xor_cuda, xor_schedule
-from celestia_tpu_torch.ops.sha256 import sha256_fixed, words_to_bytes
+from celestia_tpu_torch.ops import nmt_cuda, rs, rs_cuda, sha256_cuda, xor_cuda, xor_schedule
+from celestia_tpu_torch.ops.nmt_cuda import NMT_NODE_SIZE, leaf_namespaces as _leaf_namespaces
+from celestia_tpu_torch.ops.sha256 import sha256_fixed
 
 _LEAF_PREFIX = np.array([0], dtype=np.uint8)
 _NODE_PREFIX = np.array([1], dtype=np.uint8)
-NMT_NODE_SIZE = 2 * NAMESPACE_SIZE + 32  # 90
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,16 +89,19 @@ class Kernels:
     encode2d: Callable
     encode2d_xor_hash: Callable
     encode2d_xor: Callable
+    nmt_tree: Callable
 
 
 KERNELS = Kernels(rs_cuda.encode2d_hash, rs_cuda.leaf_digests2d,
                   sha256_cuda.sha256_words, rs_cuda.encode2d,
-                  xor_cuda.encode2d_xor_hash, xor_cuda.encode2d_xor)
+                  xor_cuda.encode2d_xor_hash, xor_cuda.encode2d_xor,
+                  nmt_cuda.nmt_tree)
 PLAIN = Kernels(rs_cuda.encode2d_hash_reference,
                 rs_cuda.leaf_digests2d_reference,
                 sha256_cuda.sha_core_reference, rs_cuda.encode2d_reference,
                 xor_cuda.encode2d_xor_hash_reference,
-                xor_cuda.encode2d_xor_reference)
+                xor_cuda.encode2d_xor_reference,
+                nmt_cuda.nmt_tree_reference)
 
 _FUSED_ENV = "CELESTIA_FUSED_KERNELS"
 _XOR_ENV = "CELESTIA_XOR_SCHEDULE"
@@ -127,53 +136,6 @@ def _bcast_const(const: np.ndarray, like: torch.Tensor,
     return torch.as_tensor(const, device=like.device).expand(*batch, const.shape[0])
 
 
-def nmt_leaf_nodes(leaf_ns: torch.Tensor, data: torch.Tensor,
-                   kernels: Kernels = KERNELS) -> torch.Tensor:
-    """(..., 29) ns + (..., D) data -> (..., 90) NMT leaf nodes."""
-    batch = tuple(data.shape[:-1])
-    msg = torch.cat([_bcast_const(_LEAF_PREFIX, data, batch), leaf_ns, data], dim=-1)
-    digest = sha256_fixed(msg, kernels.sha256_words)
-    return torch.cat([leaf_ns, leaf_ns, digest], dim=-1)
-
-
-def _nmt_reduce_once(nodes: torch.Tensor, kernels: Kernels = KERNELS) -> torch.Tensor:
-    """One pairwise NMT level: (..., n, 90) -> (..., n/2, 90)."""
-    left = nodes[..., 0::2, :]
-    right = nodes[..., 1::2, :]
-    batch = tuple(left.shape[:-1])
-    msg = torch.cat([_bcast_const(_NODE_PREFIX, nodes, batch), left, right], dim=-1)
-    digest = sha256_fixed(msg, kernels.sha256_words)
-    parity = torch.as_tensor(rs_cuda.PARITY_NS, device=nodes.device)
-    right_is_parity = (right[..., :NAMESPACE_SIZE] == parity).all(dim=-1, keepdim=True)
-    max_ns = torch.where(
-        right_is_parity,
-        left[..., NAMESPACE_SIZE:2 * NAMESPACE_SIZE],
-        right[..., NAMESPACE_SIZE:2 * NAMESPACE_SIZE],
-    )
-    return torch.cat([left[..., :NAMESPACE_SIZE], max_ns, digest], dim=-1)
-
-
-def nmt_reduce_axis(nodes: torch.Tensor, kernels: Kernels = KERNELS) -> torch.Tensor:
-    """Pairwise-reduce (..., n, 90) NMT nodes along axis -2 to roots (..., 90).
-    n must be a power of two (always true for EDS axes)."""
-    while nodes.shape[-2] > 1:
-        nodes = _nmt_reduce_once(nodes, kernels)
-    return nodes[..., 0, :]
-
-
-def nmt_reduce_levels(nodes: torch.Tensor,
-                      kernels: Kernels = KERNELS) -> list[torch.Tensor]:
-    """Like nmt_reduce_axis, but keep every tree level:
-    [leaves (..., n, 90), (..., n/2, 90), ..., roots (..., 1, 90)].
-    On a power-of-two tree every range the RFC-6962 split visits is one of
-    these aligned nodes, so the stack is the whole proof memo of a row."""
-    levels = [nodes]
-    while nodes.shape[-2] > 1:
-        nodes = _nmt_reduce_once(nodes, kernels)
-        levels.append(nodes)
-    return levels
-
-
 def merkle_root_pow2(items: torch.Tensor, kernels: Kernels = KERNELS) -> torch.Tensor:
     """RFC-6962 merkle root of (..., n, D) items, n a power of two
     (tendermint merkle.HashFromByteSlices; the DAH hashes its 4k axis roots,
@@ -191,42 +153,24 @@ def merkle_root_pow2(items: torch.Tensor, kernels: Kernels = KERNELS) -> torch.T
     return leaves[..., 0, :]
 
 
-def _leaf_namespaces(q0_ns: torch.Tensor, k: int) -> torch.Tensor:
-    """(k, k, 29) Q0 namespaces -> (2k, 2k, 29) per-cell leaf namespaces."""
-    parity = torch.as_tensor(rs_cuda.PARITY_NS, device=q0_ns.device).expand(k, k, NAMESPACE_SIZE)
-    top = torch.cat([q0_ns, parity], dim=1)
-    bottom = torch.cat([parity, parity], dim=1)
-    return torch.cat([top, bottom], dim=0)
-
-
-def _digest_grid_roots(digest_bytes: torch.Tensor, leaf_ns: torch.Tensor,
-                       kernels: Kernels = KERNELS):
-    """(2k,2k,32) per-cell leaf digests + (2k,2k,29) namespaces ->
-    (row_roots, col_roots). Cell (r, c) has the same leaf in its row tree
-    and its column tree, so one grid feeds both reductions, stacked into
-    one level-synchronous pass."""
-    leaf_nodes = torch.cat([leaf_ns, leaf_ns, digest_bytes], dim=-1)
-    stacked = torch.stack([leaf_nodes, leaf_nodes.transpose(0, 1)], dim=0)
-    roots = nmt_reduce_axis(stacked, kernels)
-    return roots[0], roots[1]
-
-
-def _eds_leaf_digests(eds: torch.Tensor, kernels: Kernels) -> tuple[torch.Tensor, torch.Tensor]:
-    """Leaf digests (2k, 2k, 32) and namespaces (2k, 2k, 29) of an
-    existing EDS, through K2 over its (2k, 2k·512) byte rows."""
+def _eds_tree(eds: torch.Tensor, kernels: Kernels, keep_levels: bool = False):
+    """The tree kernel over an existing EDS: K2's (2k, 2k, 8) leaf-digest
+    grid, passed as four quadrant slices, and Q0's namespaces read from
+    the shares. ``keep_levels`` goes to ``nmt_tree``."""
     w = eds.shape[0]
     k = w // 2
-    leaf_ns = _leaf_namespaces(eds[:k, :k, :NAMESPACE_SIZE], k)
-    words = kernels.leaf_digests2d(eds.reshape(w, w * SHARE_SIZE),
-                                   rs_cuda.pad_namespaces(leaf_ns))
-    return words_to_bytes(words), leaf_ns
+    q0_ns = eds[:k, :k, :NAMESPACE_SIZE]
+    grid = kernels.leaf_digests2d(eds.reshape(w, w * SHARE_SIZE),
+                                  rs_cuda.pad_namespaces(_leaf_namespaces(q0_ns, k)))
+    quads = (grid[:k, :k], grid[:k, k:], grid[k:, :k], grid[k:, k:])
+    return kernels.nmt_tree(quads, q0_ns, keep_levels)
 
 
 def nmt_roots_of_eds(eds: torch.Tensor, kernels: Kernels = KERNELS):
     """(2k, 2k, 512) EDS -> (row_roots, col_roots), leaf namespaces read
     from Q0 (the JAX spelling takes them as an argument)."""
-    digest_bytes, leaf_ns = _eds_leaf_digests(eds, kernels)
-    return _digest_grid_roots(digest_bytes, leaf_ns, kernels)
+    roots, _levels = _eds_tree(eds, kernels)
+    return roots[0], roots[1]
 
 
 def _roots_of_fused(shares: torch.Tensor, m2: rs.EncodeMatrix,
@@ -263,15 +207,10 @@ def _roots_of_fused(shares: torch.Tensor, m2: rs.EncodeMatrix,
         torch.cat([shares, q1], dim=1),
         torch.cat([q2, q3], dim=1),
     ], dim=0)
-    d0, d1t, d2, d3t = (d.view(torch.int32) for d in (d0, d1t, d2, d3t))
-    dig = torch.cat([
-        torch.cat([d0, d1t.transpose(0, 1)], dim=1),
-        torch.cat([d2, d3t.transpose(0, 1)], dim=1),
-    ], dim=0)  # (2k, 2k, 8) digest words
-    digest_bytes = words_to_bytes(dig.view(torch.uint32))
-    leaf_ns = _leaf_namespaces(q0_ns, k)
-    row_roots, col_roots = _digest_grid_roots(digest_bytes, leaf_ns, kernels)
-    return eds, row_roots, col_roots
+    # the digest tiles in [row, col] orientation, read in place
+    roots, _levels = kernels.nmt_tree(
+        (d0, d1t.transpose(0, 1), d2, d3t.transpose(0, 1)), q0_ns)
+    return eds, roots[0], roots[1]
 
 
 def _roots_of(shares: torch.Tensor, m2: rs.EncodeMatrix, fused: bool | None = None,
@@ -393,7 +332,6 @@ def eds_row_levels_device(eds, device=None, kernels: Kernels = KERNELS) -> list[
     numpy. levels[L][r, j] is row r's subtree node over leaves
     [j·2^L, (j+1)·2^L)."""
     dev = device_mod.resolve(device)
-    _eds_size(eds)
-    digest_bytes, leaf_ns = _eds_leaf_digests(_stage(eds, dev), kernels)
-    leaf_nodes = torch.cat([leaf_ns, leaf_ns, digest_bytes], dim=-1)
-    return [lv.cpu().numpy() for lv in nmt_reduce_levels(leaf_nodes, kernels)]
+    k = _eds_size(eds)
+    _roots, levels = _eds_tree(_stage(eds, dev), kernels, keep_levels=True)
+    return nmt_cuda.split_levels(levels.cpu().numpy(), k)  # one D2H copy

@@ -9,17 +9,21 @@ message words transposed to (16·nb, B) uint32 — column b is message b — and
 returns (8, B) uint32 digest words. One CUDA thread hashes one message; word
 row w is read at ``words[w, lane]``, so a warp's loads coalesce.
 
-On the main path K3 carries every NMT inner-node level (181-byte messages,
-nb = 3, B = 65,536 at the first level of a k = 128 square, 8 levels) and the
-DAH merkle when it runs on the device (91 and 65 bytes, nb = 2). PyTorch has
-no SHA-256 of its own, so this kernel has no library counterpart.
+Since the tree kernel (``ops/nmt_cuda.py``, ``csrc/nmt_tree.cu``) took over
+every NMT inner-node level, K3 carries the DAH merkle when it runs on the
+device (``extend.merkle_root_pow2``: 91- and 65-byte messages, nb = 2,
+4k leaves and log2(4k) node levels, one launch each). PyTorch has no SHA-256 of its own, so this kernel has no library
+counterpart.
 
-What bounds it on the H100: integer ALU work, about 2.2k 32-bit operations
-per 64-byte block against ~16.7 T int32 op/s (64 INT32 lanes × 132 SMs ×
-1.98 GHz, an estimate from the SM layout); the bytes (64 in, 32 out per
-message) are far below the 3.35 TB/s line. The design keeps the whole
-compression in registers (the 16-word schedule window and the 8 state words,
-rounds fully unrolled, rotates on ``__funnelshift_r``).
+What bounds it on the H100: integer ALU work. A 64-byte block compiles to
+1,265 operations on the ALU pipe (SHF, LOP3, IADD3) and 118 IMAD on the FMA
+pipe for sm_90a (nvcc 12.8; ``chip_smoke.py`` counts them from the SASS of
+this kernel's block loop, ``csrc/sha256_words.cu``), against 64 INT32 lanes
+× 132 SMs × 1.98 GHz (the Hopper white paper's SM layout); the bytes (64 in,
+32 out per message) are far below the 3.35 TB/s line. A small launch is
+bound instead by one warp's chain of its blocks. The design keeps the whole
+compression in registers (the 16-word schedule window and the 8 state
+words, rounds fully unrolled, rotates on ``__funnelshift_r``).
 """
 
 from __future__ import annotations

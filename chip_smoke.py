@@ -7,13 +7,15 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 ``--xor-table-out`` also writes the dense/XOR routing table this run measured
 (phase 5) to PATH, in the format of celestia_tpu_torch/config/xor_schedule.json;
-``--sass-out`` writes the SASS of K2 and K3 to PATH.
+``--sass-out`` writes the SASS of K2, K3 and the tree kernel to PATH.
 
 The port has four extend routes (fused/unfused × dense/XOR); a route is
 picked with the env pins CELESTIA_FUSED_KERNELS and CELESTIA_XOR_SCHEDULE,
-as a user picks it. Six kernels carry them: K1 encode2d_hash, K2
+as a user picks it. Seven kernels carry them: K1 encode2d_hash, K2
 leaf_digests2d, K3 sha256_words, K4 encode2d, K5 encode2d_xor_hash, K6
-encode2d_xor.
+encode2d_xor, and nmt_tree, K3's tree form (every route ends in it: the
+leaf-digest grid to the row and column roots, and the row levels, in one
+launch). K3 itself is left to the device DAH of extend_and_root_device.
 
 Phases, in order (any failed check raises, so the script exits non-zero and
 prints no result; it also exits non-zero when no CUDA device is present):
@@ -21,18 +23,23 @@ prints no result; it also exits non-zero when no CUDA device is present):
 1. Environment: versions, the card's name, power limit, SM count and
    maximum SM clock, the kernel build (nvcc for sm_90a, from
    celestia_tpu_torch/csrc/) and its seconds, the ptxas report (registers,
-   spills) and SASS opcode mix of the k = 128 encode, K2 and K3, the
-   operations of one SHA-256 block counted from K3's compiled block loop
-   (ALU pipe: LOP3, SHF, IADD3, PRMT; FMA pipe: IMAD), which every SHA
-   bound below uses, and the XOR schedule's host compile at k = 128 and its
-   seconds.
+   spills) and SASS opcode mix of the k = 128 encode, K2, K3 and the tree
+   kernel, the tree kernel's resident blocks per SM, the operations of one
+   SHA-256 block counted from K3's compiled block loop (ALU pipe: LOP3,
+   SHF, IADD3, PRMT; FMA pipe: IMAD), which every SHA bound below uses, the
+   operations of its 64 rounds alone counted from the tree kernel's
+   rounds-only loop (the chain term of the SHA tree bounds), and the XOR
+   schedule's host compile at k = 128 and its seconds.
 2. Each kernel against its plain PyTorch version on the card, byte for byte:
    K3 on messages of every length 0..600 (and against hashlib) and at the
    NMT level shapes; K1, K4, K5 and K6 at every power of two k from 1 to
    128 (the FFT program of K1/K4 differs per k), K2 at the same k on both
    of its main-path shapes, (k, k·512) and (2k, 2k·512), and at 1, 3 and
-   65 rows; and the FFT and XOR kernels against each other (K5 = K1,
-   K6 = K4).
+   65 rows; the FFT and XOR kernels against each other (K5 = K1,
+   K6 = K4); and the tree kernel at every power of two k from 1 to 128
+   (roots of both families, and the row roots with the full row-level
+   stack) on random digests, under random, TAIL_PADDING-tailed and single
+   namespaces, its digest tiles in the fused route's layout.
 3. The reference DAH hashes (MIN k = 1, TYPICAL k = 2, MAX k = 128) through
    da.extend_shares -> new_data_availability_header(...).hash(), and the DAH
    computed on the device by extend_and_root_device equal to the host's, on
@@ -41,8 +48,11 @@ prints no result; it also exits non-zero when no CUDA device is present):
    with a TAIL_PADDING tail) at k = 64 and k = 128. For each route the
    launch counts are set to 0 just before the main path runs on the k = 128
    square (extend -> DAH -> row levels, as a block producer runs it) and
-   read just after: the route's own kernels ran, the other routes' encode
-   kernels did not. On each route the kernel route equals the plain route
+   read just after: the route's own kernels ran, the tree kernel once per
+   extend and once for the row levels, K3 no time, and the other routes'
+   encode kernels did not. The device-DAH entry (extend_and_root_device,
+   where K3 runs the merkle over the axis roots) is read the same way. On
+   each route the kernel route equals the plain route
    (EDS, roots, DAH) and the fused dense route; on the fused dense route the
    row levels equal the plain ones, and at k = 64 the roots equal the host
    oracle (gf256 + nmt_host).
@@ -51,14 +61,20 @@ prints no result; it also exits non-zero when no CUDA device is present):
    (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
    time per launch (median of 10 samples of 10 back-to-back launches),
    beside its bound and its plain version (CUDA events, median of 10 calls;
-   3 for K2 on the k = 128 EDS); end to end (host clock, H2D and D2H included) at k = 64 and
+   3 for K2 on the k = 128 EDS); the tree kernel at k = 64 and 128, on
+   both families (an extend's launch) and on the rows with their levels
+   (eds_row_levels_device's), beside both terms of its bound
+   (``nmt_tree_floor``: all nodes at the card's rate, and one tree's chain
+   of levels, rounds only) and the floor of its level-at-a-time design
+   (``chain_floor_seconds``); K3 at the shapes of one device DAH, bound
+   the same way; end to end (host clock, H2D and D2H included) at k = 64 and
    128, 20 calls of roots_device and extend_roots_device_resident per route
    with the routes in turns (median, quartiles, best), and the median of 10
    calls of eds_row_levels_device (which takes an EDS and runs no extend, so
    no route); the dense/XOR routing table by device time (K1 against K5 at
    k = 16, 32, 64 and 128, the only kernels in which the fused routes
    differ); and a torch.profiler breakdown of one k = 128 roots_device call
-   per route (device time by op, idle share).
+   per route (device time by op, launches, H2D copies, idle share).
 
 Every measurement is one JSON line carrying the card's name and power limit.
 Then come the ``kernels`` line, the card as nvidia-smi reports it, and the
@@ -107,6 +123,7 @@ FFT_MUL_OPS = 9
 FFT_PLAIN_OPS = 1
 LEAF_BLOCKS = 9  # 542-byte NMT leaf message
 NODE_BLOCKS = 3  # 181-byte NMT node message
+DAH_BLOCKS = 2  # 91-byte merkle leaf and 65-byte merkle node messages of the DAH
 
 # pkg/da/data_availability_header_test.go:28, :44, :50
 MIN_DAH = "3d96b7d238e7e0456f6af8e7cdf0a67bd6cf9c2089ecb559c659dcaa1f880353"
@@ -226,20 +243,38 @@ def sass_lines(sass: str, fragment: str) -> list[tuple[int, str, str]]:
     return funcs[0]
 
 
-def block_loop_mix(sass: str, fragment: str) -> collections.Counter:
-    """Opcode counts (with modifiers) of one pass of the kernel's loop: the
-    instructions from the target of its widest backward branch to that
-    branch."""
-    lines = sass_lines(sass, fragment)
+def sass_loops(lines: list[tuple[int, str, str]]) -> list[collections.Counter]:
+    """Opcode counts (with modifiers) of one pass of each loop of a kernel:
+    the instructions from the target of a backward branch to that branch,
+    widest loop first."""
     loops = []
     for addr, op, args in lines:
         target = re.findall(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else []
         if target and int(target[-1], 16) < addr:
             loops.append((int(target[-1], 16), addr))
+    loops.sort(key=lambda t: t[0] - t[1])
+    return [collections.Counter(op for addr, op, _ in lines if lo <= addr <= hi)
+            for lo, hi in loops]
+
+
+def block_loop_mix(sass: str, fragment: str) -> collections.Counter:
+    """One pass of the kernel's widest loop (K3's: one SHA-256 block)."""
+    loops = sass_loops(sass_lines(sass, fragment))
     if not loops:
         raise ValueError(f"no loop in the SASS of {fragment!r}")
-    lo, hi = max(loops, key=lambda t: t[1] - t[0])
-    return collections.Counter(op for addr, op, _ in lines if lo <= addr <= hi)
+    return loops[0]
+
+
+def rounds_loop_mix(sass: str, fragment: str) -> collections.Counter:
+    """One pass of the tree kernel's rounds-only loop (compress_kw in
+    csrc/nmt_tree.cu: the 64 rounds of a block over a K + W its helper
+    threads expanded): the shortest loop whose pass holds exactly 64
+    shared-memory loads, one K + W word a round."""
+    rounds = [mix for mix in sass_loops(sass_lines(sass, fragment))
+              if sum(n for op, n in mix.items() if op.split(".")[0] == "LDS") == 64]
+    if not rounds:
+        raise ValueError(f"no loop of 64 shared loads in the SASS of {fragment!r}")
+    return min(rounds, key=lambda mix: sum(mix.values()))
 
 
 def sha_block_ops(loop: collections.Counter) -> tuple[int, int]:
@@ -259,6 +294,53 @@ def pipe_seconds(alu: float, fma: float) -> float:
     return max(alu / ALU_LANES, fma / FMA_LANES, (alu + fma) / ISSUE_LANES) / (SMS * CLOCK_HZ)
 
 
+def chain_block_seconds(alu: float, fma: float) -> float:
+    """One warp's SHA-256 block alone on an SM sub-partition (16 ALU lanes,
+    32 FMA lanes, one warp instruction issued a clock): the latency floor
+    of a chain of compressions."""
+    warp = 32
+    return max(alu * warp / (ALU_LANES / 4), fma * warp / (FMA_LANES / 4),
+               (alu + fma) * warp / (ISSUE_LANES / 4)) / CLOCK_HZ
+
+
+def chain_floor_seconds(level_messages, blocks: int, alu: float, fma: float) -> float:
+    """The least time of a tree hashed one whole level after another, level
+    i hashing level_messages[i] messages of ``blocks`` SHA-256 blocks: each
+    level at least its throughput time and at least one chain of its
+    blocks. This is the floor of that design (one launch a level, or every
+    tree's level at once), not of the function: independent subtrees need
+    not wait for each other's levels."""
+    return sum(max(pipe_seconds(m * blocks * alu, m * blocks * fma),
+                   blocks * chain_block_seconds(alu, fma)) for m in level_messages)
+
+
+def tree_chain_seconds(depth: int, blocks: int, round_alu: float, round_fma: float) -> float:
+    """One tree's critical path: ``depth`` dependent messages of ``blocks``
+    SHA-256 blocks, each block at least its 64 rounds (``round_alu`` and
+    ``round_fma`` operations) at one warp's issue rate. The message
+    schedule is off that path: other threads can expand it beforehand."""
+    return depth * blocks * chain_block_seconds(round_alu, round_fma)
+
+
+def nmt_tree_levels(k: int, families: int) -> list[int]:
+    """Inner nodes of each level of ``families`` families of 2k NMT trees of
+    2k leaves, leaves' parents first."""
+    w = 2 * k
+    return [families * w * (w >> lv) for lv in range(1, w.bit_length())]
+
+
+def nmt_tree_floor(k: int, families: int, alu: float, fma: float, round_alu: float,
+                   round_fma: float) -> tuple[float, float]:
+    """(throughput, chain) in seconds, the two terms of the least time of
+    the NMT inner nodes of ``families`` families of 2k trees of 2k leaves
+    (3 SHA-256 blocks a node): all nodes at the card's rate (a block is
+    ``alu`` + ``fma`` operations), and one tree's log2(2k) levels of 3
+    blocks' rounds in a row. The bound is the larger."""
+    levels = nmt_tree_levels(k, families)
+    throughput = pipe_seconds(sum(levels) * NODE_BLOCKS * alu, sum(levels) * NODE_BLOCKS * fma)
+    return throughput, tree_chain_seconds(len(levels), NODE_BLOCKS, round_alu, round_fma)
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -268,7 +350,8 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--xor-table-out", default=None,
                     help="also write the measured dense/XOR routing table here")
     ap.add_argument("--sass-out", default=None,
-                    help="also write the SASS of K2 and K3 (cuobjdump -sass) here")
+                    help="also write the SASS of K2, K3 and the tree kernel "
+                         "(cuobjdump -sass) here")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -279,7 +362,7 @@ def main(argv: list[str]) -> int:
     from celestia_tpu_torch import namespace as ns
     from celestia_tpu_torch.appconsts import NAMESPACE_SIZE, SHARE_SIZE
     from celestia_tpu_torch.app import calibration
-    from celestia_tpu_torch.ops import _cuda, extend, gf256, nmt_host, rs, rs_cuda
+    from celestia_tpu_torch.ops import _cuda, extend, gf256, nmt_cuda, nmt_host, rs, rs_cuda
     from celestia_tpu_torch.ops import sha256, sha256_cuda, xor_cuda, xor_schedule
 
     # the plain RS contraction is a float32 matmul: state full fp32 (its
@@ -321,7 +404,7 @@ def main(argv: list[str]) -> int:
     for line in _cuda.build_log().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line or "error" in line:
             print("ptxas:", line.strip(), file=sys.stderr)
-    sha_kernels = ("leaf_digests2d_kernel", "sha256_words_kernel")
+    sha_kernels = ("leaf_digests2d_kernel", "sha256_words_kernel", "nmt_tree_kernel")
     for name, report in ptxas_report(_cuda.build_log()).items():
         if any(f in name for f in ("encode2d_fft_kernel", *sha_kernels)):
             emit(phase="ptxas", kernel=name, **report)
@@ -332,6 +415,8 @@ def main(argv: list[str]) -> int:
         for kname, mix in sass_mix(sass, fragment).items():
             emit(phase="sass_mix", kernel=kname, instructions=sum(mix.values()),
                  ops=dict(mix.most_common(10)))
+    emit(phase="occupancy", kernel="nmt_tree_kernel",
+         blocks_per_sm=lib.celestia_nmt_tree_blocks_per_sm(0))
     if args.sass_out:
         with open(args.sass_out, "w") as f:
             for fragment in sha_kernels:
@@ -346,6 +431,15 @@ def main(argv: list[str]) -> int:
     emit(phase="sha_block_count", kernel="sha256_words_kernel", alu_ops=sha_alu,
          fma_ops=sha_fma, loop_instructions=sum(k3_loop.values()),
          loop_ops=dict(k3_loop.most_common()))
+    # one block's 64 rounds alone, the message schedule aside (the tree
+    # kernel's rounds-only loop): the chain term of the SHA tree bounds
+    r_loop = rounds_loop_mix(sass, "nmt_tree_kernel")
+    round_alu, round_fma = sha_block_ops(r_loop)
+    check(400 < round_alu < sha_alu,
+          f"the tree kernel's rounds loop holds {round_alu} ALU operations: not 64 rounds")
+    emit(phase="sha_rounds_count", kernel="nmt_tree_kernel", alu_ops=round_alu,
+         fma_ops=round_fma, loop_instructions=sum(r_loop.values()),
+         loop_ops=dict(r_loop.most_common()))
     t0 = time.perf_counter()
     xor_schedule.compile_schedule(128)  # host time at first use, before any timing
     emit(phase="xor_compile", k=128, seconds=time.perf_counter() - t0,
@@ -418,6 +512,44 @@ def main(argv: list[str]) -> int:
     emit(phase="kernel_vs_plain", kernel="leaf_digests2d", tolerance=0,
          shapes="(k, k*512) and (2k, 2k*512) for k = 1..128; (1|3|65, 1024)",
          max_abs_err=max_err["leaf_digests2d"])
+
+    # the tree kernel on random digests in the fused route's layout (Q1 and
+    # Q3 [col, row] tensors passed transposed, the namespaces a view of the
+    # shares): the roots of both families (an extend's call), and the row
+    # roots with every row level (eds_row_levels_device's), against the
+    # plain level loop
+    def tree_square(k: int, kind: str) -> torch.Tensor:
+        sq = rng.integers(0, 256, size=(k, k, SHARE_SIZE), dtype=np.uint8)
+        subs = sorted(rng.integers(0, 200, size=(k * k, 10), dtype=np.uint8).tolist())
+        nss = [ns.new_v0(bytes(sub)).bytes for sub in subs]
+        if kind == "tail_padding":
+            nss[k * k - max(1, k * k // 3):] = [ns.TAIL_PADDING_NAMESPACE.bytes] * max(1, k * k // 3)
+        elif kind == "single_namespace":
+            nss = [nss[0]] * (k * k)
+        sq.reshape(k * k, SHARE_SIZE)[:, :NAMESPACE_SIZE] = np.frombuffer(
+            b"".join(nss), np.uint8).reshape(k * k, NAMESPACE_SIZE)
+        return torch.from_numpy(sq).to(dev)
+
+    for k in (1, 2, 4, 8, 16, 32, 64, 128):
+        for kind in ("random", "tail_padding", "single_namespace"):
+            grid = dev_bytes((2 * k, 2 * k, 32)).view(torch.int32).view(torch.uint32)
+            d1t = grid[:k, k:].transpose(0, 1).contiguous()
+            d3t = grid[k:, k:].transpose(0, 1).contiguous()
+            quads = (grid[:k, :k].contiguous(), d1t.transpose(0, 1),
+                     grid[k:, :k].contiguous(), d3t.transpose(0, 1))
+            q0_ns = tree_square(k, kind)[..., :NAMESPACE_SIZE]
+            roots, _ = nmt_cuda.nmt_tree(quads, q0_ns)
+            ref_roots, _ = nmt_cuda.nmt_tree_reference(quads, q0_ns)
+            same("nmt_tree", roots, ref_roots, f"nmt_tree roots k={k} {kind}")
+            rows, levels = nmt_cuda.nmt_tree(quads, q0_ns, keep_levels=True)
+            ref_rows, ref_levels = nmt_cuda.nmt_tree_reference(quads, q0_ns, keep_levels=True)
+            same("nmt_tree", rows, ref_rows, f"nmt_tree row roots k={k} {kind}")
+            same("nmt_tree", levels, ref_levels, f"nmt_tree row levels k={k} {kind}")
+            identical(rows[0], roots[0], f"nmt_tree row roots of both calls, k={k} {kind}")
+        emit(phase="kernel_vs_plain", kernel="nmt_tree", k=k, tolerance=0,
+             squares=["random", "tail_padding", "single_namespace"],
+             outputs=["roots (rows, columns)", "row roots and row levels"],
+             max_abs_err=max_err["nmt_tree"])
     torch.cuda.synchronize()
 
     # ---- phase 3: the reference DAH hashes through the port's main path
@@ -498,16 +630,33 @@ def main(argv: list[str]) -> int:
         emit(phase="main_path", route=rname, k=main_sq.shape[0],
              entry="da.extend_shares+new_data_availability_header+eds_row_levels_device",
              launches=counts, dah=r_dah.hash().hex())
-        for kname in (enc, "leaf_digests2d", "sha256_words"):
+        for kname in (enc, "leaf_digests2d", "nmt_tree"):
             check(counts[kname] > 0, f"the {rname} main path launched {kname} no time")
+        # one tree launch for the extend, one for the row levels; no K3
+        check(counts["nmt_tree"] == 2, f"the {rname} main path launched nmt_tree "
+                                       f"{counts['nmt_tree']} times, expected 2")
+        check(counts["sha256_words"] == 0, f"the {rname} main path launched sha256_words")
         for other in encoders - {enc}:
             check(counts[other] == 0, f"the {rname} main path launched {other}")
         launches[enc] = counts[enc]
         if rname == "fused-dense":
             launches["leaf_digests2d"] = counts["leaf_digests2d"]
-            launches["sha256_words"] = counts["sha256_words"]
+            launches["nmt_tree"] = counts["nmt_tree"]
         main[rname] = (r_eds, r_dah, r_levels)
     main_eds, main_dah, main_levels = main["fused-dense"]
+    # K3's own path: the device DAH, a merkle over the 4k axis roots
+    with pinned("fused-dense"):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        dah_dev = extend.extend_and_root_device(main_sq, dev)[3]
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+    emit(phase="main_path", route="fused-dense", k=main_sq.shape[0],
+         entry="extend_and_root_device", launches=counts, dah=dah_dev.tobytes().hex())
+    check(dah_dev.tobytes() == main_dah.hash(), "extend_and_root_device DAH != main path DAH")
+    check(counts["sha256_words"] > 0 and counts["nmt_tree"] == 1,
+          "extend_and_root_device did not run K3 for its DAH and the tree kernel once")
+    launches["sha256_words"] = counts["sha256_words"]
 
     squares = [("realistic", 64, realistic(64, 0)), ("tail_padding", 64, realistic(64, 700)),
                ("realistic", 128, main_sq), ("tail_padding", 128, realistic(128, 3000))]
@@ -675,16 +824,31 @@ def main(argv: list[str]) -> int:
         "encode2d_xor_hash": lambda: xor_cuda.encode2d_xor_hash(x2, ops),
         "encode2d_xor": lambda: xor_cuda.encode2d_xor(x2, ops),
     }
-    # K3 at the shapes of one extend's NMT levels (both tree families
-    # stacked): the sum over the 8 levels is one extend's K3 work
+    # K3 at the shapes of one device DAH (extend_and_root_device): the 4k
+    # axis roots' merkle leaves, then its 2k, k, ..., 1 nodes, 2 blocks each
     k3_shapes = []
-    batch = 2 * (2 * k) * (2 * k) // 2
-    while batch >= 2 * (2 * k):
-        words = dev_bytes((16 * NODE_BLOCKS, batch * 4)).view(torch.int32)
-        words = words.view(torch.uint32).reshape(16 * NODE_BLOCKS, batch)
+    for batch in [4 * k] + [2 * k >> i for i in range((2 * k).bit_length())]:
+        words = dev_bytes((16 * DAH_BLOCKS, batch * 4)).view(torch.int32)
+        words = words.view(torch.uint32).reshape(16 * DAH_BLOCKS, batch)
         k3_shapes.append((batch, words))
         calls[f"sha256_words_{batch}"] = (lambda w=words: sha256_cuda.sha256_words(w))
-        batch //= 2
+    # the tree kernel at its two main-path calls, k = 64 and 128: an
+    # extend's (both families, K1's and K2's digest tiles in the fused
+    # route's layout) and eds_row_levels_device's (rows and their levels,
+    # four slices of K2's grid over the EDS)
+    tree_calls = {}
+    for kk, sq in ((64, squares[0][2]), (k, main_sq)):
+        grid = dev_bytes((2 * kk, 2 * kk, 32)).view(torch.int32).view(torch.uint32)
+        d1t = grid[:kk, kk:].transpose(0, 1).contiguous()
+        d3t = grid[kk:, kk:].transpose(0, 1).contiguous()
+        fused = (grid[:kk, :kk].contiguous(), d1t.transpose(0, 1),
+                 grid[kk:, :kk].contiguous(), d3t.transpose(0, 1))
+        sliced = (grid[:kk, :kk], grid[:kk, kk:], grid[kk:, :kk], grid[kk:, kk:])
+        q0_ns = torch.from_numpy(sq).to(dev)[..., :NAMESPACE_SIZE]
+        tree_calls[f"nmt_tree_both_{kk}"] = (kk, 2, (fused, q0_ns), {})
+        tree_calls[f"nmt_tree_levels_{kk}"] = (kk, 1, (sliced, q0_ns), {"keep_levels": True})
+    for name, (_kk, _f, a, kw) in tree_calls.items():
+        calls[name] = (lambda a=a, kw=kw: nmt_cuda.nmt_tree(*a, **kw))
     # the routing table's rungs: the fused routes' two encode kernels
     for kk in TABLE_K:
         xk = dev_bytes((kk, kk * SHARE_SIZE))
@@ -709,6 +873,9 @@ def main(argv: list[str]) -> int:
     for batch, words in k3_shapes:
         plain_ms[f"sha256_words_{batch}"] = cuda_ms(
             lambda w=words: sha256_cuda.sha_core_reference(w))
+    for name, (_kk, _f, a, kw) in tree_calls.items():
+        plain_ms[name] = cuda_ms(lambda a=a, kw=kw: nmt_cuda.nmt_tree_reference(*a, **kw),
+                                 reps=3)
 
     # end to end, the routes in turns (sample i of every route back to back,
     # so the host's noise falls on all of them alike)
@@ -748,8 +915,10 @@ def main(argv: list[str]) -> int:
     # gaps, are one segment per call: a timed call's segment holds only its
     # kernel (one name), and its device time per launch is the mean over
     # the records there; a route's segment is its roots_device breakdown.
-    # The profiler slows the host, so the idle share is taken against the
-    # unprofiled median above.
+    # The idle share is taken against the unprofiled median above and
+    # against the profiled call's own host time: the profiler slows the
+    # host, and the pageable H2D copy of the square varies from call to
+    # call, so the first can read below 0 when that copy dominates.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -767,10 +936,13 @@ def main(argv: list[str]) -> int:
             for _ in range(REPS):
                 fn()
             torch.cuda.synchronize()
+        profiled_ms = {}
         for rname in ROUTES:
             time.sleep(gap_s)
             with pinned(rname):
-                extend.roots_device(main_sq, dev)
+                t = time.perf_counter()
+                extend.roots_device(main_sq, dev)  # ends in a D2H copy of the roots
+                profiled_ms[rname] = (time.perf_counter() - t) * 1e3
             torch.cuda.synchronize()
     evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and e.name != "Activity Buffer Request"), key=lambda e: e.time_range.start)
@@ -835,28 +1007,58 @@ def main(argv: list[str]) -> int:
         top = sorted(by_op.items(), key=lambda kv: -kv[1][0])
         emit(phase="profile", k=main_sq.shape[0], route=rname, entry="roots_device",
              device_busy_ms=busy_ms, roots_device_ms=roots_ms[rname][128],
-             device_idle_share=1 - busy_ms / roots_ms[rname][128], device_ops=len(by_op),
+             device_idle_share=1 - busy_ms / roots_ms[rname][128],
+             profiled_call_ms=profiled_ms[rname],
+             profiled_idle_share=1 - busy_ms / profiled_ms[rname], device_ops=len(by_op),
              launches=sum(v[1] for v in by_op.values()),
+             h2d_copies=sum(v[1] for name, v in by_op.items() if "HtoD" in name),
+             h2d_ms=sum(v[0] for name, v in by_op.items() if "HtoD" in name),
              top=[{"op": name, "ms": v[0], "count": v[1]} for name, v in top[:12]])
 
     results = {}
     for kname, b in bounds.items():
         results[kname] = (dev_ms[kname], event_ms[kname], plain_ms[kname], b)
-    k3_dev = k3_event = k3_plain = k3_blocks = k3_bytes = 0.0
+    k3_dev = k3_event = k3_plain = k3_bytes = 0.0
     for batch, _words in k3_shapes:
         name = f"sha256_words_{batch}"
-        emit(phase="timing", kernel="sha256_words", shape=[16 * NODE_BLOCKS, batch],
+        emit(phase="timing", kernel="sha256_words", shape=[16 * DAH_BLOCKS, batch],
              device_ms=dev_ms[name], event_ms=event_ms[name], plain_ms=plain_ms[name])
         k3_dev += dev_ms[name]
         k3_event += event_ms[name]
         k3_plain += plain_ms[name]
-        k3_blocks += NODE_BLOCKS * batch
-        k3_bytes += 16 * NODE_BLOCKS * batch * 4 + 8 * batch * 4
+        k3_bytes += 16 * DAH_BLOCKS * batch * 4 + 8 * batch * 4
+    # one merkle tree of len(k3_shapes) levels (leaves, then nodes): the
+    # larger of all its blocks at the card's rate and its chain of levels
+    # (the design's one launch a level, level_floor_ms, is not the bound)
+    k3_batches = [batch for batch, _w in k3_shapes]
+    k3_throughput = pipe_seconds(sum(k3_batches) * DAH_BLOCKS * sha_alu,
+                                 sum(k3_batches) * DAH_BLOCKS * sha_fma)
+    k3_chain = tree_chain_seconds(len(k3_batches), DAH_BLOCKS, round_alu, round_fma)
+    emit(phase="timing", kernel="sha256_words", k=k, shapes="one device DAH",
+         launches=len(k3_shapes), device_ms=k3_dev, event_ms=k3_event, plain_ms=k3_plain,
+         bound_ms=k3_throughput * 1e3, chain_floor_ms=k3_chain * 1e3,
+         level_floor_ms=chain_floor_seconds(k3_batches, DAH_BLOCKS, sha_alu, sha_fma) * 1e3)
     results["sha256_words"] = (k3_dev, k3_event, k3_plain,
-                               bound(pipe_seconds(k3_blocks * sha_alu, k3_blocks * sha_fma),
-                                     k3_bytes))
+                               bound(max(k3_throughput, k3_chain), k3_bytes))
+    for name, (kk, fams, _a, kw) in tree_calls.items():
+        throughput, chain = nmt_tree_floor(kk, fams, sha_alu, sha_fma, round_alu, round_fma)
+        level_floor = chain_floor_seconds(nmt_tree_levels(kk, fams), NODE_BLOCKS,
+                                          sha_alu, sha_fma)
+        w = 2 * kk
+        nbytes = w * w * 32 + kk * kk * NAMESPACE_SIZE + fams * w * 90
+        if kw.get("keep_levels"):
+            nbytes += w * (2 * w - 1) * 90
+        b_ms, b_by = bound(max(throughput, chain), nbytes)
+        emit(phase="timing", kernel="nmt_tree", k=kk, call=name, families=fams,
+             keep_levels=bool(kw.get("keep_levels")), device_ms=dev_ms[name],
+             launch_range_ms=[min(per_launch[name]), max(per_launch[name])],
+             event_ms=event_ms[name], plain_ms=plain_ms[name],
+             bound_ms=throughput * 1e3, chain_floor_ms=chain * 1e3,
+             level_floor_ms=level_floor * 1e3, row_bound_ms=b_ms, bound_by=b_by)
+        if name == f"nmt_tree_both_{k}":
+            results["nmt_tree"] = (dev_ms[name], event_ms[name], plain_ms[name], (b_ms, b_by))
     for kname, (t_d, t_e, t_p, (b_ms, b_by)) in results.items():
-        if kname != "leaf_digests2d":
+        if kname not in ("leaf_digests2d", "nmt_tree", "sha256_words"):
             emit(phase="timing", kernel=kname, k=k, device_ms=t_d, event_ms=t_e, plain_ms=t_p,
                  bound_ms=b_ms, bound_by=b_by)
     for call, kk, rows in leaf_shapes:
@@ -878,6 +1080,9 @@ def main(argv: list[str]) -> int:
                               "celestia_tpu/ops/xor_schedule.py:537"),
         "encode2d_xor": ("celestia_tpu_torch/csrc/xor_schedule.cu",
                          "celestia_tpu/ops/xor_schedule.py:476"),
+        # the tree form of K3: every NMT level of extend_tpu._nmt_reduce_once
+        "nmt_tree": ("celestia_tpu_torch/csrc/nmt_tree.cu",
+                     "celestia_tpu/ops/sha256_pallas.py:129"),
     }
     kernels = []
     for kname, (t_d, _t_e, t_p, (b_ms, b_by)) in results.items():

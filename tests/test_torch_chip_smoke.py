@@ -100,3 +100,82 @@ def test_ptxas_report_reads_registers_and_spills():
            "ptxas info    : Used 96 registers\n")
     assert chip_smoke.ptxas_report(log) == {"_ZN8celestia21leaf_digests2d_kernelE": {
         "spill_store_bytes": 8, "spill_load_bytes": 4, "registers": 96}}
+
+
+ROUND_ALU = 880  # a plausible count of one block's 64 rounds alone
+
+
+@pytest.mark.parametrize("k,throughput_ms,chain_ms,level_floor_ms", [
+    # 130,560 inner nodes of 3 blocks at the card's ALU rate; one tree's 8
+    # levels of 3 blocks' rounds; the level-at-a-time design's floor:
+    # levels 1 and 2 throughput-bound, levels 3..8 one chain of 3
+    # compressions each (3 x 2 x 1,265 clocks)
+    (128, 0.0296, 8 * 3 * 2 * ROUND_ALU / 1.98e6, 0.0453),
+    # 7 levels: the chain is the larger term, and every level of the
+    # design is one chain
+    (64, 0.0074, 7 * 3 * 2 * ROUND_ALU / 1.98e6, 0.0268),
+])
+def test_nmt_tree_floor_from_the_sass_counts(k, throughput_ms, chain_ms, level_floor_ms):
+    throughput, chain = chip_smoke.nmt_tree_floor(k, 2, 1265, 118, ROUND_ALU, 0)
+    assert throughput * 1e3 == pytest.approx(throughput_ms, abs=5e-5)
+    assert chain * 1e3 == pytest.approx(chain_ms, rel=1e-9)
+    level_floor = chip_smoke.chain_floor_seconds(chip_smoke.nmt_tree_levels(k, 2), 3, 1265, 118)
+    assert level_floor * 1e3 == pytest.approx(level_floor_ms, abs=5e-5)
+    # the function's bound is never above the design's floor
+    assert max(throughput, chain) <= level_floor
+    block = chip_smoke.chain_block_seconds(1265, 118)
+    assert block == pytest.approx(2 * 1265 / chip_smoke.CLOCK_HZ)  # 16 ALU lanes a warp
+    assert 3 * block * 1e6 == pytest.approx(3.83, abs=0.005)
+
+
+def test_chain_floor_takes_the_larger_term_per_level():
+    block = chip_smoke.chain_block_seconds(1265, 118)
+    wide = chip_smoke.pipe_seconds(10**6 * 1265, 10**6 * 118)
+    assert chip_smoke.chain_floor_seconds([10**6 // 2, 1], 2, 1265, 118) == pytest.approx(
+        wide + 2 * block)
+    # one family at k = 1: 2 trees of 2 leaves, one level of a node each, so
+    # the chain is one node's 3 blocks of rounds
+    assert chip_smoke.nmt_tree_levels(1, 1) == [2]
+    assert chip_smoke.nmt_tree_floor(1, 1, 1265, 118, ROUND_ALU, 0)[1] == pytest.approx(
+        3 * chip_smoke.chain_block_seconds(ROUND_ALU, 0))
+    assert chip_smoke.tree_chain_seconds(10, 2, ROUND_ALU, 0) == pytest.approx(
+        20 * 2 * ROUND_ALU / chip_smoke.CLOCK_HZ)
+
+
+def _rounds_kernel(loads_in_rounds: int) -> str:
+    """A tree kernel's SASS: an outer loop holding a 3-pass loop of
+    ``loads_in_rounds`` shared loads with their round operations."""
+    body = []
+    addr = 0x40
+    for _ in range(loads_in_rounds):
+        for insn in ("LDS R4, [R2+0x40] ;", "SHF.R.W.U32.HI R5, R4, 0x6, R4 ;",
+                     "LOP3.LUT R6, R5, R4, R7, 0x96, !PT ;", "IADD3 R8, R6, R5, R4 ;"):
+            body.append(f"        /*{addr:04x}*/                   {insn}")
+            addr += 0x10
+    inner_end = addr
+    body.append(f"        /*{addr:04x}*/              @!P1 BRA 0x40 ;")
+    addr += 0x10
+    body.append(f"        /*{addr:04x}*/                   STS [R3], R8 ;")
+    addr += 0x10
+    body.append(f"        /*{addr:04x}*/              @!P2 BRA 0x20 ;")
+    assert inner_end > 0x40
+    return ("\t\tFunction : _ZN8celestia15nmt_tree_kernelENS_8TreeArgsE\n"
+            "        /*0000*/                   LDC R1, c[0x0][0x28] ;\n"
+            "        /*0010*/                   S2R R0, SR_TID.X ;\n"
+            "        /*0020*/                   LDS R9, [R2] ;\n"
+            "        /*0030*/                   LDS R10, [R2+0x4] ;\n"
+            + "\n".join(body) + "\n        /*ffff*/                   EXIT ;\n")
+
+
+def test_rounds_loop_mix_takes_the_loop_of_64_shared_loads():
+    mix = chip_smoke.rounds_loop_mix(_rounds_kernel(64), "nmt_tree_kernel")
+    assert mix["LDS"] == 64 and mix["SHF.R.W.U32.HI"] == 64
+    assert "STS" not in mix  # the outer loop is not taken
+    assert chip_smoke.sha_block_ops(mix) == (3 * 64, 0)
+    # the widest loop is the outer one
+    assert chip_smoke.block_loop_mix(_rounds_kernel(64), "nmt_tree_kernel")["STS"] == 1
+
+
+def test_rounds_loop_mix_rejects_a_kernel_without_the_rounds_loop():
+    with pytest.raises(ValueError):
+        chip_smoke.rounds_loop_mix(_rounds_kernel(63), "nmt_tree_kernel")

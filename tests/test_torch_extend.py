@@ -21,7 +21,7 @@ from celestia_tpu.ops import nmt_host as jax_nmt_host
 from celestia_tpu_torch import da
 from celestia_tpu_torch import namespace as ns
 from celestia_tpu_torch.appconsts import NAMESPACE_SIZE, SHARE_SIZE
-from celestia_tpu_torch.ops import extend, nmt_host
+from celestia_tpu_torch.ops import extend, nmt_cuda, nmt_host
 
 SMALL_K = [1, 2, 4, 8, 16]
 # (k, tail-padding shares): the five sizes, plus a square whose content does
@@ -197,9 +197,14 @@ def mk_ns(b: int) -> bytes:
 
 
 def _port_row_root(ns_row: list[bytes], data: list[bytes]) -> bytes:
-    leaf_ns = torch.from_numpy(np.stack([np.frombuffer(n, np.uint8) for n in ns_row]))
-    cells = torch.from_numpy(np.stack([np.frombuffer(d, np.uint8) for d in data]))
-    return bytes(extend.nmt_reduce_axis(extend.nmt_leaf_nodes(leaf_ns, cells)).numpy())
+    """The row's root through the port's tree level (``nmt_cuda.reduce_once``
+    over the plain SHA-256, the loop of ``nmt_tree_reference``), from leaf
+    nodes ns ‖ ns ‖ sha256(0x00 ‖ ns ‖ data)."""
+    leaves = [n + n + hashlib.sha256(b"\x00" + n + d).digest() for n, d in zip(ns_row, data)]
+    nodes = torch.from_numpy(np.stack([np.frombuffer(x, np.uint8) for x in leaves]))
+    while nodes.shape[-2] > 1:
+        nodes = nmt_cuda.reduce_once(nodes)
+    return bytes(nodes[0].numpy())
 
 
 def _agree(ns_row, data):
@@ -230,7 +235,7 @@ def test_honest_row_shape_matches():
 
 @pytest.mark.parametrize("seed", range(6))
 def test_reduce_once_matches_hash_node_on_ordered_pairs(seed):
-    """One level of the port's _nmt_reduce_once against nmt_host.hash_node
+    """One level of the port's nmt_cuda.reduce_once against nmt_host.hash_node
     on random ordered sibling pairs, parity-valued children included."""
     rng = np.random.default_rng(1234 + seed)
     nodes = []
@@ -247,7 +252,7 @@ def test_reduce_once_matches_hash_node_on_ordered_pairs(seed):
         dig = [bytes(rng.integers(0, 256, 32, dtype=np.uint8)) for _ in range(2)]
         nodes += [left_min + left_max + dig[0], right_min + right_max + dig[1]]
     arr = torch.from_numpy(np.stack([np.frombuffer(n, np.uint8) for n in nodes]))
-    out = extend._nmt_reduce_once(arr).numpy()
+    out = nmt_cuda.reduce_once(arr).numpy()
     for i in range(8):
         expect = jax_nmt_host.hash_node(nodes[2 * i], nodes[2 * i + 1])
         assert out[i].tobytes() == expect == nmt_host.hash_node(nodes[2 * i], nodes[2 * i + 1])
