@@ -129,4 +129,46 @@ __device__ __forceinline__ void leaf_digest(const uint32_t* cw, const uint32_t p
   sha256_compress(st, w);
 }
 
+// leaf_digest fed one quarter of the cell (128 bytes, 32 words) at a time,
+// q = 0..3 (K5 receives a cell as four 128-lane chunks): quarter q completes
+// blocks 2q and 2q + 1 (and 8 for q = 3). carry holds words 24..31 of the
+// previous quarter, whose last two bytes start the next block. After q = 3,
+// st is the digest.
+__device__ __forceinline__ void leaf_digest_quarter(uint32_t st[8], uint32_t carry[8],
+                                                    const uint32_t* cw, int q,
+                                                    const uint32_t pre[8]) {
+  if (q == 0) sha256_init(st);
+  const int blocks = q == 3 ? 3 : 2;
+#pragma unroll 1
+  for (int blk = 0; blk < blocks; ++blk) {
+    uint32_t w[16];
+    if (blk == 1) {  // cell words 8..24 of the quarter
+#pragma unroll
+      for (int j = 0; j < 16; ++j) w[j] = cell_word(cw[8 + j], cw[9 + j]);
+    } else if (blk == 2) {  // block 8: the cell's last 30 bytes and the padding
+#pragma unroll
+      for (int j = 0; j < 7; ++j) w[j] = cell_word(cw[24 + j], cw[25 + j]);
+      w[7] = cell_word(cw[31], 0x80u);
+#pragma unroll
+      for (int j = 8; j < 15; ++j) w[j] = 0u;
+      w[15] = 542u * 8u;
+    } else if (q == 0) {  // block 0: the prefix, then cell words 0..8
+#pragma unroll
+      for (int j = 0; j < 7; ++j) w[j] = pre[j];
+      w[7] = pre[7] | __byte_perm(cw[0], 0u, 0x4401);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) w[8 + j] = cell_word(cw[j], cw[j + 1]);
+    } else {  // the carried words 24..31 of quarter q - 1, then words 0..8
+#pragma unroll
+      for (int j = 0; j < 7; ++j) w[j] = cell_word(carry[j], carry[j + 1]);
+      w[7] = cell_word(carry[7], cw[0]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) w[8 + j] = cell_word(cw[j], cw[j + 1]);
+    }
+    sha256_compress(st, w);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) carry[j] = cw[24 + j];
+}
+
 }  // namespace celestia

@@ -50,12 +50,12 @@ _SIGNATURES = {
     "celestia_encode2d_hash": (_V, _V, _V, _I, _V, _V, _I, _I, _I, _V),
     # (x, fft_rows, fft_group, n_const, parity, k, n, device, stream)
     "celestia_encode2d": (_V, _V, _V, _I, _V, _I, _I, _I, _V),
-    # (x, node_ab, level_off, n_levels, n_nodes, row_blk, width8, parity,
-    #  digests, k, n, device, stream)
-    "celestia_encode2d_xor_hash": (_V, _V, _V, _I, _I, _V, _I, _V, _V, _I, _I, _I, _V),
-    # (x, node_ab, level_off, n_levels, n_nodes, row_blk, width8, parity,
-    #  k, n, device, stream)
-    "celestia_encode2d_xor": (_V, _V, _V, _I, _I, _V, _I, _V, _I, _I, _I, _V),
+    # (x, prog, words, smem_words, n_levels, max_pairs, n_slots, groups, segs,
+    #  parity, digests, k, n, device, stream)
+    "celestia_encode2d_xor_hash": (_V, _V, *(_I,) * 7, _V, _V, _I, _I, _I, _V),
+    # (x, prog, words, smem_words, n_levels, max_pairs, n_slots, groups, segs,
+    #  parity, k, n, device, stream)
+    "celestia_encode2d_xor": (_V, _V, *(_I,) * 7, _V, _I, _I, _I, _V),
     # (x, ns_pad, digests, rows, n, device, stream)
     "celestia_leaf_digests2d": (_V, _V, _V, _I, _I, _I, _V),
     # (words, out, n_blocks, batch, device, stream)

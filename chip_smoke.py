@@ -23,13 +23,16 @@ prints no result; it also exits non-zero when no CUDA device is present):
 1. Environment: versions, the card's name, power limit, SM count and
    maximum SM clock, the kernel build (nvcc for sm_90a, from
    celestia_tpu_torch/csrc/) and its seconds, the ptxas report (registers,
-   spills) and SASS opcode mix of the k = 128 encode, K2, K3 and the tree
+   spills; also of K5/K6) and SASS opcode mix of the k = 128 encode, K2, K3 and the tree
    kernel, the tree kernel's resident blocks per SM, the operations of one
    SHA-256 block counted from K3's compiled block loop (ALU pipe: LOP3,
    SHF, IADD3, PRMT; FMA pipe: IMAD), which every SHA bound below uses, the
    operations of its 64 rounds alone counted from the tree kernel's
-   rounds-only loop (the chain term of the SHA tree bounds), and the XOR
-   schedule's host compile at k = 128 and its seconds.
+   rounds-only loop (the chain term of the SHA tree bounds), the XOR
+   schedule's host compile at k = 128 and its seconds, and K5/K6's layout
+   at each rung of the routing table (``xor_layout``: block groups, cluster
+   size, row segments, step pairs in registers, shared memory per block,
+   the padding of the conflict-free operand order).
 2. Each kernel against its plain PyTorch version on the card, byte for byte:
    K3 on messages of every length 0..600 (and against hashlib) and at the
    NMT level shapes; K1, K4, K5 and K6 at every power of two k from 1 to
@@ -67,7 +70,11 @@ prints no result; it also exits non-zero when no CUDA device is present):
    (``nmt_tree_floor``: all nodes at the card's rate, and one tree's chain
    of levels, rounds only) and the floor of its level-at-a-time design
    (``chain_floor_seconds``); K3 at the shapes of one device DAH, bound
-   the same way; end to end (host clock, H2D and D2H included) at k = 64 and
+   the same way; K5/K6 beside the function bound and the XOR spelling's own
+   floors (its operations on the ALU pipe, its operand reads from shared
+   memory, and this layout's reads), and K6 with the layout's levers undone
+   one at a time (``xor_levers``: the rows' or the nodes' conflict-free
+   order shuffled, 8 groups instead of 4); end to end (host clock, H2D and D2H included) at k = 64 and
    128, 20 calls of roots_device and extend_roots_device_resident per route
    with the routes in turns (median, quartiles, best), and the median of 10
    calls of eds_row_levels_device (which takes an EDS and runs no extend, so
@@ -115,6 +122,7 @@ ALU_LANES = 64
 FMA_LANES = 128
 ISSUE_LANES = 128
 LOOKUPS_PER_S = 32 * SMS * CLOCK_HZ
+SMEM_WAVEFRONT_WORDS = 32  # 4-byte words one shared-memory wavefront serves
 SHA_ALU_OPS = ("LOP3", "SHF", "IADD3", "PRMT")
 # the FFT spelling of the encode, per 4-lane word: a multiply butterfly is 4
 # byte permutes (lookup addresses), 3 permutes (assembly) and 2 XORs beside
@@ -341,6 +349,38 @@ def nmt_tree_floor(k: int, families: int, alu: float, fma: float, round_alu: flo
     return throughput, tree_chain_seconds(len(levels), NODE_BLOCKS, round_alu, round_fma)
 
 
+def shuffled_layout_prog(layout, seed: int, rows: bool, nodes: bool) -> np.ndarray:
+    """K5/K6's programs with the conflict-free operand order undone (a lever
+    measurement): each thread's row steps, or each level's node entries,
+    in a random order. The reads, and so the parity, are unchanged; only
+    which bank groups a quarter's eight threads hit at a step."""
+    from celestia_tpu_torch.ops import xor_cuda
+
+    rng = np.random.default_rng(seed)
+    prog = layout.prog.copy()
+    head, threads = xor_cuda.HEADER, xor_cuda.ENC_THREADS
+    for g in range(layout.groups):
+        p = prog[g]
+        if nodes:
+            for lv in range(layout.n_levels):
+                count, off = p[head + lv], p[head + layout.n_levels + lv]
+                entries = p[off: off + 2 * count].reshape(-1, 2)
+                p[off: off + 2 * count] = entries[rng.permutation(len(entries))].reshape(-1)
+        if rows:
+            pairs, words = layout.row_program(g)
+            pairs = pairs.copy()
+            for t in range(threads):
+                n = int(words[t] >> 16)
+                slots = np.stack([pairs[:n, t] & 0xFFFF, pairs[:n, t] >> 16], 1).reshape(-1)
+                slots = slots[rng.permutation(len(slots))].reshape(-1, 2)
+                pairs[:n, t] = slots[:, 0] | (slots[:, 1] << 16)
+            smem_words, _n, reg_off, _w, vec_off = (int(v) for v in p[:head])
+            reg = min(layout.max_pairs, xor_cuda.REG_PAIRS)
+            p[reg_off: reg_off + reg * threads] = pairs[:reg].reshape(-1)
+            p[vec_off: smem_words] = pairs[reg:].reshape(-1, 4, threads).transpose(0, 2, 1).reshape(-1)
+    return prog
+
+
 def main(argv: list[str]) -> int:
     import argparse
 
@@ -406,7 +446,7 @@ def main(argv: list[str]) -> int:
             print("ptxas:", line.strip(), file=sys.stderr)
     sha_kernels = ("leaf_digests2d_kernel", "sha256_words_kernel", "nmt_tree_kernel")
     for name, report in ptxas_report(_cuda.build_log()).items():
-        if any(f in name for f in ("encode2d_fft_kernel", *sha_kernels)):
+        if any(f in name for f in ("encode2d_fft_kernel", "encode2d_xor_kernel", *sha_kernels)):
             emit(phase="ptxas", kernel=name, **report)
     cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib._name], check=True, capture_output=True,
@@ -444,6 +484,19 @@ def main(argv: list[str]) -> int:
     xor_schedule.compile_schedule(128)  # host time at first use, before any timing
     emit(phase="xor_compile", k=128, seconds=time.perf_counter() - t0,
          **xor_schedule.schedule_stats(128))
+    # K5/K6's layout at every rung of the routing table: the block groups
+    # (no thread-block cluster: cluster size 1), the row segments, the row
+    # program's step pairs, shared memory per block, and the padding of the
+    # conflict-free operand order (zero-plane reads over real ones)
+    for kk in TABLE_K:
+        t0 = time.perf_counter()
+        lay = xor_cuda.schedule_operands(kk, dev).layout
+        emit(phase="xor_layout", k=kk, seconds=time.perf_counter() - t0, cluster_size=1,
+             groups=lay.groups, segs=lay.segs, max_pairs=lay.max_pairs,
+             register_pairs=min(lay.max_pairs, xor_cuda.REG_PAIRS), slots=lay.n_slots,
+             smem_bytes_k6=lay.smem_bytes(hashed=False), smem_bytes_k5=lay.smem_bytes(hashed=True),
+             reads_per_32_lanes=lay.reads, padded_reads_per_32_lanes=lay.padded_reads,
+             padding=lay.padded_reads / lay.reads - 1)
 
     # ---- phase 2: each kernel against its plain version on the card
     for nb in range(1, sha256.padded_length(600) // 64 + 1):
@@ -760,8 +813,15 @@ def main(argv: list[str]) -> int:
     nnz = (ops.sched.row_idx != ops.sched.zero).sum(axis=1)
     xor3_ops = ops.sched.n_nodes + int((nnz // 2).sum())
     xor_alu = xor3_ops * (n / 32)
-    operand_bytes = sum(t.numel() * t.element_size()
-                        for t in (ops.node_ab, ops.level_off, ops.row_blk))
+    operand_bytes = ops.prog.numel() * ops.prog.element_size()
+    # the XOR spelling's own floors: its operations on the ALU pipe, and its
+    # operand reads from shared memory (every node's two and every row
+    # operand, 16 bytes a 128 lanes, one 128-byte wavefront a clock and SM);
+    # beside them the floor of this layout's reads (each group's nodes, and
+    # the zero-plane padding)
+    smem_words_per_s = SMEM_WAVEFRONT_WORDS * SMS * CLOCK_HZ
+    xor_smem_floor = (2 * ops.sched.n_nodes + int(nnz.sum())) * (n / 32) / smem_words_per_s
+    xor_layout_floor = ops.layout.padded_reads * (n / 32) / smem_words_per_s
     fft_mul, fft_plain = fft_butterflies(m2.fft_group.cpu().numpy())
     fft_alu = (fft_mul * FFT_MUL_OPS + fft_plain * FFT_PLAIN_OPS) * (n / 4)
     fft_lookups = fft_mul * n / LOOKUPS_PER_S
@@ -793,8 +853,11 @@ def main(argv: list[str]) -> int:
         "encode2d_xor_hash": encode_bound(True),
         "encode2d_xor": encode_bound(False),
     }
+    xor_floors = {"xor_alu_floor_ms": pipe_seconds(xor_alu, 0) * 1e3,
+                  "xor_smem_floor_ms": xor_smem_floor * 1e3,
+                  "xor_layout_floor_ms": xor_layout_floor * 1e3}
     emit(phase="bounds", k=k, dense_int8_ms=dense_ops * 1e3, xor3_ops_per_word=xor3_ops,
-         xor3_int32_ms=pipe_seconds(xor_alu, 0) * 1e3, fft_mul_butterflies=fft_mul,
+         **xor_floors, fft_mul_butterflies=fft_mul,
          fft_plain_butterflies=fft_plain, fft_int32_ms=pipe_seconds(fft_alu, 0) * 1e3,
          fft_lookup_ms=fft_lookups * 1e3, sha_block_alu_ops=sha_alu, sha_block_fma_ops=sha_fma,
          sha_ms=pipe_seconds(leaf_blocks * sha_alu, leaf_blocks * sha_fma) * 1e3,
@@ -849,14 +912,27 @@ def main(argv: list[str]) -> int:
         tree_calls[f"nmt_tree_levels_{kk}"] = (kk, 1, (sliced, q0_ns), {"keep_levels": True})
     for name, (_kk, _f, a, kw) in tree_calls.items():
         calls[name] = (lambda a=a, kw=kw: nmt_cuda.nmt_tree(*a, **kw))
+    # the layout's levers on K6 at k = 128: the conflict-free order undone
+    # for the rows, for the nodes, and the rows split over 8 groups, not 4
+    levers = {"xor_lever_rows_shuffled": (ops.layout, (True, False)),
+              "xor_lever_nodes_shuffled": (ops.layout, (False, True)),
+              "xor_lever_groups_8": (xor_cuda.build_layout(ops.sched, 8, 2), (False, False))}
+    for name, (lay, (rows, nodes)) in levers.items():
+        prog = shuffled_layout_prog(lay, SEED, rows, nodes) if rows or nodes else lay.prog
+        lever_ops = xor_cuda.XorOperands(sched=ops.sched, layout=lay,
+                                         prog=torch.as_tensor(prog.view(np.int32), device=dev))
+        check(torch.equal(xor_cuda.encode2d_xor(x2, lever_ops), xor_cuda.encode2d_xor(x2, ops)),
+              f"{name}: the parity changed")
+        calls[name] = lambda o=lever_ops: xor_cuda.encode2d_xor(x2, o)
     # the routing table's rungs: the fused routes' two encode kernels
     for kk in TABLE_K:
         xk = dev_bytes((kk, kk * SHARE_SIZE))
         m2k, opsk = rs.encode_matrix(kk, dev), xor_cuda.schedule_operands(kk, dev)
         calls[f"table_dense_{kk}"] = lambda x=xk, m=m2k: rs_cuda.encode2d_hash(x, m)
         calls[f"table_xor_{kk}"] = lambda x=xk, o=opsk: xor_cuda.encode2d_xor_hash(x, o)
-        if kk == 64:  # K4 at the governance-default square, beside K1's rung
+        if kk == 64:  # K4 and K6 at the governance-default square, beside the rungs
             calls["encode2d_64"] = lambda x=xk, m=m2k: rs_cuda.encode2d(x, m)
+            calls["encode2d_xor_64"] = lambda x=xk, o=opsk: xor_cuda.encode2d_xor(x, o)
     event_ms = {name: cuda_ms(fn, inner=10) for name, fn in calls.items()}
     plain_ms = {
         "encode2d_hash": cuda_ms(lambda: rs_cuda.encode2d_hash_reference(x2, m2)),
@@ -1059,14 +1135,20 @@ def main(argv: list[str]) -> int:
             results["nmt_tree"] = (dev_ms[name], event_ms[name], plain_ms[name], (b_ms, b_by))
     for kname, (t_d, t_e, t_p, (b_ms, b_by)) in results.items():
         if kname not in ("leaf_digests2d", "nmt_tree", "sha256_words"):
+            floors = xor_floors if kname.startswith("encode2d_xor") else {}
             emit(phase="timing", kernel=kname, k=k, device_ms=t_d, event_ms=t_e, plain_ms=t_p,
-                 bound_ms=b_ms, bound_by=b_by)
+                 bound_ms=b_ms, bound_by=b_by, **floors)
     for call, kk, rows in leaf_shapes:
         b_ms, b_by = leaf_bound(rows)
         emit(phase="timing", kernel="leaf_digests2d", k=kk, shape=[rows, rows * SHARE_SIZE],
              device_ms=dev_ms[call], launch_range_ms=[min(per_launch[call]), max(per_launch[call])],
              event_ms=event_ms[call], plain_ms=plain_ms[call], bound_ms=b_ms, bound_by=b_by)
-    for kname, call in (("encode2d_hash", "table_dense_64"), ("encode2d", "encode2d_64")):
+    emit(phase="xor_levers", k=k, kernel="encode2d_xor", default_ms=dev_ms["encode2d_xor"],
+         **{name[len("xor_lever_"):] + "_ms": dev_ms[name] for name in levers},
+         groups_8_padding=levers["xor_lever_groups_8"][0].padded_reads
+         / levers["xor_lever_groups_8"][0].reads - 1)
+    for kname, call in (("encode2d_hash", "table_dense_64"), ("encode2d", "encode2d_64"),
+                        ("encode2d_xor", "encode2d_xor_64")):
         emit(phase="timing", kernel=kname, k=64, device_ms=dev_ms[call],
              event_ms=event_ms[call])
 

@@ -179,3 +179,33 @@ def test_rounds_loop_mix_takes_the_loop_of_64_shared_loads():
 def test_rounds_loop_mix_rejects_a_kernel_without_the_rounds_loop():
     with pytest.raises(ValueError):
         chip_smoke.rounds_loop_mix(_rounds_kernel(63), "nmt_tree_kernel")
+
+
+@pytest.mark.parametrize("rows,nodes", [(True, False), (False, True)])
+def test_shuffled_layout_prog_keeps_every_read(rows, nodes):
+    """The lever measurement's programs undo the conflict-free order and
+    nothing else: each thread keeps its row slots and its step count, each
+    level its node entries (chip_smoke.py checks the parity on the card)."""
+    import dataclasses
+
+    import numpy as np
+
+    from celestia_tpu_torch.ops import xor_cuda
+
+    lay = xor_cuda.schedule_operands(16, "cpu").layout
+    prog = chip_smoke.shuffled_layout_prog(lay, 7, rows, nodes)
+    assert not np.array_equal(prog, lay.prog)
+    moved = dataclasses.replace(lay, prog=prog)
+    head = xor_cuda.HEADER
+    for g in range(lay.groups):
+        (a, words_a), (b, words_b) = lay.row_program(g), moved.row_program(g)
+        assert np.array_equal(words_a, words_b)
+        for t in range(xor_cuda.ENC_THREADS):
+            n = int(words_a[t] >> 16)
+            assert sorted(np.concatenate([a[:n, t] & 0xFFFF, a[:n, t] >> 16])) == \
+                sorted(np.concatenate([b[:n, t] & 0xFFFF, b[:n, t] >> 16]))
+        for lv in range(lay.n_levels):
+            count, off = lay.prog[g, head + lv], lay.prog[g, head + lay.n_levels + lv]
+            ea = lay.prog[g, off: off + 2 * count].reshape(-1, 2)
+            eb = prog[g, off: off + 2 * count].reshape(-1, 2)
+            assert sorted(map(tuple, ea)) == sorted(map(tuple, eb))

@@ -176,6 +176,23 @@ def test_extend_shares_rejects_malformed_input():
         extend.roots_device(np.zeros((2, 3, SHARE_SIZE), np.uint8), device="cpu")
 
 
+def test_extend_shares_refuses_unequal_share_lengths():
+    """Both packages promise 512-byte shares. Shares of other lengths whose
+    total is k²·512 bytes (ROADMAP's input: [500, 524, 512, 512]) are refused
+    by the port; the JAX package checks only the total. On the well-formed
+    square of the same bytes both give the same DAH."""
+    pad = jax_shares.tail_padding_share().to_bytes()
+    ragged = [pad[:500], pad[500:] + pad, pad, pad]
+    assert [len(s) for s in ragged] == [500, 524, 512, 512]
+    with pytest.raises(ValueError, match="512 bytes"):
+        da.extend_shares(ragged, device="cpu")
+    blob = b"".join(ragged)
+    square_of_bytes = [blob[i: i + SHARE_SIZE] for i in range(0, len(blob), SHARE_SIZE)]
+    ours = da.new_data_availability_header(da.extend_shares(square_of_bytes, device="cpu"))
+    theirs = jax_da.new_data_availability_header(jax_da.extend_shares(square_of_bytes))
+    assert ours.hash() == theirs.hash()
+
+
 def test_eds_data_setter_drops_device_copy_and_roots():
     eds = da.extend_shares(oracle_shares(4), device="cpu")
     assert eds.device_data is not None

@@ -83,20 +83,49 @@ def test_encode2d_xor_hash_plain_matches_reference(k):
 
 @pytest.mark.parametrize("k", [1, 4, 64])
 def test_kernel_operands_encode_the_schedule(k):
-    """node_ab, level_off and row_blk, decoded, are the schedule's flat_a,
-    flat_b, level widths and ZERO-padded row_idx."""
+    """The kernels' layout, decoded through each group's slot map, is the
+    schedule: every node a group holds sits at its level with its flat_a /
+    flat_b operands, every node is held by some group, the level widths
+    are the schedule's, and each row's operands (its segments' slots, less
+    the zero-plane padding) are its row_idx entries."""
     sched = xs.compile_schedule(k)
     ops = xor_cuda.schedule_operands(k, "cpu")
-    ab = ops.node_ab.numpy().astype(np.int64)
-    assert np.array_equal(ab & 0xFFFF, sched.flat_a)
-    assert np.array_equal(ab >> 16, sched.flat_b)
-    assert np.array_equal(np.diff(ops.level_off.numpy()), sched.level_widths)
-    blk = ops.row_blk.numpy()
-    assert blk.shape == (-(-sched.row_idx.shape[1] // 8), 8 * k, 8)
-    rows = blk.transpose(1, 0, 2).reshape(8 * k, -1)
-    width = sched.row_idx.shape[1]
-    assert np.array_equal(rows[:, :width], sched.row_idx)
-    assert (rows[:, width:] == sched.zero).all()
+    lay = ops.layout
+    assert np.array_equal(ops.prog.numpy().view(np.uint32), lay.prog)
+    first, zero = sched.n_in + 1, 8 * k
+    level_of = np.repeat(np.arange(len(sched.level_widths)), sched.level_widths)
+    held = np.zeros(sched.n_nodes, bool)
+    spc = k // lay.groups
+    for g in range(lay.groups):
+        prog, slot = lay.prog[g], lay.plane_slot[g]
+        plane = {int(sl): p for p, sl in enumerate(slot) if sl >= 0}
+        for lv in range(lay.n_levels):
+            count, off = prog[xor_cuda.HEADER + lv], prog[xor_cuda.HEADER + lay.n_levels + lv]
+            for e0, dest in prog[off: off + 2 * count].reshape(-1, 2).astype(np.int64):
+                a, b = e0 & 0xFFFF, e0 >> 16
+                if a >= zero and a < zero + 8 and b >= zero and b < zero + 8:
+                    continue  # a padding thread of the quarter
+                t = plane[int(dest)] - first
+                assert level_of[t] == lv and (lay.groups > 1 or not held[t])
+                assert {plane[int(a)], plane[int(b)]} == {int(sched.flat_a[t]), int(sched.flat_b[t])}
+                held[t] = True
+        pairs, words = lay.row_program(g)
+        words = words.astype(np.int64)
+        got: dict[int, list[int]] = {}
+        for t in range(xor_cuda.ENC_THREADS):
+            dest, n = words[t] & 0xFFFF, words[t] >> 16
+            if dest >= lay.segs * 8 * spc:
+                continue  # a thread with no row
+            s_l, res = divmod(int(dest) % (8 * spc), 8)
+            row = 8 * (g * spc + s_l) + ((res - s_l) & 7)
+            slots = np.stack([pairs[:n, t] & 0xFFFF, pairs[:n, t] >> 16], 1).reshape(-1)
+            got.setdefault(row, []).extend(plane[int(sl)] for sl in slots if not zero <= sl < zero + 8)
+        for row, planes in got.items():
+            expect = [int(p) for p in sched.row_idx[row] if p != sched.zero]
+            assert sorted(planes) == sorted(expect), row
+        assert sorted(got) == list(range(8 * g * spc, 8 * (g + 1) * spc))
+    assert held.all()  # so each level's held nodes are its level_widths
+
     assert xor_cuda.schedule_operands(k, torch.device("cpu")) is ops
 
 
@@ -118,7 +147,8 @@ def test_k1_schedule_is_a_copy():
     x2 = torch.from_numpy(_bytes((1, 512), seed=1))
     ops = xor_cuda.schedule_operands(1, "cpu")
     assert torch.equal(xor_cuda.encode2d_xor(x2, ops), x2)
-    assert ops.node_ab.numel() == 0 and ops.level_off.tolist() == [0]
+    lay = ops.layout
+    assert lay.groups == 1 and lay.n_levels == 0 and lay.prog[0, xor_cuda.HEADER - 1] == 8
 
 
 def test_kernel_wrappers_reject_bad_inputs():
