@@ -25,10 +25,18 @@ find; nothing here imports jax or celestia_tpu):
 - ``ops.nmt_cuda``       — the NMT tree kernel (leaf-digest grid -> row and column
   roots and the row levels, one launch) and its plain level loop
 - ``ops.nmt_host``       — hashlib NMT / RFC-6962 merkle (host oracle, DAH hash)
+- ``ops.transfers``      — chunked pinned H2D staging, chunked D2H, sliced reads of a
+  device-resident square, with byte counters, spans and CRC-32C sink checks
 - ``ops.extend``         — the main path: square -> EDS -> roots -> DAH, on
-  four routes (fused/unfused × dense/XOR) picked per k
+  four routes (fused/unfused × dense/XOR) picked per k; the roots-only core
+  and the batched roots of the replay verifier
 - ``app.calibration``    — the port's measured dense/XOR routing table
-- ``da``                 — ExtendedDataSquare and DataAvailabilityHeader
+- ``da``                 — ExtendedDataSquare (with sliced reads) and
+  DataAvailabilityHeader
+- ``telemetry``          — counters and histogram timers
+- ``faults``             — seeded fault injection at the device boundaries
+- ``tracing``            — spans, the flight recorder, stage sinks, fenced profiling
+- ``integrity``          — CRC-32C, the GF(256) syndrome through K4, the audit engine
 
 The CUDA kernels live in ``csrc/`` and are built with nvcc at first use
 (``ops._cuda``).

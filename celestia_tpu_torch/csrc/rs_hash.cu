@@ -11,9 +11,19 @@
 // _leaf_kernel :178): the leaf digests of existing cells, each with its own
 // namespace.
 //
-// Layouts: x (rows, n) uint8 with the shard axis leading, n a multiple of
-// 512; parity (k, n) uint8; digests (rows, n/512, 8) uint32; ns_pad
-// (rows, n/512, 32) uint8. The encode's operands (ops/rs.py fft_program,
+// Layouts. K1/K4 read k data shards of `cells` 512-byte cells and write k
+// parity shards of as many cells, each operand at a shard stride and a cell
+// stride in bytes (multiples of 512, so every 2-byte lane access stays
+// aligned): shard i, cell c of x at x + i * xs.shard + c * xs.cell. A
+// contiguous (k, n) operand has strides (n, 512); the quadrants of a
+// (2k, 2k, 512) EDS are read and written in place, a column extend at
+// (2k * 512, 512) and a row extend, whose shards are the EDS columns, at
+// (512, 2k * 512). K1's digests are (k, cells, 8) uint32, [shard, cell]. K2
+// reads x (rows, n) uint8, n a multiple of 512, and each cell's namespace
+// as the first 29 of 32 bytes at ns + cell * ns_stride (ns_stride a
+// multiple of 16: 32 for rs_cuda.pad_namespaces' (rows, n/512, 32) array,
+// 512 for a Q0 whose cells carry their own namespace, read from x itself),
+// and writes (rows, n/512, 8) uint32. The encode's operands (ops/rs.py fft_program,
 // built once per k and device): fft_rows (n_const, 256) uint8, row i the
 // products mul(c_i, 0..255) of the i-th distinct nonzero twiddle
 // (n_const = k - 1), and fft_group (2(k - 1),) int16, each butterfly group's
@@ -53,7 +63,7 @@
 // 1,552 lookups and the group table), in 254 registers with no spill
 // (chip_smoke.py's sass_mix and ptxas lines).
 //
-// K2 design. x, ns_pad and the digests are all cell-major (cell = row * n/512
+// K2 design. x, the namespaces and the digests are all cell-major (cell = row * n/512
 // + column), so the kernel is one flat grid over cells, any row count and no
 // tiles. One thread hashes one leaf, with no shared memory and no barrier: it
 // streams its own 512-byte cell through registers in 16-byte read-only loads,
@@ -94,6 +104,13 @@ constexpr int kRow = 256;             // bytes per product row in shared memory
 constexpr int kBranchDist = 8;        // groups this wide branch over a zero twiddle
 constexpr int kLanes = 2;             // lanes (bytes) per state word
 constexpr int kEncodeThreads = kCell / kLanes;  // one block per cell column
+
+// Where a shard and a cell of an encode operand lie, in bytes from its base:
+// shard i, cell c at base + i * shard + c * cell, both multiples of kCell.
+struct Strides {
+  size_t shard;
+  size_t cell;
+};
 
 __host__ __device__ constexpr int ilog2(int k) { return k <= 1 ? 0 : 1 + ilog2(k / 2); }
 __host__ __device__ constexpr int groups_of(int k) { return 2 * (k - 1); }
@@ -166,9 +183,10 @@ struct LeopardFft {
 
 template <int K, bool kHash>
 __global__ void __launch_bounds__(kEncodeThreads)
-encode2d_fft_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ fft_rows,
+encode2d_fft_kernel(const uint8_t* __restrict__ x, Strides xs,
+                    const uint8_t* __restrict__ fft_rows,
                     const int16_t* __restrict__ fft_group, int n_const,
-                    uint8_t* __restrict__ parity, uint32_t* __restrict__ digests, int n) {
+                    uint8_t* __restrict__ parity, Strides ps, uint32_t* __restrict__ digests) {
   constexpr int kGroups = groups_of(K);
   extern __shared__ uint4 smem_vec[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(smem_vec);
@@ -180,12 +198,13 @@ encode2d_fft_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ f
 
   const int col = blockIdx.x;
   const int t = threadIdx.x;
-  const size_t lane0 = static_cast<size_t>(col) * kCell + kLanes * t;
+  const uint8_t* xc = x + static_cast<size_t>(col) * xs.cell + kLanes * t;
+  uint8_t* pc = parity + static_cast<size_t>(col) * ps.cell + kLanes * t;
 
   uint32_t w[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) {
-    w[i] = *reinterpret_cast<const uint16_t*>(x + static_cast<size_t>(i) * n + lane0);
+    w[i] = *reinterpret_cast<const uint16_t*>(xc + static_cast<size_t>(i) * xs.shard);
   }
 
   const int nvec = n_const * (kRow / 16);
@@ -205,7 +224,7 @@ encode2d_fft_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ f
 #pragma unroll
   for (int i = 0; i < K; ++i) {
     const uint16_t v = static_cast<uint16_t>(w[i]);
-    *reinterpret_cast<uint16_t*>(parity + static_cast<size_t>(i) * n + lane0) = v;
+    *reinterpret_cast<uint16_t*>(pc + static_cast<size_t>(i) * ps.shard) = v;
     if (kHash) {
       *reinterpret_cast<uint16_t*>(tile_bytes + i * kTileStride * 4 + kLanes * t) = v;
     }
@@ -217,15 +236,15 @@ encode2d_fft_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ f
     uint32_t pre[8], st[8];
     leaf_prefix_parity(pre);
     leaf_digest(tile + t * kTileStride, pre, st);
-    uint32_t* out = digests + (static_cast<size_t>(t) * (n / kCell) + col) * 8;
+    uint32_t* out = digests + (static_cast<size_t>(t) * gridDim.x + col) * 8;
 #pragma unroll
     for (int i = 0; i < 8; ++i) out[i] = st[i];
   }
 }
 
 __global__ void __launch_bounds__(kLeafThreads, kLeafMinBlocks)
-leaf_digests2d_kernel(const uint4* __restrict__ x, const uint4* __restrict__ ns_pad,
-                      uint4* __restrict__ digests, int cells) {
+leaf_digests2d_kernel(const uint4* __restrict__ x, const uint4* __restrict__ ns,
+                      int ns_vecs, uint4* __restrict__ digests, int cells) {
   const int cell = blockIdx.x * kLeafThreads + threadIdx.x;
   if (cell >= cells) return;
   const uint4* src = x + static_cast<size_t>(cell) * kCellVecs;
@@ -235,8 +254,9 @@ leaf_digests2d_kernel(const uint4* __restrict__ x, const uint4* __restrict__ ns_
   uint4 next[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) next[i] = __ldg(src + 3 + i);
-  const uint4 lo = __ldg(ns_pad + 2 * static_cast<size_t>(cell));
-  const uint4 hi = __ldg(ns_pad + 2 * static_cast<size_t>(cell) + 1);
+  const uint4* nsc = ns + static_cast<size_t>(ns_vecs) * cell;
+  const uint4 lo = __ldg(nsc);
+  const uint4 hi = __ldg(nsc + 1);
   const uint32_t nsw[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 
   uint32_t w[16], st[8];
@@ -291,26 +311,32 @@ leaf_digests2d_kernel(const uint4* __restrict__ x, const uint4* __restrict__ ns_
 }
 
 template <int K, bool kHash>
-static cudaError_t launch_encode(const uint8_t* x, const uint8_t* rows, const int16_t* group,
-                                 int n_const, uint8_t* parity, uint32_t* digests, int n,
-                                 cudaStream_t stream) {
+static cudaError_t launch_encode(const uint8_t* x, Strides xs, const uint8_t* rows,
+                                 const int16_t* group, int n_const, uint8_t* parity, Strides ps,
+                                 uint32_t* digests, int cells, cudaStream_t stream) {
   const size_t smem = rows_offset(K) + static_cast<size_t>(n_const + 1) * kRow +
                       (kHash ? static_cast<size_t>(K) * kTileStride * 4 : 0);
   cudaError_t err = cudaFuncSetAttribute(encode2d_fft_kernel<K, kHash>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  encode2d_fft_kernel<K, kHash><<<n / kCell, kEncodeThreads, smem, stream>>>(
-      x, rows, group, n_const, parity, digests, n);
+  encode2d_fft_kernel<K, kHash><<<cells, kEncodeThreads, smem, stream>>>(
+      x, xs, rows, group, n_const, parity, ps, digests);
   return cudaGetLastError();
 }
 
 // The butterfly program's shape depends on k alone, so k is a template
 // parameter and every level unrolls; the twiddles stay in memory.
 template <bool kHash>
-static int encode_entry(const void* x, const void* rows, const void* group, int n_const,
-                        void* parity, void* digests, int k, int n, int device, void* stream) {
-  if (k < 1 || k > 128 || (k & (k - 1)) || n <= 0 || n % kCell || n_const < 0 ||
+static int encode_entry(const void* x, long long x_shard, long long x_cell, const void* rows,
+                        const void* group, int n_const, void* parity, long long p_shard,
+                        long long p_cell, void* digests, int k, int cells, int device,
+                        void* stream) {
+  const long long strides[4] = {x_shard, x_cell, p_shard, p_cell};
+  for (long long v : strides) {
+    if (v <= 0 || v % kCell) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (k < 1 || k > 128 || (k & (k - 1)) || cells <= 0 || n_const < 0 ||
       n_const > groups_of(k)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -322,39 +348,45 @@ static int encode_entry(const void* x, const void* rows, const void* group, int 
   auto ps = static_cast<uint8_t*>(parity);
   auto ds = static_cast<uint32_t*>(digests);
   auto s = static_cast<cudaStream_t>(stream);
+  const Strides in{static_cast<size_t>(x_shard), static_cast<size_t>(x_cell)};
+  const Strides out{static_cast<size_t>(p_shard), static_cast<size_t>(p_cell)};
   switch (k) {
-    case 1: err = launch_encode<1, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
-    case 2: err = launch_encode<2, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
-    case 4: err = launch_encode<4, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
-    case 8: err = launch_encode<8, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
-    case 16: err = launch_encode<16, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
-    case 32: err = launch_encode<32, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
-    case 64: err = launch_encode<64, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
-    default: err = launch_encode<128, kHash>(xs, rs, gs, n_const, ps, ds, n, s); break;
+    case 1: err = launch_encode<1, kHash>(xs, in, rs, gs, n_const, ps, out, ds, cells, s); break;
+    case 2: err = launch_encode<2, kHash>(xs, in, rs, gs, n_const, ps, out, ds, cells, s); break;
+    case 4: err = launch_encode<4, kHash>(xs, in, rs, gs, n_const, ps, out, ds, cells, s); break;
+    case 8: err = launch_encode<8, kHash>(xs, in, rs, gs, n_const, ps, out, ds, cells, s); break;
+    case 16: err = launch_encode<16, kHash>(xs, in, rs, gs, n_const, ps, out, ds, cells, s); break;
+    case 32: err = launch_encode<32, kHash>(xs, in, rs, gs, n_const, ps, out, ds, cells, s); break;
+    case 64: err = launch_encode<64, kHash>(xs, in, rs, gs, n_const, ps, out, ds, cells, s); break;
+    default: err = launch_encode<128, kHash>(xs, in, rs, gs, n_const, ps, out, ds, cells, s); break;
   }
   return static_cast<int>(err);
 }
 
 }  // namespace celestia
 
-extern "C" int celestia_encode2d_hash(const void* x, const void* fft_rows, const void* fft_group,
-                                      int n_const, void* parity, void* digests, int k, int n,
-                                      int device, void* stream) {
-  return celestia::encode_entry<true>(x, fft_rows, fft_group, n_const, parity, digests, k, n,
-                                      device, stream);
+extern "C" int celestia_encode2d_hash(const void* x, long long x_shard, long long x_cell,
+                                      const void* fft_rows, const void* fft_group, int n_const,
+                                      void* parity, long long p_shard, long long p_cell,
+                                      void* digests, int k, int cells, int device, void* stream) {
+  return celestia::encode_entry<true>(x, x_shard, x_cell, fft_rows, fft_group, n_const, parity,
+                                      p_shard, p_cell, digests, k, cells, device, stream);
 }
 
-extern "C" int celestia_encode2d(const void* x, const void* fft_rows, const void* fft_group,
-                                 int n_const, void* parity, int k, int n, int device,
-                                 void* stream) {
-  return celestia::encode_entry<false>(x, fft_rows, fft_group, n_const, parity, nullptr, k, n,
-                                       device, stream);
+extern "C" int celestia_encode2d(const void* x, long long x_shard, long long x_cell,
+                                 const void* fft_rows, const void* fft_group, int n_const,
+                                 void* parity, long long p_shard, long long p_cell, int k,
+                                 int cells, int device, void* stream) {
+  return celestia::encode_entry<false>(x, x_shard, x_cell, fft_rows, fft_group, n_const, parity,
+                                       p_shard, p_cell, nullptr, k, cells, device, stream);
 }
 
-extern "C" int celestia_leaf_digests2d(const void* x, const void* ns_pad, void* digests,
-                                       int rows, int n, int device, void* stream) {
+extern "C" int celestia_leaf_digests2d(const void* x, const void* ns, int ns_stride,
+                                       void* digests, int rows, int n, int device,
+                                       void* stream) {
   using namespace celestia;
-  if (rows <= 0 || n <= 0 || n % kCell || rows > INT_MAX / (n / kCell)) {
+  if (rows <= 0 || n <= 0 || n % kCell || rows > INT_MAX / (n / kCell) || ns_stride < 32 ||
+      ns_stride % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -362,7 +394,7 @@ extern "C" int celestia_leaf_digests2d(const void* x, const void* ns_pad, void* 
   const int cells = rows * (n / kCell);
   leaf_digests2d_kernel<<<(cells + kLeafThreads - 1) / kLeafThreads, kLeafThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(x), static_cast<const uint4*>(ns_pad),
+      static_cast<const uint4*>(x), static_cast<const uint4*>(ns), ns_stride / 16,
       static_cast<uint4*>(digests), cells);
   return static_cast<int>(cudaGetLastError());
 }

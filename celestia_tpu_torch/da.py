@@ -7,14 +7,17 @@ their own namespace, all parity cells use the parity namespace.
 
 The square lives on the device: ``extend_shares`` runs the main path
 (ops/extend.py) and wraps the resulting EDS tensor; its bytes reach the host
-only on the first ``.data`` read. The DAH hash over the 4k axis roots is
-computed on the host (ops/nmt_host.merkle_root).
+only on the first ``.data`` read, and a row, column or cell read before that
+moves only the slice (ops/transfers). The DAH hash over the 4k axis roots is
+computed on the host (ops/nmt_host.merkle_root). ``extend_host`` is the
+host oracle of the extension (numpy, Leopard's encode).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import threading
 
 import numpy as np
 import torch
@@ -26,7 +29,7 @@ from celestia_tpu_torch.appconsts import (
     NAMESPACE_SIZE,
     SHARE_SIZE,
 )
-from celestia_tpu_torch.ops import extend
+from celestia_tpu_torch.ops import extend, gf256, transfers
 from celestia_tpu_torch.ops.nmt_host import merkle_root
 
 MAX_EXTENDED_SQUARE_WIDTH = DEFAULT_SQUARE_SIZE_UPPER_BOUND * 2
@@ -39,7 +42,18 @@ class ExtendedDataSquare:
     Backed by a torch tensor (``device_data``) or by host bytes; the host
     copy of a device square is fetched on the first ``.data`` read. The axis
     roots are those the extension computed with the square, or, for a square
-    given as bytes, ``extend.eds_roots_device`` over it."""
+    given as bytes, ``extend.eds_roots_device`` over it.
+
+    While device-resident, ``row(i)``, ``col(j)``, ``rows_batch`` and
+    ``share(r, c)`` are sliced reads (ops/transfers): the device cuts the
+    row, column or cell and only that crosses to the host, so a sample
+    costs one row, not the square. Whole-square reads (``.data``,
+    ``flattened_shares``) do the one bulk fetch, after which every accessor
+    serves from host memory."""
+
+    # sliced rows and columns kept per instance (FIFO), so a burst of samples
+    # on one axis is served from host memory
+    _SLICE_CACHE_AXES = 8
 
     def __init__(self, squares: np.ndarray | None, original_width: int,
                  device=None):
@@ -49,6 +63,9 @@ class ExtendedDataSquare:
         self._device: torch.Tensor | None = None
         self._roots: tuple[np.ndarray, np.ndarray] | None = None
         self._compute_device = device
+        self._slice_cache: dict[tuple[str, int], list[bytes]] = {}
+        # concurrent readers share an instance: insert and evict under a lock
+        self._slice_lock = threading.Lock()
         self.original_width = original_width
 
     @classmethod
@@ -71,9 +88,11 @@ class ExtendedDataSquare:
     @data.setter
     def data(self, value: np.ndarray) -> None:
         self._data = value
-        # the device copy and the roots no longer match the bytes
+        # the device copy, the roots and the slices no longer match the bytes
         self._device = None
         self._roots = None
+        with self._slice_lock:
+            self._slice_cache.clear()
 
     @property
     def device_data(self) -> torch.Tensor | None:
@@ -83,6 +102,82 @@ class ExtendedDataSquare:
     @property
     def width(self) -> int:
         return 2 * self.original_width
+
+    def _resident(self) -> bool:
+        return self._data is None and self._device is not None
+
+    def _cache_put(self, key: tuple[str, int], cells: list[bytes]) -> None:
+        """Insert under the lock, evicting the oldest entry when full."""
+        with self._slice_lock:
+            if len(self._slice_cache) >= self._SLICE_CACHE_AXES:
+                self._slice_cache.pop(next(iter(self._slice_cache)))
+            self._slice_cache[key] = cells
+
+    def _sliced_axis(self, kind: str, idx: int) -> list[bytes]:
+        """One row or column of a device-resident square without fetching
+        the square: w·512 bytes cross. The transfer runs unlocked; two
+        racers may fetch the same slice once each."""
+        key = (kind, idx)
+        with self._slice_lock:
+            cached = self._slice_cache.get(key)
+        if cached is not None:
+            return cached
+        fetch = transfers.eds_row if kind == "row" else transfers.eds_col
+        arr = fetch(self._device, idx)
+        cells = [arr[t].tobytes() for t in range(self.width)]
+        self._cache_put(key, cells)
+        return cells
+
+    def row(self, i: int) -> list[bytes]:
+        if self._resident():
+            return self._sliced_axis("row", i)
+        return [self.data[i, j].tobytes() for j in range(self.width)]
+
+    def col(self, j: int) -> list[bytes]:
+        if self._resident():
+            return self._sliced_axis("col", j)
+        return [self.data[i, j].tobytes() for i in range(self.width)]
+
+    def rows_batch(self, indices: list[int]) -> list[list[bytes]]:
+        """Several rows, in ``indices`` order. A device-resident square
+        fetches the distinct rows not cached as one gather
+        (``transfers.eds_rows_batch``); byte-identical to ``row()``."""
+        if not self._resident():
+            return [self.row(i) for i in indices]
+        out: dict[int, list[bytes]] = {}
+        misses: list[int] = []
+        with self._slice_lock:
+            for i in sorted(set(indices)):
+                hit = self._slice_cache.get(("row", i))
+                if hit is not None:
+                    out[i] = hit
+                else:
+                    misses.append(i)
+        if misses:
+            batch = transfers.eds_rows_batch(self._device, misses)
+            for t, i in enumerate(misses):
+                out[i] = [batch[t, c].tobytes() for c in range(self.width)]
+                self._cache_put(("row", i), out[i])
+        return [out[i] for i in indices]
+
+    def share(self, r: int, c: int) -> bytes:
+        """One cell: a device-resident square moves 512 bytes (or serves it
+        from a cached row or column), never the whole square."""
+        if self._resident():
+            with self._slice_lock:
+                row_hit = self._slice_cache.get(("row", r))
+                col_hit = self._slice_cache.get(("col", c))
+            if row_hit is not None:
+                return row_hit[c]
+            if col_hit is not None:
+                return col_hit[r]
+            return transfers.eds_share(self._device, r, c).tobytes()
+        return self.data[r, c].tobytes()
+
+    def flattened_shares(self) -> list[bytes]:
+        """Every cell, row-major: one bulk fetch of the square."""
+        data = self.data
+        return [data[i, j].tobytes() for i in range(self.width) for j in range(self.width)]
 
     def _axis_roots(self) -> tuple[np.ndarray, np.ndarray]:
         if self._roots is None:
@@ -95,6 +190,24 @@ class ExtendedDataSquare:
 
     def col_roots(self) -> list[bytes]:
         return [c.tobytes() for c in self._axis_roots()[1]]
+
+
+def extend_host(q0: np.ndarray) -> np.ndarray:
+    """(k, k, 512) uint8 -> the (2k, 2k, 512) EDS on the host, through
+    ``gf256.leopard_encode`` (the CPU oracle of the extension): Q2 extends
+    Q0's columns, Q1 its rows, Q3 Q2's rows."""
+    q0 = np.asarray(q0, dtype=np.uint8)
+    k, _, s = q0.shape
+
+    def col_extend(q):
+        return gf256.leopard_encode(q.reshape(k, k * s)).reshape(k, k, s)
+
+    def row_extend(q):
+        return col_extend(np.ascontiguousarray(q.transpose(1, 0, 2))).transpose(1, 0, 2)
+
+    q2 = col_extend(q0)
+    return np.concatenate([np.concatenate([q0, row_extend(q0)], axis=1),
+                           np.concatenate([q2, row_extend(q2)], axis=1)], axis=0)
 
 
 def extend_shares(shares: list[bytes] | np.ndarray,

@@ -44,20 +44,24 @@ LAUNCHES: dict[str, int] = {
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: every pointer and the stream as c_void_p, every int as c_int
+_L = ctypes.c_longlong
+# C signatures: every pointer and the stream as c_void_p, every int as c_int,
+# every byte stride as c_longlong
 _SIGNATURES = {
-    # (x, fft_rows, fft_group, n_const, parity, digests, k, n, device, stream)
-    "celestia_encode2d_hash": (_V, _V, _V, _I, _V, _V, _I, _I, _I, _V),
-    # (x, fft_rows, fft_group, n_const, parity, k, n, device, stream)
-    "celestia_encode2d": (_V, _V, _V, _I, _V, _I, _I, _I, _V),
+    # (x, x_shard, x_cell, fft_rows, fft_group, n_const, parity, p_shard,
+    #  p_cell, digests, k, cells, device, stream)
+    "celestia_encode2d_hash": (_V, _L, _L, _V, _V, _I, _V, _L, _L, _V, _I, _I, _I, _V),
+    # (x, x_shard, x_cell, fft_rows, fft_group, n_const, parity, p_shard,
+    #  p_cell, k, cells, device, stream)
+    "celestia_encode2d": (_V, _L, _L, _V, _V, _I, _V, _L, _L, _I, _I, _I, _V),
     # (x, prog, words, smem_words, n_levels, max_pairs, n_slots, groups, segs,
     #  parity, digests, k, n, device, stream)
     "celestia_encode2d_xor_hash": (_V, _V, *(_I,) * 7, _V, _V, _I, _I, _I, _V),
     # (x, prog, words, smem_words, n_levels, max_pairs, n_slots, groups, segs,
     #  parity, k, n, device, stream)
     "celestia_encode2d_xor": (_V, _V, *(_I,) * 7, _V, _I, _I, _I, _V),
-    # (x, ns_pad, digests, rows, n, device, stream)
-    "celestia_leaf_digests2d": (_V, _V, _V, _I, _I, _I, _V),
+    # (x, ns, ns_stride, digests, rows, n, device, stream)
+    "celestia_leaf_digests2d": (_V, _V, _I, _V, _I, _I, _I, _V),
     # (words, out, n_blocks, batch, device, stream)
     "celestia_sha256_words": (_V, _V, _I, _I, _I, _V),
     # (q0, q1, q2, q3, q0_rs, q0_cs, q1_rs, q1_cs, q2_rs, q2_cs, q3_rs, q3_cs,

@@ -24,13 +24,20 @@ Structure:
 Routes (``_roots_of``, as in the JAX package's extend_tpu._roots_of):
 
 - fused dense (the default): the three quadrant encodes run K1
-  (``rs_cuda.encode2d_hash``), which returns every parity cell's leaf digest
-  with its bytes; Q0's leaves run K2 (``rs_cuda.leaf_digests2d``);
+  (``rs_cuda.encode_hash_into``), which returns every parity cell's leaf
+  digest with its bytes; Q0's leaves run K2 (``rs_cuda.leaf_digests2d``).
+  Each encode reads its operand and writes its parity in place through
+  shard and cell strides: into the quadrants of one (2k, 2k, 512) EDS, or,
+  on the roots-only core, into buffers no EDS is assembled from;
 - fused XOR: the same with K5 (``xor_cuda.encode2d_xor_hash``), the parity
-  from the compiled XOR schedule;
-- unfused dense: ``rs_cuda.extend_square`` builds the EDS with K4
-  (``rs_cuda.encode2d``), then K2 hashes every leaf of the EDS;
+  from the compiled XOR schedule; K5 reads contiguous shards, so its row
+  extends transpose and its EDS is assembled with ``cat``;
+- unfused dense: ``rs_cuda.extend_square`` builds the EDS in place with K4
+  (``rs_cuda.encode_into``), then K2 hashes every leaf of the EDS;
 - unfused XOR: the same with K6 (``xor_cuda.encode2d_xor``).
+
+``_rows_cols_only`` is the roots-only core (no EDS output) that
+``roots_device`` and the batched entries run.
 
 Every route ends in one launch of the tree kernel (``nmt_cuda.nmt_tree``):
 it reads the four quadrant tiles of leaf digests in place (on the fused
@@ -57,21 +64,27 @@ on the card. Outputs are byte-identical to celestia_tpu's.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import os
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 
 from celestia_tpu_torch import device as device_mod
+from celestia_tpu_torch import faults, integrity, tracing
 from celestia_tpu_torch.appconsts import (
     DEFAULT_SQUARE_SIZE_UPPER_BOUND,
     NAMESPACE_SIZE,
     SHARE_SIZE,
 )
 from celestia_tpu_torch.app import calibration
-from celestia_tpu_torch.ops import nmt_cuda, rs, rs_cuda, sha256_cuda, xor_cuda, xor_schedule
+from celestia_tpu_torch.ops import (
+    nmt_cuda, rs, rs_cuda, sha256_cuda, transfers, xor_cuda, xor_schedule,
+)
 from celestia_tpu_torch.ops.nmt_cuda import NMT_NODE_SIZE, leaf_namespaces as _leaf_namespaces
 from celestia_tpu_torch.ops.sha256 import sha256_fixed
 
@@ -81,7 +94,9 @@ _NODE_PREFIX = np.array([1], dtype=np.uint8)
 
 @dataclasses.dataclass(frozen=True)
 class Kernels:
-    """The kernel functions the routes call."""
+    """The kernel functions the routes call. The dense encodes take the
+    strided in-place form (``rs_cuda.encode_hash_into``/``encode_into``):
+    (src, dst, m2), each a (k, cells, 512) view."""
 
     encode2d_hash: Callable
     leaf_digests2d: Callable
@@ -92,13 +107,13 @@ class Kernels:
     nmt_tree: Callable
 
 
-KERNELS = Kernels(rs_cuda.encode2d_hash, rs_cuda.leaf_digests2d,
-                  sha256_cuda.sha256_words, rs_cuda.encode2d,
+KERNELS = Kernels(rs_cuda.encode_hash_into, rs_cuda.leaf_digests2d,
+                  sha256_cuda.sha256_words, rs_cuda.encode_into,
                   xor_cuda.encode2d_xor_hash, xor_cuda.encode2d_xor,
                   nmt_cuda.nmt_tree)
-PLAIN = Kernels(rs_cuda.encode2d_hash_reference,
+PLAIN = Kernels(rs_cuda.encode_hash_into_reference,
                 rs_cuda.leaf_digests2d_reference,
-                sha256_cuda.sha_core_reference, rs_cuda.encode2d_reference,
+                sha256_cuda.sha_core_reference, rs_cuda.encode_into_reference,
                 xor_cuda.encode2d_xor_hash_reference,
                 xor_cuda.encode2d_xor_reference,
                 nmt_cuda.nmt_tree_reference)
@@ -173,65 +188,107 @@ def nmt_roots_of_eds(eds: torch.Tensor, kernels: Kernels = KERNELS):
     return roots[0], roots[1]
 
 
-def _roots_of_fused(shares: torch.Tensor, m2: rs.EncodeMatrix,
-                    kernels: Kernels = KERNELS, xor: bool = False):
-    """(k, k, 512) -> (eds, row_roots, col_roots) on a fused route: K1, or
-    with ``xor`` K5, for the quadrant encodes.
+def _new_eds(q0: torch.Tensor) -> torch.Tensor:
+    """A (2k, 2k, 512) buffer with Q0 in its quadrant (one copy); the
+    encodes write the other three in place."""
+    k = q0.shape[0]
+    eds = torch.empty((2 * k, 2 * k, SHARE_SIZE), dtype=torch.uint8, device=q0.device)
+    eds[:k, :k].copy_(q0)
+    return eds
 
-    Column extension contracts over the leading (row) axis, the kernels'
-    native layout; row extension transposes in and out, and the digest
-    grids transpose with it. Q2 = col-extend Q0, Q1 = row-extend Q0,
-    Q3 = row-extend Q2."""
+
+def _scratch_quadrants(q0: torch.Tensor):
+    """The three quadrant encodes as (src, dst) views when no EDS is kept:
+    Q2 in a buffer of its own, read by Q3 in place; Q1's and Q3's bytes
+    only feed their leaf hashes, so each is written as its encode's
+    (shards, cells) buffer, unread."""
+    q1, q2, q3 = (torch.empty_like(q0) for _ in range(3))
+    return ((q0, q2), (q0.transpose(0, 1), q1), (q2.transpose(0, 1), q3))
+
+
+def _roots_of_fused_dense(x0: torch.Tensor, m2: rs.EncodeMatrix, kernels: Kernels,
+                          keep_eds: bool):
+    """(k, k, 512) contiguous -> (eds or None, roots (2, 2k, 90)) on the
+    fused dense route: K2 on Q0's leaves, K1 for the three quadrant
+    encodes, each reading its operand and writing its parity in place
+    through strides (``rs_cuda.eds_quadrants``), then the tree kernel.
+    With ``keep_eds`` the parity lands in one (2k, 2k, 512) EDS, Q0 copied
+    into it once; without, the EDS is never assembled."""
+    k = x0.shape[0]
+    eds = _new_eds(x0) if keep_eds else None
+    quads = rs_cuda.eds_quadrants(eds, x0) if keep_eds else _scratch_quadrants(x0)
+    q0_ns = x0[..., :NAMESPACE_SIZE]
+    x2 = x0.reshape(k, k * SHARE_SIZE)
+    d0 = kernels.leaf_digests2d(x2, rs_cuda.own_namespaces(x2))  # Q0 names its own cells
+    # K1's digests are [shard, cell]: [row, col] for Q2, [col, row] for Q1, Q3
+    d2, d1t, d3t = (kernels.encode2d_hash(src, dst, m2) for src, dst in quads)
+    roots, _levels = kernels.nmt_tree((d0, d1t.transpose(0, 1), d2, d3t.transpose(0, 1)), q0_ns)
+    return eds, roots
+
+
+def _roots_of_fused_xor(shares: torch.Tensor, kernels: Kernels, keep_eds: bool):
+    """(k, k, 512) -> (eds or None, roots) on the fused XOR route: K5 for
+    the quadrant encodes. K5 reads contiguous (k, N) shards, so the row
+    extends transpose in and out and the EDS is assembled with ``cat``."""
     k = shares.shape[0]
-    if xor:
-        ops = xor_cuda.schedule_operands(k, shares.device)
+    ops = xor_cuda.schedule_operands(k, shares.device)
 
-        def encode(x):
-            return kernels.encode2d_xor_hash(x, ops)
-    else:
-        def encode(x):
-            return kernels.encode2d_hash(x, m2)
+    def encode(x):
+        return kernels.encode2d_xor_hash(x, ops)
+
     n = k * SHARE_SIZE
     x0 = shares.reshape(k, n)
     q0_ns = shares[..., :NAMESPACE_SIZE]
-    d0 = kernels.leaf_digests2d(x0, rs_cuda.pad_namespaces(q0_ns))  # [row, col]
+    d0 = kernels.leaf_digests2d(x0, rs_cuda.own_namespaces(x0))  # [row, col]
     q2f, d2 = encode(x0)  # native: [row, col]
     q2 = q2f.reshape(k, k, SHARE_SIZE)
-    x0t = shares.transpose(0, 1).reshape(k, n)
-    q1t, d1t = encode(x0t)  # [col, row]
-    q1 = q1t.reshape(k, k, SHARE_SIZE).transpose(0, 1)
-    q2t = q2.transpose(0, 1).reshape(k, n)
-    q3t, d3t = encode(q2t)  # [col, row]
-    q3 = q3t.reshape(k, k, SHARE_SIZE).transpose(0, 1)
-    eds = torch.cat([
-        torch.cat([shares, q1], dim=1),
-        torch.cat([q2, q3], dim=1),
-    ], dim=0)
-    # the digest tiles in [row, col] orientation, read in place
-    roots, _levels = kernels.nmt_tree(
-        (d0, d1t.transpose(0, 1), d2, d3t.transpose(0, 1)), q0_ns)
-    return eds, roots[0], roots[1]
+    q1t, d1t = encode(shares.transpose(0, 1).reshape(k, n))  # [col, row]
+    q3t, d3t = encode(q2.transpose(0, 1).reshape(k, n))  # [col, row]
+    eds = None
+    if keep_eds:
+        q1 = q1t.reshape(k, k, SHARE_SIZE).transpose(0, 1)
+        q3 = q3t.reshape(k, k, SHARE_SIZE).transpose(0, 1)
+        eds = torch.cat([torch.cat([shares, q1], dim=1), torch.cat([q2, q3], dim=1)], dim=0)
+    roots, _levels = kernels.nmt_tree((d0, d1t.transpose(0, 1), d2, d3t.transpose(0, 1)), q0_ns)
+    return eds, roots
 
 
 def _roots_of(shares: torch.Tensor, m2: rs.EncodeMatrix, fused: bool | None = None,
-              xor: bool | None = None, kernels: Kernels = KERNELS):
-    """(k, k, 512) -> (eds, row_roots, col_roots) on the route that
-    ``fused`` and ``xor`` name; None resolves each through
-    ``_fused_active`` / ``_xor_active``. Byte-identical any way."""
+              xor: bool | None = None, kernels: Kernels = KERNELS, keep_eds: bool = True):
+    """(k, k, 512) contiguous -> (eds, row_roots, col_roots) on the route
+    that ``fused`` and ``xor`` name; None resolves each through
+    ``_fused_active`` / ``_xor_active``. Byte-identical any way. Without
+    ``keep_eds`` the EDS is None: the fused routes do not assemble it, the
+    unfused ones build it as the leaf hash's input and drop it."""
     k = shares.shape[0]
     if fused is None:
         fused = _fused_active(k)
     if xor is None:
         xor = _xor_active(k)
+    if fused and xor:
+        eds, roots = _roots_of_fused_xor(shares, kernels, keep_eds)
+        return eds, roots[0], roots[1]
     if fused:
-        return _roots_of_fused(shares, m2, kernels, xor)
+        eds, roots = _roots_of_fused_dense(shares, m2, kernels, keep_eds)
+        return eds, roots[0], roots[1]
     if xor:
         eds = xor_cuda.extend_square_xor(
             shares, xor_cuda.schedule_operands(k, shares.device), kernels.encode2d_xor)
     else:
         eds = rs_cuda.extend_square(shares, m2, kernels.encode2d)
     row_roots, col_roots = nmt_roots_of_eds(eds, kernels)
-    return eds, row_roots, col_roots
+    return (eds if keep_eds else None), row_roots, col_roots
+
+
+def _rows_cols_only(shares: torch.Tensor, m2: rs.EncodeMatrix, fused: bool | None = None,
+                    xor: bool | None = None, kernels: Kernels = KERNELS):
+    """The one roots-only core: (k, k, 512) -> (row_roots, col_roots), the
+    EDS never an output. Every roots-only entry (``roots_device``,
+    ``roots_only_batched``, ``batched_roots_device``) runs it, so the
+    replay verifier's roots and the proposer's cannot diverge."""
+    _eds, rows, cols = _roots_of(shares, m2, fused=fused, xor=xor, kernels=kernels,
+                                 keep_eds=False)
+    return rows, cols
 
 
 def extend_and_root(shares: torch.Tensor, m2: rs.EncodeMatrix,
@@ -243,15 +300,46 @@ def extend_and_root(shares: torch.Tensor, m2: rs.EncodeMatrix,
     return eds, row_roots, col_roots, dah
 
 
-def extend_and_roots_only(shares: torch.Tensor, m2: rs.EncodeMatrix,
-                          kernels: Kernels = KERNELS):
-    """(k, k, 512) -> (eds, row_roots, col_roots). The DAH over the 4k
-    axis roots is a ~1k-node tree; the host finishes it (da module)."""
-    return _roots_of(shares, m2, kernels=kernels)
+def extend_and_root_batched(shares: torch.Tensor, m2: rs.EncodeMatrix,
+                            kernels: Kernels = KERNELS):
+    """(B, k, k, 512) -> batched (eds, row_roots, col_roots, dah): the
+    multi-block form (catch-up, replay), one square after another on the
+    device's stream."""
+    outs = [extend_and_root(s, m2, kernels) for s in shares]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _batch_chunk(k: int, b: int) -> int:
+    """Squares per chunk of a batched roots call, the JAX package's rule:
+    the whole batch for k <= 64, at most 2 above (there it bounded the
+    TPU's working set), the largest divisor of b within the cap."""
+    cap = b if k <= 64 else 2
+    chunk = min(cap, b)
+    while b % chunk:
+        chunk -= 1
+    return chunk
+
+
+def roots_only_batched(shares: torch.Tensor, m2: rs.EncodeMatrix,
+                       kernels: Kernels = KERNELS):
+    """(B, k, k, 512) -> batched (row_roots, col_roots), no EDS output: the
+    replay verifier compares roots only. Each square runs the roots-only
+    core in turn on the device's stream, so the working set is one
+    square's."""
+    pairs = [_rows_cols_only(s, m2, kernels=kernels) for s in shares]
+    return torch.stack([r for r, _c in pairs]), torch.stack([c for _r, c in pairs])
 
 
 # ------------------------------------------------------------------ #
 # Host entries: numpy (or torch) in, numpy out, on the resolved device.
+# Each wraps its work as the JAX package's entries do (extend_tpu.py:521-604,
+# :1021-1115): an ``extend.device`` span with ``extend.stage`` and
+# ``extend.rs_nmt`` children, the ``device.extend`` fault site, and on the
+# EDS-returning resident entries the ``device.extend.output`` site and the
+# integrity audit. ``backend`` names the card (or "cpu"). The square is
+# staged through ``transfers.device_put_chunked`` (site ``extend.stage``),
+# which adds a ``transfer.extend.stage`` span under ``extend.stage``, as the
+# JAX package's sharded staging does. Its mesh branches are not ported.
 
 
 def _square_size(shares) -> int:
@@ -265,12 +353,17 @@ def _square_size(shares) -> int:
 
 
 def _stage(arr, dev: torch.device) -> torch.Tensor:
-    """Host array or tensor -> contiguous uint8 tensor on dev."""
-    t = (arr if isinstance(arr, torch.Tensor)
-         else torch.from_numpy(np.require(arr, requirements=("C", "W"))))
-    if t.dtype != torch.uint8:
-        raise ValueError(f"expected uint8 bytes, got {t.dtype}")
-    return t.to(dev).contiguous()
+    """Host array or tensor -> contiguous uint8 tensor on dev. Host bytes
+    go through the chunked transfer; a tensor already on a device does not
+    cross the host."""
+    if isinstance(arr, torch.Tensor) and arr.device.type != "cpu":
+        if arr.dtype != torch.uint8:
+            raise ValueError(f"expected uint8 bytes, got {arr.dtype}")
+        return arr.to(dev).contiguous()
+    host = arr.numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    if host.dtype != np.uint8:
+        raise ValueError(f"expected uint8 bytes, got {host.dtype}")
+    return transfers.device_put_chunked(host, dev, site="extend.stage")
 
 
 def _eds_size(eds) -> int:
@@ -280,18 +373,80 @@ def _eds_size(eds) -> int:
     return w // 2
 
 
+@functools.lru_cache(maxsize=None)
+def _card_name(index: int) -> str:
+    return torch.cuda.get_device_name(index)
+
+
+def _backend(dev: torch.device) -> str:
+    """The ``backend`` attribute of the spans: the card's name, or "cpu"."""
+    if dev.type == "cuda":
+        return _card_name(dev.index if dev.index is not None else torch.cuda.current_device())
+    return dev.type
+
+
+def _numpy(*tensors: torch.Tensor):
+    return tuple(t.cpu().numpy() for t in tensors)
+
+
+@contextlib.contextmanager
+def _extend_device(entry: str, dev: torch.device, k: int):
+    """The ``extend.device`` span and the ``device.extend`` fault site;
+    yields the backend name."""
+    backend = _backend(dev)
+    with tracing.span("extend.device", backend=backend, k=k, entry=entry):
+        faults.fire("device.extend", entry=entry)
+        yield backend
+
+
+def _staged(shares, dev: torch.device, k: int, backend: str) -> torch.Tensor:
+    with tracing.span("extend.stage", backend=backend, k=k):
+        return _stage(shares, dev)
+
+
 def roots_device(shares, device=None, kernels: Kernels = KERNELS):
-    """(k, k, 512) uint8 -> numpy (row_roots, col_roots); the EDS is not
-    returned."""
-    _eds, rows, cols = extend_roots_device_resident(shares, device, kernels)
-    return rows, cols
+    """(k, k, 512) uint8 -> numpy (row_roots, col_roots), through the
+    roots-only core: the EDS is never assembled."""
+    dev = device_mod.resolve(device)
+    k = _square_size(shares)
+    with _extend_device("roots_device", dev, k) as backend:
+        x = _staged(shares, dev, k, backend)
+        with tracing.span("extend.rs_nmt", backend=backend, k=k, fused="rs+nmt",
+                          sharded=False):
+            t0 = time.perf_counter()
+            rows, cols = _rows_cols_only(x, rs.encode_matrix(k, dev), kernels=kernels)
+            transfers.profile_fence(cols, "roots_device", t0, k=k)
+            return _numpy(rows, cols)
+
+
+def _extend_resident(entry: str, shares, device, kernels: Kernels):
+    """The resident extend with the JAX package's envelope: the EDS (device
+    tensor), row and column roots (device tensors), after the output fault
+    site and the audit."""
+    dev = device_mod.resolve(device)
+    k = _square_size(shares)
+    with _extend_device(entry, dev, k) as backend:
+        x = _staged(shares, dev, k, backend)
+        with tracing.span("extend.rs_nmt", backend=backend, k=k, fused="rs+nmt",
+                          sharded=False):
+            t0 = time.perf_counter()
+            eds, rows, cols = _roots_of(x, rs.encode_matrix(k, dev), kernels=kernels)
+            transfers.profile_fence(cols, entry, t0, k=k)
+        # SDC model: the result is damaged in flight; the audit must catch it
+        flip = faults.fire("device.extend.output", entry=entry)
+        if flip is not None:
+            eds = flip(eds)
+        eng = integrity.get()
+        if eng.enabled:
+            integrity.audit_or_raise(eng, eds, k, site="device.extend.output",
+                                     where="device.extend")
+        return eds, rows, cols
 
 
 def extend_roots_device(shares, device=None, kernels: Kernels = KERNELS):
     """(k, k, 512) uint8 -> numpy (eds, row_roots, col_roots); the caller
     computes the DAH hash on the host (da module)."""
-    eds, rows, cols = extend_roots_device_resident(shares, device, kernels)
-    return eds.cpu().numpy(), rows, cols
+    return _numpy(*_extend_resident("extend_roots_device", shares, device, kernels))
 
 
 def extend_roots_device_resident(shares, device=None, kernels: Kernels = KERNELS):
@@ -299,11 +454,8 @@ def extend_roots_device_resident(shares, device=None, kernels: Kernels = KERNELS
 
     The EDS stays a device buffer; only the axis roots (2·2k·90 bytes)
     cross to the host. ref: app/extend_block.go:14."""
-    dev = device_mod.resolve(device)
-    k = _square_size(shares)
-    eds, rows, cols = extend_and_roots_only(
-        _stage(shares, dev), rs.encode_matrix(k, dev), kernels)
-    return eds, rows.cpu().numpy(), cols.cpu().numpy()
+    eds, rows, cols = _extend_resident("extend_roots_device_resident", shares, device, kernels)
+    return (eds, *_numpy(rows, cols))
 
 
 def extend_and_root_device(shares, device=None, kernels: Kernels = KERNELS):
@@ -311,9 +463,49 @@ def extend_and_root_device(shares, device=None, kernels: Kernels = KERNELS):
     hash computed on the device."""
     dev = device_mod.resolve(device)
     k = _square_size(shares)
-    eds, rows, cols, dah = extend_and_root(
-        _stage(shares, dev), rs.encode_matrix(k, dev), kernels)
-    return eds.cpu().numpy(), rows.cpu().numpy(), cols.cpu().numpy(), dah.cpu().numpy()
+    with _extend_device("extend_and_root_device", dev, k) as backend:
+        x = _staged(shares, dev, k, backend)
+        with tracing.span("extend.rs_nmt", backend=backend, k=k, fused="rs+nmt+dah",
+                          sharded=False):
+            t0 = time.perf_counter()
+            out = extend_and_root(x, rs.encode_matrix(k, dev), kernels)
+            transfers.profile_fence(out[3], "extend_and_root_device", t0, k=k)
+            return _numpy(*out)
+
+
+def batched_roots_device(shares, device=None, kernels: Kernels = KERNELS):
+    """The replay verifier's entry: B squares of (k, k, 512) uint8 (a list,
+    or a stacked (B, k, k, 512) array) -> numpy (row_roots (B, 2k, 90),
+    col_roots (B, 2k, 90)).
+
+    Squares go in chunks of ``_batch_chunk(k, B)`` (a ragged tail a square
+    at a time): each square of a chunk is staged on its own and runs the
+    roots-only core on the device's stream, and the chunk's roots come back
+    in one D2H copy once every chunk is queued. No square is copied into a
+    stack on the host."""
+    dev = device_mod.resolve(device)
+    b = len(shares)
+    if b == 0:
+        raise ValueError("batched_roots_device needs at least one square")
+    k = _square_size(shares[0])
+    if any(tuple(sq.shape) != (k, k, SHARE_SIZE) for sq in shares):
+        raise ValueError(f"every square must be ({k}, {k}, {SHARE_SIZE})")
+    with tracing.span("extend.device", backend=_backend(dev), k=k, batch=b,
+                      entry="batched_roots_device"):
+        m2 = rs.encode_matrix(k, dev)
+        chunk = _batch_chunk(k, b)
+        full = b - b % chunk
+        groups = [range(g, g + chunk) for g in range(0, full, chunk)]
+        groups += [range(i, i + 1) for i in range(full, b)]
+        t0 = time.perf_counter()
+        outs = []  # (squares, 2, 2k, 90) a chunk, fetched after the last is queued
+        for group in groups:
+            pairs = [_rows_cols_only(_stage(shares[i], dev), m2, kernels=kernels)
+                     for i in group]
+            outs.append(torch.stack([torch.stack(pair) for pair in pairs]))
+        transfers.profile_fence(outs[-1], "batched_roots_device", t0, k=k, batch=b)
+        host = np.concatenate([o.cpu().numpy() for o in outs])  # one D2H a chunk
+        return host[:, 0], host[:, 1]
 
 
 def eds_roots_device(eds, device=None, kernels: Kernels = KERNELS):
@@ -321,9 +513,12 @@ def eds_roots_device(eds, device=None, kernels: Kernels = KERNELS):
     device tensor) -> numpy (row_roots, col_roots). Leaf namespaces are
     read from Q0 on the device."""
     dev = device_mod.resolve(device)
-    _eds_size(eds)
-    rows, cols = nmt_roots_of_eds(_stage(eds, dev), kernels)
-    return rows.cpu().numpy(), cols.cpu().numpy()
+    k = _eds_size(eds)
+    with tracing.span("extend.nmt", backend=_backend(dev), k=k, entry="eds_roots_device"):
+        t0 = time.perf_counter()
+        rows, cols = nmt_roots_of_eds(_stage(eds, dev), kernels)
+        transfers.profile_fence(cols, "eds_roots_device", t0, k=k)
+        return _numpy(rows, cols)
 
 
 def eds_row_levels_device(eds, device=None, kernels: Kernels = KERNELS) -> list[np.ndarray]:
@@ -333,5 +528,9 @@ def eds_row_levels_device(eds, device=None, kernels: Kernels = KERNELS) -> list[
     [j·2^L, (j+1)·2^L)."""
     dev = device_mod.resolve(device)
     k = _eds_size(eds)
-    _roots, levels = _eds_tree(_stage(eds, dev), kernels, keep_levels=True)
-    return nmt_cuda.split_levels(levels.cpu().numpy(), k)  # one D2H copy
+    with tracing.span("extend.nmt_levels", backend=_backend(dev), k=k,
+                      entry="eds_row_levels_device", sharded=False):
+        t0 = time.perf_counter()
+        _roots, levels = _eds_tree(_stage(eds, dev), kernels, keep_levels=True)
+        transfers.profile_fence(levels, "eds_row_levels_device", t0, k=k)
+        return nmt_cuda.split_levels(levels.cpu().numpy(), k)  # one D2H copy

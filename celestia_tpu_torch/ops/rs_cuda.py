@@ -34,7 +34,18 @@ Layouts (the Pallas ones): x2 is (k, N) uint8 with the shard axis leading
 and N a multiple of 512 (lanes are any flattening of whole 512-byte cells);
 parity is (k, N) uint8; digests are (k, N/512, 8) uint32, the big-endian
 word values of SHA-256; ns_pad is (k, N/512, 32) uint8, the 29-byte
-namespace zero-padded to 32.
+namespace zero-padded to 32, or (``own_namespaces``) a view of the cells
+themselves, whose first 29 bytes are their namespace.
+
+The strided forms ``encode_hash_into(src, dst, m2)`` (K1) and
+``encode_into(src, dst, m2)`` (K4) read k data shards from a (k, cells, 512)
+view and write the parity into another, each at any shard and cell stride
+that is a multiple of 512 bytes (``check_cells``). So the three quadrant
+encodes of an extend read Q0 and write Q1, Q2 and Q3 in place in one
+(2k, 2k, 512) EDS (``eds_quadrants``): a row extend's shards are the EDS
+columns, a view with shard stride 512 and cell stride the row stride, and
+no transposed copy is made. ``encode2d_hash`` and ``encode2d`` are the
+contiguous case.
 
 What bounds them on the H100, at k = 128 (N = 65,536). The encode has three
 known spellings, and its bound is the cheapest one's:
@@ -140,10 +151,109 @@ def _check_encode_inputs(x2: torch.Tensor, m2: rs.EncodeMatrix) -> None:
     if k & (k - 1) or k > MAX_K:
         raise ValueError(f"k must be a power of two <= {MAX_K}, got {k}")
     _cuda.require(x2, "x2", torch.uint8, (k, n), x2.device)
+    _check_matrix(k, m2, x2.device)
+
+
+def _check_matrix(k: int, m2: rs.EncodeMatrix, device: torch.device) -> None:
     if m2.k != k:
         raise ValueError(f"the encode operands are for k = {m2.k}, x2 has {k} shards")
-    _cuda.require(m2.fft_rows, "m2.fft_rows", torch.uint8, (max(k - 1, 0), 256), x2.device)
-    _cuda.require(m2.fft_group, "m2.fft_group", torch.int16, (2 * (k - 1),), x2.device)
+    _cuda.require(m2.fft_rows, "m2.fft_rows", torch.uint8, (max(k - 1, 0), 256), device)
+    _cuda.require(m2.fft_group, "m2.fft_group", torch.int16, (2 * (k - 1),), device)
+
+
+def check_cells(t: torch.Tensor, name: str, shape: tuple[int, int, int],
+                device: torch.device) -> tuple[int, int]:
+    """A strided encode operand: a (k, cells, 512) uint8 view whose shard
+    and cell strides are positive multiples of 512 bytes and whose cells
+    are contiguous. Returns (shard stride, cell stride) in bytes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.uint8:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected torch.uint8")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    shard, cell, byte = t.stride()
+    if byte != 1 or min(shard, cell) <= 0 or shard % SHARE_SIZE or cell % SHARE_SIZE:
+        raise ValueError(f"{name} has strides {t.stride()}: the shard and cell "
+                         f"strides must be positive multiples of {SHARE_SIZE}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+    return shard, cell
+
+
+def _check_into(src: torch.Tensor, dst: torch.Tensor, m2: rs.EncodeMatrix):
+    if src.dim() != 3 or src.shape[2] != SHARE_SIZE or src.shape[1] == 0:
+        raise ValueError(f"src must be (k, cells, {SHARE_SIZE}), got {tuple(src.shape)}")
+    k, cells, _ = src.shape
+    if k & (k - 1) or k > MAX_K:
+        raise ValueError(f"k must be a power of two <= {MAX_K}, got {k}")
+    xs = check_cells(src, "src", (k, cells, SHARE_SIZE), src.device)
+    ps = check_cells(dst, "dst", (k, cells, SHARE_SIZE), src.device)
+    _check_matrix(k, m2, src.device)
+    return k, cells, xs, ps
+
+
+def _flat(src: torch.Tensor) -> torch.Tensor:
+    return src.reshape(src.shape[0], src.shape[1] * SHARE_SIZE)
+
+
+def encode_into_reference(src: torch.Tensor, dst: torch.Tensor, m2: rs.EncodeMatrix) -> None:
+    """Plain PyTorch version of K4's strided form: the parity of the
+    (k, cells, 512) data shards ``src`` written into the view ``dst``."""
+    dst.copy_(encode2d_reference(_flat(src), m2).view(dst.shape))
+
+
+def encode_hash_into_reference(src: torch.Tensor, dst: torch.Tensor,
+                               m2: rs.EncodeMatrix) -> torch.Tensor:
+    """Plain PyTorch version of K1's strided form: writes the parity into
+    ``dst`` and returns its (k, cells, 8) uint32 leaf digests."""
+    parity = encode2d_reference(_flat(src), m2)
+    dst.copy_(parity.view(dst.shape))
+    return parity_leaf_digests_plain(parity)
+
+
+def encode_into(src: torch.Tensor, dst: torch.Tensor, m2: rs.EncodeMatrix) -> None:
+    """RS encode in place: the parity of the k data shards ``src``, a
+    (k, cells, 512) uint8 view (shard i, cell c), written into the view
+    ``dst`` of the same shape. Each may be a strided view, such as a
+    quadrant of an EDS or its transpose; the kernel reads and writes them
+    in place. The two views must not share a byte.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K4."""
+    if src.device.type == "cpu":
+        encode_into_reference(src, dst, m2)
+        return
+    k, cells, xs, ps = _check_into(src, dst, m2)
+    rc = _cuda.library().celestia_encode2d(
+        src.data_ptr(), *xs, m2.fft_rows.data_ptr(), m2.fft_group.data_ptr(),
+        m2.fft_rows.shape[0], dst.data_ptr(), *ps, k, cells, src.device.index or 0,
+        _cuda.stream_of(src))
+    _cuda.check(rc, "encode2d")
+    _cuda.LAUNCHES["encode2d"] += 1
+
+
+def encode_hash_into(src: torch.Tensor, dst: torch.Tensor,
+                     m2: rs.EncodeMatrix) -> torch.Tensor:
+    """Fused encode + NMT leaf hash in place: as ``encode_into``, and
+    returns the (k, cells, 8) uint32 leaf digest words of the parity,
+    [shard, cell]: digests[i, c] = SHA-256(0x00 ‖ parity-ns ‖ dst[i, c]).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K1."""
+    if src.device.type == "cpu":
+        return encode_hash_into_reference(src, dst, m2)
+    k, cells, xs, ps = _check_into(src, dst, m2)
+    digests = torch.empty((k, cells, 8), dtype=torch.uint32, device=src.device)
+    rc = _cuda.library().celestia_encode2d_hash(
+        src.data_ptr(), *xs, m2.fft_rows.data_ptr(), m2.fft_group.data_ptr(),
+        m2.fft_rows.shape[0], dst.data_ptr(), *ps, digests.data_ptr(), k, cells,
+        src.device.index or 0, _cuda.stream_of(src))
+    _cuda.check(rc, "encode2d_hash")
+    _cuda.LAUNCHES["encode2d_hash"] += 1
+    return digests
+
+
+def _cells(x2: torch.Tensor) -> torch.Tensor:
+    return x2.view(x2.shape[0], x2.shape[1] // SHARE_SIZE, SHARE_SIZE)
 
 
 def encode2d(x2: torch.Tensor, m2: rs.EncodeMatrix) -> torch.Tensor:
@@ -153,14 +263,8 @@ def encode2d(x2: torch.Tensor, m2: rs.EncodeMatrix) -> torch.Tensor:
     if x2.device.type == "cpu":
         return encode2d_reference(x2, m2)
     _check_encode_inputs(x2, m2)
-    k, n = x2.shape
-    parity = torch.empty((k, n), dtype=torch.uint8, device=x2.device)
-    rc = _cuda.library().celestia_encode2d(
-        x2.data_ptr(), m2.fft_rows.data_ptr(), m2.fft_group.data_ptr(),
-        m2.fft_rows.shape[0], parity.data_ptr(), k, n, x2.device.index or 0,
-        _cuda.stream_of(x2))
-    _cuda.check(rc, "encode2d")
-    _cuda.LAUNCHES["encode2d"] += 1
+    parity = torch.empty_like(x2)
+    encode_into(_cells(x2), _cells(parity), m2)
     return parity
 
 
@@ -173,23 +277,36 @@ def encode2d_hash(x2: torch.Tensor, m2: rs.EncodeMatrix):
     if x2.device.type == "cpu":
         return encode2d_hash_reference(x2, m2)
     _check_encode_inputs(x2, m2)
-    k, n = x2.shape
-    parity = torch.empty((k, n), dtype=torch.uint8, device=x2.device)
-    digests = torch.empty((k, n // SHARE_SIZE, 8), dtype=torch.uint32,
-                          device=x2.device)
-    lib = _cuda.library()
-    rc = lib.celestia_encode2d_hash(
-        x2.data_ptr(), m2.fft_rows.data_ptr(), m2.fft_group.data_ptr(),
-        m2.fft_rows.shape[0], parity.data_ptr(), digests.data_ptr(), k, n,
-        x2.device.index or 0, _cuda.stream_of(x2))
-    _cuda.check(rc, "encode2d_hash")
-    _cuda.LAUNCHES["encode2d_hash"] += 1
-    return parity, digests
+    parity = torch.empty_like(x2)
+    return parity, encode_hash_into(_cells(x2), _cells(parity), m2)
+
+
+def own_namespaces(x2: torch.Tensor) -> torch.Tensor:
+    """The ns_pad argument of K2 for cells that carry their own namespace
+    (Q0): a (R, N/512, NS_PAD) view of the cells' first bytes, read in
+    place (the kernel uses the first 29)."""
+    r, n = x2.shape
+    return x2.view(r, n // SHARE_SIZE, SHARE_SIZE)[..., :NS_PAD]
+
+
+def _ns_stride(ns_pad: torch.Tensor, shape: tuple[int, int, int], device) -> int:
+    """The byte stride between cells of K2's namespace operand: a
+    contiguous padded array (NS_PAD) or a view of the cells (512)."""
+    if ns_pad.device != device or ns_pad.dtype != torch.uint8 or tuple(ns_pad.shape) != shape:
+        raise ValueError(f"ns_pad must be uint8 {shape} on {device}, got "
+                         f"{ns_pad.dtype} {tuple(ns_pad.shape)} on {ns_pad.device}")
+    s_row, s_cell, s_byte = ns_pad.stride()
+    if (s_byte != 1 or s_cell < NS_PAD or s_cell % 16 or s_row != shape[1] * s_cell
+            or ns_pad.data_ptr() % 16):
+        raise ValueError(f"ns_pad strides {ns_pad.stride()}: cells must be evenly "
+                         f"spaced, 16-byte aligned and at least {NS_PAD} bytes apart")
+    return s_cell
 
 
 def leaf_digests2d(x2: torch.Tensor, ns_pad: torch.Tensor) -> torch.Tensor:
     """NMT leaf digests of existing cells: (R, N) uint8 cell bytes +
-    (R, N/512, NS_PAD) padded namespaces -> (R, N/512, 8) uint32.
+    (R, N/512, NS_PAD) padded namespaces -> (R, N/512, 8) uint32. ns_pad is
+    ``pad_namespaces``' array or ``own_namespaces``' view of the cells.
 
     A CPU tensor runs the plain version; a CUDA tensor launches K2."""
     if x2.device.type == "cpu":
@@ -198,11 +315,11 @@ def leaf_digests2d(x2: torch.Tensor, ns_pad: torch.Tensor) -> torch.Tensor:
     r, n = x2.shape
     nc = n // SHARE_SIZE
     _cuda.require(x2, "x2", torch.uint8, (r, n), x2.device)
-    _cuda.require(ns_pad, "ns_pad", torch.uint8, (r, nc, NS_PAD), x2.device)
+    ns_stride = _ns_stride(ns_pad, (r, nc, NS_PAD), x2.device)
     digests = torch.empty((r, nc, 8), dtype=torch.uint32, device=x2.device)
     lib = _cuda.library()
     rc = lib.celestia_leaf_digests2d(
-        x2.data_ptr(), ns_pad.data_ptr(), digests.data_ptr(), r, n,
+        x2.data_ptr(), ns_pad.data_ptr(), ns_stride, digests.data_ptr(), r, n,
         x2.device.index or 0, _cuda.stream_of(x2))
     _cuda.check(rc, "leaf_digests2d")
     _cuda.LAUNCHES["leaf_digests2d"] += 1
@@ -210,8 +327,27 @@ def leaf_digests2d(x2: torch.Tensor, ns_pad: torch.Tensor) -> torch.Tensor:
 
 
 def extend_square(q0: torch.Tensor, m2: rs.EncodeMatrix,
-                  encode=encode2d) -> torch.Tensor:
+                  encode_into_fn=encode_into) -> torch.Tensor:
     """(k, k, 512) -> EDS with every quadrant encode on K4 (port of
-    ``rs_pallas.extend_square``); ``encode=encode2d_reference`` runs the
-    plain version on any device."""
-    return rs.extend_quadrants(q0, lambda x: encode(x, m2))
+    ``rs_pallas.extend_square``), each written in place in one (2k, 2k, 512)
+    buffer (``eds_quadrants``); ``encode_into_fn=encode_into_reference``
+    runs the plain version on any device."""
+    k = q0.shape[0]
+    eds = torch.empty((2 * k, 2 * k, SHARE_SIZE), dtype=torch.uint8, device=q0.device)
+    eds[:k, :k].copy_(q0)
+    for src, dst in eds_quadrants(eds, q0):
+        encode_into_fn(src, dst, m2)
+    return eds
+
+
+def eds_quadrants(eds: torch.Tensor, q0: torch.Tensor):
+    """The three quadrant encodes of rsmt2d's chain as (src, dst) views of
+    ``q0`` (k, k, 512) and the (2k, 2k, 512) ``eds``, in the order they
+    must run: Q2 = column-extend Q0, Q1 = row-extend Q0, Q3 = row-extend
+    Q2, read in place where it was written. A row extend's shards are
+    columns, so its views are the quadrants transposed: shard stride 512,
+    cell stride the row stride."""
+    k = q0.shape[0]
+    q1, q2, q3 = eds[:k, k:], eds[k:, :k], eds[k:, k:]
+    return ((q0, q2), (q0.transpose(0, 1), q1.transpose(0, 1)),
+            (q2.transpose(0, 1), q3.transpose(0, 1)))

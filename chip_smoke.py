@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py [--xor-table-out PATH] [--sass-out PATH]
 
 ``--xor-table-out`` also writes the dense/XOR routing table this run measured
-(phase 5) to PATH, in the format of celestia_tpu_torch/config/xor_schedule.json;
+(phase 6) to PATH, in the format of celestia_tpu_torch/config/xor_schedule.json;
 ``--sass-out`` writes the SASS of K2, K3 and the tree kernel to PATH.
 
 The port has four extend routes (fused/unfused × dense/XOR); a route is
@@ -42,7 +42,11 @@ prints no result; it also exits non-zero when no CUDA device is present):
    K6 = K4); and the tree kernel at every power of two k from 1 to 128
    (roots of both families, and the row roots with the full row-level
    stack) on random digests, under random, TAIL_PADDING-tailed and single
-   namespaces, its digest tiles in the fused route's layout.
+   namespaces, its digest tiles in the fused route's layout. Then K1 and K4
+   in the strided layouts of the main path at every k (``strided_vs_plain``:
+   the three quadrant encodes in place in one EDS, and the roots-only
+   core's scratch layout), and K2 reading each Q0 cell's namespace from the
+   cell itself.
 3. The reference DAH hashes (MIN k = 1, TYPICAL k = 2, MAX k = 128) through
    da.extend_shares -> new_data_availability_header(...).hash(), and the DAH
    computed on the device by extend_and_root_device equal to the host's, on
@@ -59,7 +63,23 @@ prints no result; it also exits non-zero when no CUDA device is present):
    (EDS, roots, DAH) and the fused dense route; on the fused dense route the
    row levels equal the plain ones, and at k = 64 the roots equal the host
    oracle (gf256 + nmt_host).
-5. Timing, after warm-up: each kernel at its main-path shapes (K2 at
+5. The block path around the kernels: ``roots_only`` (on every route,
+   roots_device's roots-only core equals extend_roots_device_resident's
+   roots and the plain route, k = 64 and 128); ``batched``
+   (batched_roots_device on lists and stacked arrays, B = 1, 2, 4, 8 at
+   k = 64 and 128, byte-identical to one roots_device a square, with ms per
+   square); ``staging`` (the k = 128 square to the card through
+   device_put_chunked with 1, 2, 4 and 8 chunks, against a pageable and a
+   pinned ``.to()``, host time until the card has it, bytes equal) and
+   ``staging_levers`` (fused dense roots_device at k = 128, in turns, with
+   the chunk rule, with one chunk, and with a pageable ``.to()`` instead);
+   ``integrity`` (the syndrome through K4 against its plain version at
+   sampled and full, clean and with a flipped bit, with its device ms) and
+   ``integrity_drill`` (a device.extend.output bitflip raising with the
+   plain count, a transfer.chunk bitflip healing and raising);
+   ``sliced_reads`` (row, column, cell and batch reads of the resident
+   k = 128 EDS equal to a chunked full fetch, with the bytes each moved).
+6. Timing, after warm-up: each kernel at its main-path shapes (K2 at
    k = 64 and 128, on Q0 and on the EDS), as its own device time per launch
    (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
    time per launch (median of 10 samples of 10 back-to-back launches),
@@ -80,8 +100,12 @@ prints no result; it also exits non-zero when no CUDA device is present):
    calls of eds_row_levels_device (which takes an EDS and runs no extend, so
    no route); the dense/XOR routing table by device time (K1 against K5 at
    k = 16, 32, 64 and 128, the only kernels in which the fused routes
-   differ); and a torch.profiler breakdown of one k = 128 roots_device call
-   per route (device time by op, launches, H2D copies, idle share).
+   differ); and a torch.profiler breakdown of one k = 128 roots_device and
+   one extend_roots_device_resident call per route (device time by op,
+   launches, aten ops beside the kernels, H2D copies and their ms, idle
+   share); on the fused dense route roots_device must launch no aten op
+   (no EDS is assembled) and the resident path at most one (Q0's copy
+   into the EDS).
 
 Every measurement is one JSON line carrying the card's name and power limit.
 Then come the ``kernels`` line, the card as nvidia-smi reports it, and the
@@ -95,6 +119,7 @@ import contextlib
 import hashlib
 import json
 import os
+import random
 import re
 import statistics
 import subprocess
@@ -398,12 +423,13 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
 
-    from celestia_tpu_torch import da
+    from celestia_tpu_torch import da, faults, integrity
     from celestia_tpu_torch import namespace as ns
     from celestia_tpu_torch.appconsts import NAMESPACE_SIZE, SHARE_SIZE
     from celestia_tpu_torch.app import calibration
     from celestia_tpu_torch.ops import _cuda, extend, gf256, nmt_cuda, nmt_host, rs, rs_cuda
-    from celestia_tpu_torch.ops import sha256, sha256_cuda, xor_cuda, xor_schedule
+    from celestia_tpu_torch.ops import sha256, sha256_cuda, transfers, xor_cuda, xor_schedule
+    from celestia_tpu_torch.telemetry import metrics
 
     # the plain RS contraction is a float32 matmul: state full fp32 (its
     # 0/1 operands make every partial sum exact in TF32 as well)
@@ -565,6 +591,42 @@ def main(argv: list[str]) -> int:
     emit(phase="kernel_vs_plain", kernel="leaf_digests2d", tolerance=0,
          shapes="(k, k*512) and (2k, 2k*512) for k = 1..128; (1|3|65, 1024)",
          max_abs_err=max_err["leaf_digests2d"])
+
+    # K1 and K4 in the strided layouts the main path uses: the three
+    # quadrant encodes in place in one (2k, 2k, 512) EDS (Q0 read from its
+    # quadrant, Q3 reading Q2 where Q2 was written) and the roots-only
+    # core's scratch layout (Q0 contiguous, row extends into unread
+    # buffers); the whole EDS, untouched bytes included, equals the plain
+    # version's. K2 with each cell's namespace read from the cell (Q0).
+    for k in (1, 2, 4, 8, 16, 32, 64, 128):
+        m2 = rs.encode_matrix(k, dev)
+        eds = dev_bytes((2 * k, 2 * k, SHARE_SIZE))
+        for layout in ("eds", "scratch"):
+            for name, fn, ref in (
+                    ("encode2d_hash", rs_cuda.encode_hash_into, rs_cuda.encode_hash_into_reference),
+                    ("encode2d", rs_cuda.encode_into, rs_cuda.encode_into_reference)):
+                a, b = eds.clone(), eds.clone()
+                if layout == "eds":
+                    qa, qb = rs_cuda.eds_quadrants(a, a[:k, :k]), rs_cuda.eds_quadrants(b, b[:k, :k])
+                else:
+                    qa = extend._scratch_quadrants(a[:k, :k].contiguous())
+                    qb = extend._scratch_quadrants(b[:k, :k].contiguous())
+                for i, ((sa, da_), (sb, db_)) in enumerate(zip(qa, qb)):
+                    out, want = fn(sa, da_, m2), ref(sb, db_, m2)
+                    if out is not None:
+                        same(name, out, want, f"{name} digests {layout} quadrant {i} k={k}")
+                    same(name, da_, db_, f"{name} parity {layout} quadrant {i} k={k}")
+                same(name, a, b, f"{name} {layout} square k={k}")
+        x2 = eds[:k, :k].contiguous().reshape(k, k * SHARE_SIZE)
+        same("leaf_digests2d", rs_cuda.leaf_digests2d(x2, rs_cuda.own_namespaces(x2)),
+             rs_cuda.leaf_digests2d_reference(x2, rs_cuda.own_namespaces(x2)),
+             f"K2 own namespaces k={k}")
+        emit(phase="strided_vs_plain", k=k, tolerance=0, layouts=["eds", "scratch"],
+             kernels=["encode2d_hash", "encode2d", "leaf_digests2d (own namespaces)"],
+             strides_bytes={"column_extend": [2 * k * SHARE_SIZE, SHARE_SIZE],
+                            "row_extend": [SHARE_SIZE, 2 * k * SHARE_SIZE]},
+             max_abs_err=max(max_err["encode2d_hash"], max_err["encode2d"],
+                             max_err["leaf_digests2d"]))
 
     # the tree kernel on random digests in the fused route's layout (Q1 and
     # Q3 [col, row] tensors passed transposed, the namespaces a view of the
@@ -758,7 +820,227 @@ def main(argv: list[str]) -> int:
         emit(phase="route_vs_plain", square=label, k=k, routes=list(ROUTES),
              dah=got[3].tobytes().hex(), host_oracle=(k == 64))
 
-    # ---- phase 5: timing
+    # ---- phase 5: the block path around the kernels (roots-only core,
+    # batched roots, staging, integrity, sliced reads)
+    def wall_ms(fn, reps: int = REPS) -> float:
+        """Median host time of ``fn`` until the card is done, after two
+        warm-up calls."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    def cuda_event_ms(fn, reps: int = REPS) -> float:
+        """Median CUDA-event time of one call, after two warm-up calls."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    sq64 = squares[0][2]
+    # the roots-only core (no EDS assembled) against the resident path's
+    # roots and the plain route, on every route
+    for rname in ROUTES:
+        with pinned(rname):
+            for kk, sq in ((64, sq64), (128, main_sq)):
+                rows, cols = extend.roots_device(sq, dev)
+                _eds, r_rows, r_cols = extend.extend_roots_device_resident(sq, dev)
+                p_rows, p_cols = extend._rows_cols_only(
+                    torch.from_numpy(sq).to(dev), rs.encode_matrix(kk, dev), kernels=extend.PLAIN)
+                check(np.array_equal(rows, r_rows) and np.array_equal(cols, r_cols),
+                      f"roots_device != extend_roots_device_resident on {rname} k={kk}")
+                check(np.array_equal(rows, p_rows.cpu().numpy())
+                      and np.array_equal(cols, p_cols.cpu().numpy()),
+                      f"the roots-only core != its plain route on {rname} k={kk}")
+        emit(phase="roots_only", route=rname, k=[64, 128], equals_resident_roots=True,
+             equals_plain_route=True)
+
+    # batched roots (the replay verifier's entry): squares with the same
+    # sorted namespaces and other bytes, byte-identical to one roots_device
+    # a square, lists and stacked; ms per square beside roots_device's
+    def variant(sq: np.ndarray) -> np.ndarray:
+        out = sq.copy()
+        out[..., NAMESPACE_SIZE:] = rng.integers(0, 256, size=out[..., NAMESPACE_SIZE:].shape,
+                                                 dtype=np.uint8)
+        return out
+
+    for kk, base in ((64, sq64), (128, main_sq)):
+        pool = [variant(base) for _ in range(8)]
+        singles = [extend.roots_device(sq, dev) for sq in pool]
+        for b in (1, 2, 4, 8):
+            for form, shares in (("list", pool[:b]), ("stacked", np.stack(pool[:b]))):
+                rows, cols = extend.batched_roots_device(shares, dev)
+                check(all(np.array_equal(rows[i], singles[i][0])
+                          and np.array_equal(cols[i], singles[i][1]) for i in range(b)),
+                      f"batched_roots_device ({form}) B={b} k={kk} != roots_device")
+            batched = wall_ms(lambda s=pool[:b]: extend.batched_roots_device(s, dev), reps=5)
+            single = wall_ms(lambda s=pool[:b]: [extend.roots_device(q, dev) for q in s], reps=5)
+            emit(phase="batched", k=kk, batch=b, chunk=extend._batch_chunk(kk, b),
+                 identical=True, ms_per_square=batched / b,
+                 roots_device_ms_per_square=single / b)
+
+    # staging: the k = 128 square to the card, until the card has it
+    nbytes = main_sq.nbytes
+    staged = {}
+    stage_ms = {}
+    for c in (1, 2, 4, 8):
+        def put(c=c):
+            staged[f"chunks_{c}"] = transfers.device_put_chunked(main_sq, dev, site="smoke.staging",
+                                                                 chunks=c)
+        stage_ms[f"chunks_{c}"] = wall_ms(put)
+    src_pageable = torch.from_numpy(main_sq)
+    src_pinned = src_pageable.pin_memory()
+
+    def put_pageable():
+        staged["pageable_to"] = src_pageable.to(dev)
+
+    def put_pinned():
+        staged["pinned_to"] = src_pinned.to(dev, non_blocking=True)
+
+    stage_ms["pageable_to"] = wall_ms(put_pageable)
+    stage_ms["pinned_to"] = wall_ms(put_pinned)
+    # the host's share: the square into pinned memory, by numpy (one
+    # thread) and by torch (its thread pool, as device_put_chunked does)
+    pinned_host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    stage_ms["host_copy_to_pinned_numpy"] = wall_ms(
+        lambda: np.copyto(pinned_host.numpy(), main_sq.reshape(-1)))
+    stage_ms["host_copy_to_pinned_torch"] = wall_ms(
+        lambda: pinned_host.copy_(src_pageable.reshape(-1)))
+    check(np.array_equal(staged["pageable_to"].cpu().numpy(), main_sq),
+          "staging: the pageable copy differs")
+    for name, t in staged.items():
+        check(torch.equal(t, staged["pageable_to"]), f"staging {name}: bytes differ")
+    emit(phase="staging", k=128, bytes=nbytes, ms=stage_ms,
+         gb_per_s={n: nbytes / (v * 1e6) for n, v in stage_ms.items()},
+         identical=True, auto_chunks=transfers._auto_chunks(nbytes, 128),
+         host_threads=torch.get_num_threads())
+    # the staging levers end to end: fused dense roots_device at k = 128
+    # with the chunk rule (transfers._auto_chunks), with one chunk, and with
+    # the monolithic pageable copy in place of the staging, in turns
+    def pageable_stage(arr, d):
+        return torch.from_numpy(np.asarray(arr)).to(d)
+
+    rule, stage = transfers._auto_chunks, extend._stage
+    levers = {"chunk_rule": (rule, stage), "one_chunk": (lambda _n, _r: 1, stage),
+              "pageable_to": (rule, pageable_stage)}
+    lever_ms: dict[str, list[float]] = {name: [] for name in levers}
+    try:
+        with pinned("fused-dense"):
+            for rep in range(2 + E2E_REPS):
+                for name, (chunk_rule, stage_fn) in levers.items():
+                    transfers._auto_chunks, extend._stage = chunk_rule, stage_fn
+                    t = time.perf_counter()
+                    extend.roots_device(main_sq, dev)  # ends in a D2H copy of the roots
+                    if rep >= 2:
+                        lever_ms[name].append((time.perf_counter() - t) * 1e3)
+    finally:
+        transfers._auto_chunks, extend._stage = rule, stage
+    emit(phase="staging_levers", k=128, route="fused-dense", entry="roots_device",
+         median_ms={n: statistics.median(v) for n, v in lever_ms.items()},
+         q1_q3_ms={n: statistics.quantiles(v, n=4)[::2] for n, v in lever_ms.items()},
+         samples=E2E_REPS)
+
+    # integrity: the syndrome through K4 against its plain version, clean
+    # and with one flipped parity bit, at sampled (q = 4) and full (q = 2k)
+    eds_main = main_eds.device_data
+    for level, q in (("sampled", 4), ("full", 256)):
+        draw = random.Random(SEED)
+        ri = np.asarray(draw.sample(range(256), q), dtype=np.int32)
+        ci = np.asarray(draw.sample(range(256), q), dtype=np.int32)
+        bad = eds_main.clone()
+        bad[int(ri[0]), 200, 7:8].bitwise_xor_(4)  # a parity cell of a sampled row
+        counts = {}
+        for label, sq in (("clean", eds_main), ("flipped", bad)):
+            got = int(integrity.syndrome(sq, ri, ci))
+            want = int(integrity.syndrome(sq, ri, ci, rs_cuda.encode_into_reference))
+            check(got == want, f"syndrome {level} {label}: K4 {got} != plain {want}")
+            counts[label] = got
+        check(counts["clean"] == 0 and counts["flipped"] > 0, f"syndrome {level}: {counts}")
+        emit(phase="integrity", level=level, k=128, q=q, counts=counts,
+             device_ms=cuda_event_ms(lambda: integrity.syndrome(eds_main, ri, ci)),
+             plain_ms=cuda_event_ms(
+                 lambda: integrity.syndrome(eds_main, ri, ci, rs_cuda.encode_into_reference),
+                 reps=3),
+             wall_ms=wall_ms(lambda: int(integrity.syndrome(eds_main, ri, ci))))
+    # the drills: a flipped extend output must raise with the plain count,
+    # a transient transfer.chunk flip heal on its retry, a persistent one raise
+    integrity.configure("full", q=4, seed=SEED)
+    try:
+        with faults.inject(faults.rule("device.extend.output", "bitflip"), seed=SEED):
+            try:
+                extend.extend_roots_device_resident(main_sq, dev)
+                fail("a device.extend.output bitflip passed the full audit")
+            except integrity.IntegrityError as err:
+                caught = err
+        draw = random.Random(SEED)
+        rows_all, cols_all = draw.sample(range(256), 256), draw.sample(range(256), 256)
+        plain_count = int(integrity.syndrome(torch.from_numpy(caught.eds).to(dev), rows_all,
+                                             cols_all, rs_cuda.encode_into_reference))
+        plain_count += integrity.host_recompute_mismatch(caught.eds, 128)
+        check(caught.mismatches == plain_count > 0,
+              f"the drill's mismatches {caught.mismatches} != the plain count {plain_count}")
+        retries = metrics.get_counter("transfer_retry_total", site="smoke.drill", direction="h2d")
+        with faults.inject(faults.rule("transfer.chunk", "bitflip", times=1), seed=SEED):
+            healed = transfers.device_put_chunked(main_sq, dev, site="smoke.drill", chunks=4)
+        check(np.array_equal(healed.cpu().numpy(), main_sq), "the healed upload differs")
+        check(metrics.get_counter("transfer_retry_total", site="smoke.drill",
+                                  direction="h2d") == retries + 1, "no retry was counted")
+        with faults.inject(faults.rule("transfer.chunk", "bitflip"), seed=SEED):
+            try:
+                transfers.device_put_chunked(main_sq, dev, site="smoke.drill", chunks=4)
+                fail("a persistent transfer.chunk bitflip did not raise")
+            except integrity.IntegrityError:
+                pass
+    finally:
+        integrity.configure("off")
+    emit(phase="integrity_drill", k=128, level="full", extend_output_mismatches=caught.mismatches,
+         plain_count=plain_count, transfer_chunk_transient="healed",
+         transfer_chunk_persistent="raised")
+
+    # sliced reads of the device-resident k = 128 EDS against a full fetch
+    def d2h(site: str) -> float:
+        return metrics.get_counter("transfer_bytes", site=site, direction="d2h")
+
+    full = transfers.device_get_chunked(eds_main, site="smoke.full")
+    check(np.array_equal(full, eds_main.cpu().numpy()), "the chunked full fetch differs")
+    idx = [0, 1, 127, 128, 255]
+    for i in idx:
+        check(np.array_equal(transfers.eds_row(eds_main, i), full[i]), f"row {i}")
+        check(np.array_equal(transfers.eds_col(eds_main, i), full[:, i]), f"column {i}")
+        check(np.array_equal(transfers.eds_share(eds_main, i, 255 - i), full[i, 255 - i]),
+              f"cell {i}")
+    check(np.array_equal(transfers.eds_rows_batch(eds_main, idx), full[idx]), "row batch")
+    pts = [(i, 255 - i) for i in idx]
+    check(np.array_equal(transfers.eds_cells_batch(eds_main, pts), full[idx, [255 - i for i in idx]]),
+          "cell batch")
+    resident = da.ExtendedDataSquare.from_device(eds_main, 128)
+    check(resident.row(7) == [full[7, j].tobytes() for j in range(256)]
+          and resident.share(200, 3) == full[200, 3].tobytes() and resident._data is None,
+          "ExtendedDataSquare sliced reads")
+    emit(phase="sliced_reads", k=128, reads=len(idx), full_fetch_bytes=d2h("smoke.full"),
+         bytes={site: d2h(site) for site in ("eds.row", "eds.col", "eds.share",
+                                             "eds.rows_batch", "eds.cells_batch")},
+         row_read_ms=wall_ms(lambda: transfers.eds_row(eds_main, 5)),
+         cell_read_ms=wall_ms(lambda: transfers.eds_share(eds_main, 5, 9)),
+         full_fetch_ms=wall_ms(lambda: transfers.device_get_chunked(eds_main, site="smoke.t"),
+                               reps=3))
+
+    # ---- phase 6: timing
     def cuda_ms(fn, inner: int = 1, reps: int = REPS) -> float:
         """Median over `reps` samples of the CUDA-event time of `inner`
         back-to-back calls, per call. A call's host work (wrapper checks,
@@ -980,8 +1262,8 @@ def main(argv: list[str]) -> int:
         eds_kk = extend.extend_roots_device_resident(sq, dev)[0]
         emit(phase="end_to_end", k=kk, route=None, entry="eds_row_levels_device",
              ms=host_ms(lambda: extend.eds_row_levels_device(eds_kk, dev)))
-    roots_ms = {r: {kk: statistics.median(e2e[(kk, r, "roots_device")])
-                    for kk in squares_e2e} for r in ROUTES}
+    profiled_entries = {"roots_device": extend.roots_device,
+                        "extend_roots_device_resident": extend.extend_roots_device_resident}
 
     # ONE profiler session (separate sessions in one process lost their
     # records on the card): a warm-up pass (the profiler can miss the first
@@ -1014,12 +1296,13 @@ def main(argv: list[str]) -> int:
             torch.cuda.synchronize()
         profiled_ms = {}
         for rname in ROUTES:
-            time.sleep(gap_s)
-            with pinned(rname):
-                t = time.perf_counter()
-                extend.roots_device(main_sq, dev)  # ends in a D2H copy of the roots
-                profiled_ms[rname] = (time.perf_counter() - t) * 1e3
-            torch.cuda.synchronize()
+            for entry, fn in profiled_entries.items():
+                time.sleep(gap_s)
+                with pinned(rname):
+                    t = time.perf_counter()
+                    fn(main_sq, dev)  # ends in a D2H copy of the roots
+                    profiled_ms[(rname, entry)] = (time.perf_counter() - t) * 1e3
+                torch.cuda.synchronize()
     evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and e.name != "Activity Buffer Request"), key=lambda e: e.time_range.start)
     segments: list[list] = []
@@ -1029,7 +1312,7 @@ def main(argv: list[str]) -> int:
             segments.append([])
         segments[-1].append(e)
         last_end = e.time_range.end if last_end is None else max(last_end, e.time_range.end)
-    n_calls = len(calls) + len(ROUTES)
+    n_calls = len(calls) + len(profiled_ms)
     check(len(segments) in (n_calls, n_calls + 1),  # + 1: the warm-up pass
           f"the profiler's records split into {len(segments)} calls, expected {n_calls}")
     segments = segments[-n_calls:]
@@ -1072,24 +1355,37 @@ def main(argv: list[str]) -> int:
             json.dump(table.to_json(), f, indent=2)
             f.write("\n")
     segments = segments[len(calls):]
-    for rname, seg in zip(ROUTES, segments):
+    for (rname, entry), seg in zip(profiled_ms, segments):
         by_op: dict[str, list] = {}
         for e in seg:
-            entry = by_op.setdefault(e.name[:90], [0.0, 0])
-            entry[0] += e.time_range.elapsed_us() / 1e3
-            entry[1] += 1
+            cell = by_op.setdefault(e.name[:90], [0.0, 0])
+            cell[0] += e.time_range.elapsed_us() / 1e3
+            cell[1] += 1
         busy_ms = sum(v[0] for v in by_op.values())
-        check(busy_ms > 0, f"the profiler recorded no device time for roots_device on {rname}")
+        check(busy_ms > 0, f"the profiler recorded no device time for {entry} on {rname}")
         top = sorted(by_op.items(), key=lambda kv: -kv[1][0])
-        emit(phase="profile", k=main_sq.shape[0], route=rname, entry="roots_device",
-             device_busy_ms=busy_ms, roots_device_ms=roots_ms[rname][128],
-             device_idle_share=1 - busy_ms / roots_ms[rname][128],
-             profiled_call_ms=profiled_ms[rname],
-             profiled_idle_share=1 - busy_ms / profiled_ms[rname], device_ops=len(by_op),
-             launches=sum(v[1] for v in by_op.values()),
+        # aten ops: launches neither of the port's kernels nor copies
+        aten = {name: v for name, v in by_op.items()
+                if "celestia::" not in name and not name.startswith(("Memcpy", "Memset"))}
+        aten_launches = sum(v[1] for v in aten.values())
+        median_ms = statistics.median(e2e[(128, rname, entry)])
+        emit(phase="profile", k=main_sq.shape[0], route=rname, entry=entry,
+             device_busy_ms=busy_ms, median_ms=median_ms,
+             device_idle_share=1 - busy_ms / median_ms,
+             profiled_call_ms=profiled_ms[(rname, entry)],
+             profiled_idle_share=1 - busy_ms / profiled_ms[(rname, entry)],
+             device_ops=len(by_op), launches=sum(v[1] for v in by_op.values()),
+             aten_launches=aten_launches, aten_ms=sum(v[0] for v in aten.values()),
+             aten_ops=sorted(aten),
              h2d_copies=sum(v[1] for name, v in by_op.items() if "HtoD" in name),
              h2d_ms=sum(v[0] for name, v in by_op.items() if "HtoD" in name),
              top=[{"op": name, "ms": v[0], "count": v[1]} for name, v in top[:12]])
+        if rname == "fused-dense":
+            # no EDS assembled by roots_device; at most Q0's one copy into the
+            # EDS beside the kernels on the resident path
+            limit = 0 if entry == "roots_device" else 1
+            check(aten_launches <= limit, f"{entry} on {rname} launched {aten_launches} aten "
+                                          f"ops ({sorted(aten)}), at most {limit} expected")
 
     results = {}
     for kname, b in bounds.items():

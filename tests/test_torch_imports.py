@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from celestia_tpu_torch import da, device
-from celestia_tpu_torch.ops import extend
+from celestia_tpu_torch.ops import extend, transfers
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "celestia_tpu_torch"
@@ -45,8 +45,9 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
     out = subprocess.run([sys.executable, "-c", script], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120)
     doc = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "celestia_tpu_torch.ops.extend" in doc["modules"]
-    assert "celestia_tpu_torch.da" in doc["modules"]
+    for name in ("ops.extend", "da", "telemetry", "faults", "tracing", "integrity",
+                 "ops.transfers"):
+        assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
 
@@ -82,6 +83,8 @@ ENTRIES = {
     "extend_and_root_device": lambda: extend.extend_and_root_device(SQUARE),
     "eds_roots_device": lambda: extend.eds_roots_device(EDS),
     "eds_row_levels_device": lambda: extend.eds_row_levels_device(EDS),
+    "batched_roots_device": lambda: extend.batched_roots_device([SQUARE, SQUARE]),
+    "device_put_chunked": lambda: transfers.device_put_chunked(SQUARE, site="t"),
     "extend_shares": lambda: da.extend_shares(SQUARE.reshape(1, 512)),
     "min_data_availability_header": lambda: da.min_data_availability_header(),
 }

@@ -106,19 +106,26 @@ def pin(monkeypatch):
 @pytest.fixture
 def taken(monkeypatch):
     """Record which route an extend took: the unfused routes build the EDS
-    through rs.extend_quadrants, the XOR routes ask for the schedule."""
+    through rs_cuda.extend_square (dense, K4 in place) or
+    xor_cuda.extend_square_xor, the XOR routes ask for the schedule."""
     seen = {"unfused": 0, "xor": 0}
-    quadrants, operands = rs.extend_quadrants, xor_cuda.schedule_operands
+    dense, xor_square = rs_cuda.extend_square, xor_cuda.extend_square_xor
+    operands = xor_cuda.schedule_operands
 
-    def spy_quadrants(*a):
+    def spy_dense(*a):
         seen["unfused"] += 1
-        return quadrants(*a)
+        return dense(*a)
+
+    def spy_xor_square(*a):
+        seen["unfused"] += 1
+        return xor_square(*a)
 
     def spy_operands(*a):
         seen["xor"] += 1
         return operands(*a)
 
-    monkeypatch.setattr(rs, "extend_quadrants", spy_quadrants)
+    monkeypatch.setattr(rs_cuda, "extend_square", spy_dense)
+    monkeypatch.setattr(xor_cuda, "extend_square_xor", spy_xor_square)
     monkeypatch.setattr(xor_cuda, "schedule_operands", spy_operands)
     return seen
 
