@@ -6,13 +6,16 @@ The block-extension hot path of the JAX package, on an H100:
       -> NMT leaf digest of every cell -> 2k row roots + 2k column roots
       -> DataAvailabilityHeader hash
 
+and EDS repair: an EDS with erased shares -> planned Leopard decode sweeps
+on the card -> the repaired EDS, its roots checked against the DAH.
+
 Layout (module names follow the JAX package so each counterpart is easy to
 find; nothing here imports jax or celestia_tpu):
 
 - ``device``             — device resolution (``None`` means CUDA; the CPU only on request)
 - ``appconsts``          — the protocol constants the slice needs
 - ``namespace``          — 29-byte versioned namespaces
-- ``ops.gf256``          — GF(2^8) tables and the Leopard encode (host numpy)
+- ``ops.gf256``          — GF(2^8) tables, the Leopard encode and erasure decode (host numpy)
 - ``ops.rs``             — RS encode as a GF(2) bit-matrix product (plain torch)
 - ``ops.sha256``         — SHA-256 byte/word layout helpers and ``sha256_fixed``
 - ``ops.sha256_cuda``    — batched SHA-256 kernel (K3) and its plain version
@@ -30,9 +33,13 @@ find; nothing here imports jax or celestia_tpu):
 - ``ops.extend``         — the main path: square -> EDS -> roots -> DAH, on
   four routes (fused/unfused × dense/XOR) picked per k; the roots-only core
   and the batched roots of the replay verifier
+- ``ops.repair_cuda``    — the decode sweep kernel (one planned Leopard decode sweep, in
+  place in the EDS) and its plain version
+- ``ops.repair``         — EDS repair on the card: the sweep plan, the resident repair
+  verified against the DAH roots, ``repair_device``
 - ``app.calibration``    — the port's measured dense/XOR routing table
 - ``da``                 — ExtendedDataSquare (with sliced reads) and
-  DataAvailabilityHeader
+  DataAvailabilityHeader; ``da.repair``, the host repair and ``repair_eds``
 - ``telemetry``          — counters and histogram timers
 - ``faults``             — seeded fault injection at the device boundaries
 - ``tracing``            — spans, the flight recorder, stage sinks, fenced profiling

@@ -5,6 +5,8 @@ Named sites a test or a drill can arm without touching the code path:
 
     device.extend          extend host entries            (ops/extend.py)
     device.extend.output   an extend's result square      (ops/extend.py)
+    device.repair          repair device entries          (ops/repair.py)
+    device.repair.output   a repair's result square       (ops/repair.py)
     transfer.chunk         one chunk of a chunked H2D/D2H (ops/transfers.py)
 
 Fault kinds, as in the JAX package:

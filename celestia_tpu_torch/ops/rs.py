@@ -19,6 +19,13 @@ spelling, an inverse then a forward additive FFT over the k shards, from
 the butterfly program ``fft_program(k)`` builds. ``encode_matrix_from_numpy``
 carries the JAX package's M2 across and pairs it with that program.
 
+The decode core of EDS repair (``gf256._decode_core``, one fixed linear map
+per n = 2k) has the same two forms: ``decode_bit_matrix(n)``, the plain
+sweep's (8n, 8n) operand (the JAX package's ``repair_tpu`` spelling), and
+``decode_program(n)``, the butterfly program the decode sweep kernel
+(csrc/rs_decode.cu) runs; ``decode_operands`` and ``decode_bits`` hold them
+on a device.
+
 The contraction runs in float32: the operands are 0/1 and a sum has at most
 1024 terms, so every partial sum is an exact integer in float32 (and in
 TF32, whose inputs 0 and 1 are exact too); ``& 1`` then gives the GF(2) bit.
@@ -53,6 +60,24 @@ def encode_bit_matrix(k: int) -> np.ndarray:
     return expand_bit_matrix(gf256.encode_matrix(k))
 
 
+def _butterfly_program(logs: list[int]) -> tuple[np.ndarray, np.ndarray]:
+    """Twiddle logs, one per butterfly group in program order -> (rows,
+    group): the product rows of the distinct nonzero twiddles (from
+    ``gf256.mul_table()``) and each group's row, -1 for a zero twiddle."""
+    distinct = sorted({lg for lg in logs if lg != gf256.K_MODULUS})
+    index = {lg: i for i, lg in enumerate(distinct)}
+    group = np.array([index.get(lg, -1) for lg in logs], dtype=np.int16)
+    consts = gf256.exp_table()[np.array(distinct, dtype=np.int64)]
+    rows = gf256.mul_table()[consts].reshape(len(distinct), 256)
+    rows.flags.writeable = group.flags.writeable = False  # shared by the cache
+    return rows, group
+
+
+def _check_pow2(name: str, v: int) -> None:
+    if v < 1 or v & (v - 1):
+        raise ValueError(f"{name} must be a power of two, got {v}")
+
+
 @functools.lru_cache(maxsize=16)
 def fft_program(k: int) -> tuple[np.ndarray, np.ndarray]:
     """The butterfly program of ``gf256.leopard_encode`` for k shards, as
@@ -69,8 +94,7 @@ def fft_program(k: int) -> tuple[np.ndarray, np.ndarray]:
     group: (2(k - 1),) int16; group g's row index, or -1 where its twiddle's
            log is 255 (a zero twiddle: the butterfly skips its multiply).
     k = 1 has no group (the encode is a copy)."""
-    if k < 1 or k & (k - 1):
-        raise ValueError(f"k must be a power of two, got {k}")
+    _check_pow2("k", k)
     skew = gf256.fft_skew()
     logs = []
     dist = 1
@@ -81,13 +105,73 @@ def fft_program(k: int) -> tuple[np.ndarray, np.ndarray]:
     while dist >= 1:
         logs += [int(skew[r + dist - 1]) for r in range(0, k, 2 * dist)]
         dist >>= 1
-    distinct = sorted({lg for lg in logs if lg != gf256.K_MODULUS})
-    index = {lg: i for i, lg in enumerate(distinct)}
-    group = np.array([index.get(lg, -1) for lg in logs], dtype=np.int16)
-    consts = gf256.exp_table()[np.array(distinct, dtype=np.int64)]
-    rows = gf256.mul_table()[consts].reshape(len(distinct), 256)
-    rows.flags.writeable = group.flags.writeable = False  # shared by the cache
-    return rows, group
+    return _butterfly_program(logs)
+
+
+@functools.lru_cache(maxsize=16)
+def decode_program(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The butterfly program of ``gf256._decode_core`` over n = 2k
+    positions (the erasure-pattern-independent middle of the Leopard
+    decode), as the decode sweep kernel reads it: ``(rows, group)`` in
+    ``fft_program``'s format.
+
+    Groups in the order the core runs them: the IFFT levels (dist 1 ->
+    n/2, r ascending: y ^= x, then x ^= c·y), then the FFT levels (dist
+    n/2 -> 1: x ^= c·y, then y ^= x), both with twiddle
+    ``skew[r + dist - 1]``, skew offset 0 over all n positions (the
+    encode's IFFT starts at offset k - 1, so this is not
+    ``fft_program(n)``). The formal derivative between the two transforms
+    has no twiddle and is not in the program. 127 distinct nonzero
+    twiddles at n = 256 (32 KiB of rows); n = 1 has no group."""
+    _check_pow2("n", n)
+    skew = gf256.fft_skew()
+    logs = []
+    dist = 1
+    while dist < n:
+        logs += [int(skew[r + dist - 1]) for r in range(0, n, 2 * dist)]
+        dist *= 2
+    dist = n >> 1
+    while dist >= 1:
+        logs += [int(skew[r + dist - 1]) for r in range(0, n, 2 * dist)]
+        dist >>= 1
+    return _butterfly_program(logs)
+
+
+@functools.lru_cache(maxsize=8)
+def decode_bit_matrix(n: int) -> np.ndarray:
+    """(8n, 8n) uint8 0/1 matrix of the decode core over GF(2), the decode
+    counterpart of ``encode_bit_matrix`` (the JAX package's
+    ``repair_tpu.decode_bit_matrix``)."""
+    return expand_bit_matrix(gf256.decode_core_matrix(n))
+
+
+@functools.lru_cache(maxsize=1)
+def bitmul_table() -> np.ndarray:
+    """(256, 8, 8) 0/1: BITMUL[c][r, q] = bit_r(c * x^q), the 8×8 GF(2)
+    matrix of multiply-by-constant-c, bit lanes LSB-first."""
+    consts = np.arange(256, dtype=np.uint8)[:, None]  # (256, 1) GF matrix
+    return expand_bit_matrix(consts).reshape(256, 8, 8)
+
+
+LOG_ZERO = 511  # the kernel's log of the byte 0: any sum with it indexes a zero
+
+
+@functools.lru_cache(maxsize=1)
+def mul_log_exp() -> tuple[np.ndarray, np.ndarray]:
+    """The decode kernel's tables for a multiply by a per-position
+    constant: ``(logs, exps)``, with a·b = exps[logs[a] + logs[b]].
+
+    logs: (256,) int16, the field log of each byte (0..254) and LOG_ZERO
+          for 0.
+    exps: (1024,) uint8, exp(i mod 255) for i < 510 and 0 above, so a sum
+          that holds LOG_ZERO (at least 511) gives 0 without a branch."""
+    log, exp = gf256.log_table(), gf256.exp_table()
+    logs = log.astype(np.int16)
+    logs[0] = LOG_ZERO
+    i = np.arange(1024)
+    exps = np.where(i < 2 * gf256.K_MODULUS, exp[i % gf256.K_MODULUS], 0).astype(np.uint8)
+    logs.flags.writeable = exps.flags.writeable = False
+    return logs, exps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +224,53 @@ def encode_matrix(k: int, device: torch.device) -> EncodeMatrix:
     """The encode operands for square size k on ``device``, built once per
     (k, device)."""
     return _encode_matrix_cached(k, str(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeOperands:
+    """The decode core over n positions on a device, as the decode sweep
+    kernel reads it (``csrc/rs_decode.cu``).
+
+    rows:  (n_const, 256) uint8 — ``decode_program(n)``'s product rows.
+    group: (2(n - 1),) int16 — each butterfly group's row, -1 to skip.
+    logs:  (256,) int16 and exps: (1024,) uint8 — ``mul_log_exp()``, for
+           the per-position scale and unscale multiplies."""
+
+    rows: torch.Tensor
+    group: torch.Tensor
+    logs: torch.Tensor
+    exps: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return self.group.shape[0] // 2 + 1
+
+
+@functools.lru_cache(maxsize=16)
+def _decode_operands_cached(n: int, device: str) -> DecodeOperands:
+    rows, group = decode_program(n)
+    logs, exps = mul_log_exp()
+    return DecodeOperands(*(torch.tensor(a, device=device) for a in (rows, group, logs, exps)))
+
+
+def decode_operands(n: int, device: torch.device) -> DecodeOperands:
+    """The decode kernel's operands for n positions on ``device``, built
+    once per (n, device)."""
+    return _decode_operands_cached(n, str(device))
+
+
+@functools.lru_cache(maxsize=8)
+def _decode_bits_cached(n: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.tensor(decode_bit_matrix(n), dtype=torch.float32, device=device),
+            torch.tensor(bitmul_table(), dtype=torch.float32, device=device))
+
+
+def decode_bits(n: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain decode sweep's operands on ``device``, built once per
+    (n, device): ``decode_bit_matrix(n)`` and ``bitmul_table()`` as
+    float32 0/1 tensors (the contractions run in float32, see
+    ``rs_encode_rows``)."""
+    return _decode_bits_cached(n, str(device))
 
 
 def unpack_bits(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Telemetry: counters and histogram timers (port of the JAX package's
-telemetry.py, as far as the port's transfers and integrity audit call it:
-no gauge has a caller in the port yet).
+telemetry.py, as far as the port's transfers, integrity audit and repair
+entries call it: no gauge has a caller in the port yet).
 
 Reference semantics: Cosmos SDK telemetry timers and counters on the
 proposal paths (app/prepare_proposal.go:23, app/process_proposal.go:25,31).
@@ -89,6 +89,10 @@ class Registry:
     def measure_since(self, name: str, start: float, **labels) -> None:
         self.observe(name, time.perf_counter() - start, **labels)
 
+    def measure(self, name: str, **labels) -> "_Timer":
+        """Context manager: one observation of the block's wall time."""
+        return _Timer(self, name, labels)
+
     def get_timing(self, name: str, **labels) -> Histogram | None:
         """The histogram behind a timing key."""
         with self._lock:
@@ -102,6 +106,21 @@ class Registry:
         with self._lock:
             self.counters.clear()
             self.timings.clear()
+
+
+class _Timer:
+    def __init__(self, registry: Registry, name: str, labels: dict):
+        self.registry = registry
+        self.name = name
+        self.labels = labels
+
+    def __enter__(self) -> "_Timer":
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.registry.measure_since(self.name, self.start, **self.labels)
+        return False
 
 
 def _key(name: str, labels: dict) -> str:

@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py [--xor-table-out PATH] [--sass-out PATH]
 
 ``--xor-table-out`` also writes the dense/XOR routing table this run measured
-(phase 6) to PATH, in the format of celestia_tpu_torch/config/xor_schedule.json;
+(phase 7) to PATH, in the format of celestia_tpu_torch/config/xor_schedule.json;
 ``--sass-out`` writes the SASS of K2, K3 and the tree kernel to PATH.
 
 The port has four extend routes (fused/unfused × dense/XOR); a route is
@@ -16,6 +16,9 @@ leaf_digests2d, K3 sha256_words, K4 encode2d, K5 encode2d_xor_hash, K6
 encode2d_xor, and nmt_tree, K3's tree form (every route ends in it: the
 leaf-digest grid to the row and column roots, and the row levels, in one
 launch). K3 itself is left to the device DAH of extend_and_root_device.
+An eighth, decode_sweep (csrc/rs_decode.cu), carries EDS repair: one
+launch per planned sweep of the Leopard erasure decode, in place in the
+EDS.
 
 Phases, in order (any failed check raises, so the script exits non-zero and
 prints no result; it also exits non-zero when no CUDA device is present):
@@ -79,7 +82,26 @@ prints no result; it also exits non-zero when no CUDA device is present):
    plain count, a transfer.chunk bitflip healing and raising);
    ``sliced_reads`` (row, column, cell and batch reads of the resident
    k = 128 EDS equal to a chunked full fetch, with the bytes each moved).
-6. Timing, after warm-up: each kernel at its main-path shapes (K2 at
+6. EDS repair (``repair``), the repair-after-extend path of a catching-up
+   node, at k = 128 and 64: bench.py's square extended by
+   extend_roots_device_resident, erased under bench.py's four masks
+   (seeds 7-10, 25%, one row sweep each) and tests/test_repair.py's
+   multi-sweep mask (a full row, a full column and a corner: a row and a
+   column sweep). Every sweep of every mask: the kernel byte-identical to
+   its plain version (the bit-matrix spelling) on the same staged input.
+   The main path with the counts from 0: repair_resident_verified under
+   every mask (one decode launch per planned sweep, one K2 and one tree
+   launch per verify, nothing else) and repair_device (the sweeps alone);
+   both return the true EDS, a flipped row or column root raises, the
+   caller's resident EDS is unchanged and run() gives the same bytes
+   twice. Host ms of plan_sweeps, wall ms of repair_device and of the
+   resident cycle (plan, sweeps, root recompute, root compare), median of
+   10, the masks in turn; at k = 128 the same two entries with the plan's
+   error-locator product through torch (the port) and through numpy's
+   BLAS (``repair_levers``: blocks of 2 warm-up and 5 timed calls, the
+   spellings in turns, twice), and a device.repair.output bitflip
+   under the full audit raises IntegrityError at that site.
+7. Timing, after warm-up: each kernel at its main-path shapes (K2 at
    k = 64 and 128, on Q0 and on the EDS), as its own device time per launch
    (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
    time per launch (median of 10 samples of 10 back-to-back launches),
@@ -92,7 +114,10 @@ prints no result; it also exits non-zero when no CUDA device is present):
    (``chain_floor_seconds``); K3 at the shapes of one device DAH, bound
    the same way; K5/K6 beside the function bound and the XOR spelling's own
    floors (its operations on the ALU pipe, its operand reads from shared
-   memory, and this layout's reads), and K6 with the layout's levers undone
+   memory, and this layout's reads); the decode sweep at k = 128 and 64 (a
+   random mask's row sweep) beside its bound, counted from
+   rs.decode_program and the plan's data (``decode_sweep_work``), and
+   its plain version (median of 3); and K6 with the layout's levers undone
    one at a time (``xor_levers``: the rows' or the nodes' conflict-free
    order shuffled, 8 groups instead of 4); end to end (host clock, H2D and D2H included) at k = 64 and
    128, 20 calls of roots_device and extend_roots_device_resident per route
@@ -108,7 +133,7 @@ prints no result; it also exits non-zero when no CUDA device is present):
    into the EDS).
 
 Every measurement is one JSON line carrying the card's name and power limit.
-Then come the ``kernels`` line, the card as nvidia-smi reports it, and the
+Then come the ``kernels`` line (the eight kernels), the card as nvidia-smi reports it, and the
 last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -154,6 +179,10 @@ SHA_ALU_OPS = ("LOP3", "SHF", "IADD3", "PRMT")
 # its 4 lookups; a butterfly with a zero twiddle is 1 XOR
 FFT_MUL_OPS = 9
 FFT_PLAIN_OPS = 1
+# a multiply by a constant into a new word (the decode's scale and unscale):
+# the 4 address and 3 assembling permutes, no XOR
+CONST_MUL_OPS = 7
+CELL_BYTES = 512  # byte lanes of a share
 LEAF_BLOCKS = 9  # 542-byte NMT leaf message
 NODE_BLOCKS = 3  # 181-byte NMT node message
 DAH_BLOCKS = 2  # 91-byte merkle leaf and 65-byte merkle node messages of the DAH
@@ -227,6 +256,65 @@ def fft_butterflies(group: np.ndarray) -> tuple[int, int]:
     dists += [d for d in reversed(levels) for _ in range(k // (2 * d))]
     mul = sum(d for d, g in zip(dists, group.tolist()) if g >= 0)
     return mul, sum(dists) - mul
+
+
+def repair_masks(k: int) -> list[tuple[str, np.ndarray]]:
+    """The repair phase's presence masks of a 2k x 2k EDS: bench.py's four
+    (seeds 7-10, 25% of the cells erased at random), each one row sweep,
+    and tests/test_repair.py's multi-sweep mask (a full row, a full column
+    and a corner), a row sweep and then a column sweep."""
+    w = 2 * k
+    out = []
+    for seed in (7, 8, 9, 10):
+        r = np.random.default_rng(seed)
+        present = np.ones((w, w), dtype=bool)
+        present.reshape(-1)[r.choice(w * w, size=int(0.25 * w * w), replace=False)] = False
+        out.append((f"random_{seed}", present))
+    present = np.ones((w, w), dtype=bool)
+    present[1, :] = False
+    present[:, 2] = False
+    present[0, 0] = False
+    out.append(("row_column_corner", present))
+    return out
+
+
+def numpy_locator(erased: np.ndarray) -> np.ndarray:
+    """The JAX package's spelling of gf256._error_locator_logs_batch: the
+    same product through numpy's float64 dgemm (the port runs it through
+    torch); the repair phase times the repair entries under each."""
+    from celestia_tpu_torch.ops import gf256
+
+    err = np.zeros((erased.shape[0], gf256.K_ORDER), dtype=np.float64)
+    err[:, : erased.shape[1]] = erased
+    return (err @ gf256._locator_matrix()).astype(np.int64) % gf256.K_MODULUS
+
+
+def decode_sweep_work(group: np.ndarray, scale_bytes: np.ndarray,
+                      write: np.ndarray) -> dict[str, float]:
+    """The work of one decode sweep on its plan's data, counted as
+    ``fft_butterflies`` counts the encode: the core's butterflies from the
+    decode program's groups (``rs.decode_program(n)``: IFFT levels, then FFT
+    levels, -1 a zero twiddle) for every axis the sweep writes, each byte a
+    lane; a multiply by a per-position constant for every cell read (a
+    nonzero scale) and every cell written. ALU operations per 4-lane word:
+    FFT_MUL_OPS per multiply butterfly, FFT_PLAIN_OPS per plain one,
+    CONST_MUL_OPS per constant multiply; one byte lookup per multiply and
+    lane. Bytes: each read and written cell once, and the plan's three
+    (w, n) arrays. An axis the sweep writes nothing of needs no work."""
+    mul, plain = fft_butterflies(group)
+    active = write.any(axis=1)
+    axes = int(active.sum())
+    reads = int((scale_bytes[active] != 0).sum())
+    written = int(write.sum())
+    words = CELL_BYTES / 4
+    return {
+        "axes": axes, "mul_butterflies": mul, "plain_butterflies": plain,
+        "reads": reads, "written": written,
+        "alu_ops": (axes * (mul * FFT_MUL_OPS + plain * FFT_PLAIN_OPS)
+                    + (reads + written) * CONST_MUL_OPS) * words,
+        "lookups": (axes * mul + reads + written) * CELL_BYTES,
+        "bytes": (reads + written) * CELL_BYTES + 3 * scale_bytes.size,
+    }
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
@@ -472,7 +560,8 @@ def main(argv: list[str]) -> int:
             print("ptxas:", line.strip(), file=sys.stderr)
     sha_kernels = ("leaf_digests2d_kernel", "sha256_words_kernel", "nmt_tree_kernel")
     for name, report in ptxas_report(_cuda.build_log()).items():
-        if any(f in name for f in ("encode2d_fft_kernel", "encode2d_xor_kernel", *sha_kernels)):
+        if any(f in name for f in ("encode2d_fft_kernel", "encode2d_xor_kernel",
+                                   "decode_sweep_kernel", *sha_kernels)):
             emit(phase="ptxas", kernel=name, **report)
     cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib._name], check=True, capture_output=True,
@@ -1040,7 +1129,162 @@ def main(argv: list[str]) -> int:
          full_fetch_ms=wall_ms(lambda: transfers.device_get_chunked(eds_main, site="smoke.t"),
                                reps=3))
 
-    # ---- phase 6: timing
+    # ---- phase 6: EDS repair, the repair-after-extend path of a catching-up
+    # node (BASELINE config 4): bench.py's square and masks at k = 128 and 64
+    from celestia_tpu_torch.ops import repair, repair_cuda
+
+    def bench_square(kk: int) -> np.ndarray:
+        """bench.py's build_square(kk): seed 42, sorted v0 namespaces."""
+        r = np.random.default_rng(42)
+        flat = r.integers(0, 256, size=(kk * kk, SHARE_SIZE), dtype=np.uint8)
+        subs = sorted(r.integers(0, 200, size=(kk * kk, 10), dtype=np.uint8).tolist())
+        for i, sub in enumerate(subs):
+            flat[i, :NAMESPACE_SIZE] = np.frombuffer(ns.new_v0(bytes(sub)).bytes, np.uint8)
+        return flat.reshape(kk, kk, SHARE_SIZE)
+
+    repair_timed = {}  # k: (repaired square, a row sweep of a random mask, its plan)
+    for kk in (128, 64):
+        with pinned("fused-dense"):
+            r_eds, r_rows, r_cols = extend.extend_roots_device_resident(bench_square(kk), dev)
+        truth = r_eds.clone()
+        truth_host = truth.cpu().numpy()
+        row_roots = [r.tobytes() for r in r_rows]
+        col_roots = [c.tobytes() for c in r_cols]
+        masks = repair_masks(kk)
+        plans = {label: repair.plan_sweeps(present, kk) for label, present in masks}
+        n_sweeps = sum(len(v) for v in plans.values())
+        n_columns = sum(p.transpose for v in plans.values() for p in v)
+        check(all(len(plans[label]) == 1 for label, _p in masks[:4]) and n_columns > 0,
+              f"k={kk}: the random masks plan one row sweep each, the last mask a column sweep")
+        # the kernel against its plain version, sweep by sweep on the same input
+        for label, present in masks:
+            a = torch.where(torch.from_numpy(present).to(dev)[..., None], r_eds, 0)
+            b = a.clone()
+            for i, plan in enumerate(repair._stage_plans(plans[label], dev)):
+                repair_cuda.sweep(a, plan)
+                repair_cuda.sweep_reference(b, plan)
+                same("decode_sweep", a, b, f"decode sweep {i} "
+                     f"({'column' if plan.transpose else 'row'}) k={kk} {label}")
+            identical(a, truth, f"the swept square k={kk} {label}")
+        emit(phase="kernel_vs_plain", kernel="decode_sweep", k=kk,
+             masks=[label for label, _p in masks], sweeps=n_sweeps, column_sweeps=n_columns,
+             tolerance=0, max_abs_err=max_err["decode_sweep"])
+        # the main path: the resident cycle (sweeps, the roots recomputed on
+        # the card, compared with the DAH), then repair_device (square in and
+        # out through the host), each with the counts from 0
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        fixed = [repair.repair_resident_verified(r_eds, present, row_roots, col_roots, dev)
+                 for _label, present in masks]
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        emit(phase="main_path", route="fused-dense", k=kk, entry="repair_resident_verified",
+             masks=len(masks), sweeps=n_sweeps, launches=counts)
+        check(counts["decode_sweep"] == n_sweeps,
+              f"k={kk}: {counts['decode_sweep']} decode sweeps launched, {n_sweeps} planned")
+        # the verify's roots: one leaf pass (K2) and one tree launch a repair
+        check(counts["nmt_tree"] == counts["leaf_digests2d"] == len(masks),
+              f"k={kk}: the verify launched nmt_tree {counts['nmt_tree']} times")
+        check(all(counts[name] == 0 for name in counts
+                  if name not in ("decode_sweep", "nmt_tree", "leaf_digests2d")),
+              f"k={kk}: the resident repair launched {counts}")
+        for (label, _p), f in zip(masks, fixed):
+            identical(f, truth, f"repair_resident_verified k={kk} {label}")
+        if kk == 128:
+            launches["decode_sweep"] = counts["decode_sweep"]
+        srcs = [np.where(present[..., None], truth_host, 0) for _label, present in masks]
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        got = [repair.repair_device(src, present, dev) for src, (_l, present) in zip(srcs, masks)]
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        emit(phase="main_path", route="fused-dense", k=kk, entry="repair_device",
+             masks=len(masks), sweeps=n_sweeps, launches=counts)
+        check(counts["decode_sweep"] == n_sweeps and sum(counts.values()) == n_sweeps,
+              f"k={kk}: repair_device launched {counts}; {n_sweeps} sweeps planned, no tree")
+        for (label, _p), g in zip(masks, got):
+            check(np.array_equal(g, truth_host), f"repair_device k={kk} {label}: not the EDS")
+        # a flipped root must raise; the caller's square never changes; run()
+        # returns the same bytes each time
+        for which in ("row", "column"):
+            bad = list(row_roots if which == "row" else col_roots)
+            bad[3] = bytes([bad[3][0] ^ 1]) + bad[3][1:]
+            try:
+                repair.repair_resident_verified(
+                    r_eds, masks[0][1], bad if which == "row" else row_roots,
+                    bad if which == "column" else col_roots, dev)
+                fail(f"k={kk}: a flipped {which} root passed the verify")
+            except ValueError as err:
+                check(f"repaired {which} roots do not match DAH" in str(err), str(err))
+        run, _n = repair.stage_resident_repair(r_eds, masks[-1][1], dev)
+        first = run().clone()
+        identical(run(), first, f"k={kk}: run() twice")
+        identical(first, truth, f"k={kk}: run()")
+        identical(r_eds, truth, f"k={kk}: the caller's resident EDS changed")
+        # timing, the masks in turn as bench.py cycles them
+        turn = iter(range(10**9))
+
+        def cycled(fn):
+            return lambda: fn(next(turn) % 4)
+
+        emit(phase="repair", k=kk, masks=4, erased=0.25,
+             plan_ms=wall_ms(cycled(lambda i: repair.plan_sweeps(masks[i][1], kk))),
+             repair_device_ms=wall_ms(cycled(
+                 lambda i: repair.repair_device(srcs[i], masks[i][1], dev))),
+             resident_cycle_ms=wall_ms(cycled(lambda i: repair.repair_resident_verified(
+                 r_eds, masks[i][1], row_roots, col_roots, dev))))
+        if kk == 128:
+            # the locator lever: the plan's dgemm through torch (the port) or
+            # through numpy's BLAS (the JAX package's spelling), whose threads
+            # keep spinning after the call and slow the host copies that come
+            # next, the next call's included. So each spelling runs as a
+            # block (2 warm-up calls, then REPS), the blocks in turns twice
+            locator = gf256._error_locator_logs_batch
+            erased = (~masks[0][1]).astype(np.int64)
+            check(np.array_equal(numpy_locator(erased), locator(erased)),
+                  "the two spellings of the error locator differ")
+            entries = {"repair_device": lambda i: repair.repair_device(srcs[i], masks[i][1], dev),
+                       "resident_cycle": lambda i: repair.repair_resident_verified(
+                           r_eds, masks[i][1], row_roots, col_roots, dev)}
+            lever_ms: dict[str, list[float]] = {}
+            try:
+                for _turn in range(2):
+                    for lever, fn in (("torch_matmul", locator), ("numpy_dgemm", numpy_locator)):
+                        gf256._error_locator_logs_batch = fn
+                        for entry, call in entries.items():
+                            for rep in range(2 + REPS // 2):
+                                t = time.perf_counter()
+                                call(rep % 4)
+                                torch.cuda.synchronize()
+                                if rep >= 2:
+                                    lever_ms.setdefault(f"{entry}:{lever}", []).append(
+                                        (time.perf_counter() - t) * 1e3)
+            finally:
+                gf256._error_locator_logs_batch = locator
+            emit(phase="repair_levers", k=kk, samples=2 * (REPS // 2),
+                 median_ms={n: statistics.median(v) for n, v in lever_ms.items()},
+                 q1_q3_ms={n: statistics.quantiles(v, n=4)[::2] for n, v in lever_ms.items()})
+        plan0 = plans[masks[0][0]][0]
+        repair_timed[kk] = (truth.clone(), truth.clone(), repair._stage_plans([plan0], dev)[0],
+                            plan0)
+        if kk == 128:
+            # a device.repair.output bitflip must raise under the full audit
+            integrity.configure("full", q=4, seed=SEED)
+            try:
+                with faults.inject(faults.rule("device.repair.output", "bitflip"), seed=SEED):
+                    try:
+                        repair.repair_device(srcs[0], masks[0][1], dev)
+                        fail("a device.repair.output bitflip passed the full audit")
+                    except integrity.IntegrityError as err:
+                        check(err.site == "device.repair.output" and err.mismatches > 0,
+                              f"the repair drill raised at {err.site}")
+                        repair_drill = err.mismatches
+            finally:
+                integrity.configure("off")
+            emit(phase="integrity_drill", k=kk, level="full", site="device.repair.output",
+                 mismatches=repair_drill)
+
+    # ---- phase 7: timing
     def cuda_ms(fn, inner: int = 1, reps: int = REPS) -> float:
         """Median over `reps` samples of the CUDA-event time of `inner`
         back-to-back calls, per call. A call's host work (wrapper checks,
@@ -1215,6 +1459,11 @@ def main(argv: list[str]) -> int:
         if kk == 64:  # K4 and K6 at the governance-default square, beside the rungs
             calls["encode2d_64"] = lambda x=xk, m=m2k: rs_cuda.encode2d(x, m)
             calls["encode2d_xor_64"] = lambda x=xk, o=opsk: xor_cuda.encode2d_xor(x, o)
+    # the decode sweep at k = 128 and 64: a random mask's row sweep on its
+    # repaired square (a sweep rewrites the same bytes, so every launch does
+    # the same work)
+    for kk, (swept, _plain_sq, plan, _p) in repair_timed.items():
+        calls[f"decode_sweep_{kk}"] = lambda s=swept, p=plan: repair_cuda.sweep(s, p)
     event_ms = {name: cuda_ms(fn, inner=10) for name, fn in calls.items()}
     plain_ms = {
         "encode2d_hash": cuda_ms(lambda: rs_cuda.encode2d_hash_reference(x2, m2)),
@@ -1228,6 +1477,9 @@ def main(argv: list[str]) -> int:
         "encode2d_xor_hash": cuda_ms(lambda: xor_cuda.encode2d_xor_hash_reference(x2, ops)),
         "encode2d_xor": cuda_ms(lambda: xor_cuda.encode2d_xor_reference(x2, ops)),
     }
+    for kk, (_swept, plain_sq, plan, _p) in repair_timed.items():
+        plain_ms[f"decode_sweep_{kk}"] = cuda_ms(
+            lambda s=plain_sq, p=plan: repair_cuda.sweep_reference(s, p), reps=3)
     for batch, words in k3_shapes:
         plain_ms[f"sha256_words_{batch}"] = cuda_ms(
             lambda w=words: sha256_cuda.sha_core_reference(w))
@@ -1448,6 +1700,22 @@ def main(argv: list[str]) -> int:
         emit(phase="timing", kernel=kname, k=64, device_ms=dev_ms[call],
              event_ms=event_ms[call])
 
+    for kk, (_s, _q, _plan, plan_np) in repair_timed.items():
+        name = f"decode_sweep_{kk}"
+        work = decode_sweep_work(rs.decode_program(2 * kk)[1], plan_np.scale_bytes,
+                                 plan_np.write)
+        alu_s = pipe_seconds(work["alu_ops"], 0)
+        lookup_s = work["lookups"] / LOOKUPS_PER_S
+        b_ms, b_by = bound(max(alu_s, lookup_s), work["bytes"])
+        emit(phase="timing", kernel="decode_sweep", k=kk, sweep="row", **work,
+             device_ms=dev_ms[name],
+             launch_range_ms=[min(per_launch[name]), max(per_launch[name])],
+             event_ms=event_ms[name], plain_ms=plain_ms[name], alu_ms=alu_s * 1e3,
+             lookup_ms=lookup_s * 1e3, bytes_ms=work["bytes"] / HBM_BYTES_PER_S * 1e3,
+             bound_ms=b_ms, bound_by=b_by)
+        if kk == 128:
+            results["decode_sweep"] = (dev_ms[name], event_ms[name], plain_ms[name], (b_ms, b_by))
+
     sources = {
         "encode2d_hash": ("celestia_tpu_torch/csrc/rs_hash.cu", "celestia_tpu/ops/rs_pallas.py:276"),
         "leaf_digests2d": ("celestia_tpu_torch/csrc/rs_hash.cu", "celestia_tpu/ops/rs_pallas.py:295"),
@@ -1461,6 +1729,9 @@ def main(argv: list[str]) -> int:
         # the tree form of K3: every NMT level of extend_tpu._nmt_reduce_once
         "nmt_tree": ("celestia_tpu_torch/csrc/nmt_tree.cu",
                      "celestia_tpu/ops/sha256_pallas.py:129"),
+        # the repair sweep, an XLA graph in JAX (no Pallas kernel)
+        "decode_sweep": ("celestia_tpu_torch/csrc/rs_decode.cu",
+                         "celestia_tpu/ops/repair_tpu.py:124"),
     }
     kernels = []
     for kname, (t_d, _t_e, t_p, (b_ms, b_by)) in results.items():

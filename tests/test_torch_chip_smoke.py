@@ -209,3 +209,52 @@ def test_shuffled_layout_prog_keeps_every_read(rows, nodes):
             ea = lay.prog[g, off: off + 2 * count].reshape(-1, 2)
             eb = prog[g, off: off + 2 * count].reshape(-1, 2)
             assert sorted(map(tuple, ea)) == sorted(map(tuple, eb))
+
+
+def test_decode_sweep_work_counts_the_decode_program_and_the_plan():
+    """The decode sweep's bound: the core's butterflies from
+    rs.decode_program for each axis the sweep writes, one constant multiply
+    per cell read or written, each byte a lane."""
+    import numpy as np
+
+    from celestia_tpu_torch.ops import repair, rs
+
+    group = rs.decode_program(256)[1]
+    assert chip_smoke.fft_butterflies(group) == (1538, 510)  # of 2,048 per lane
+    k = 4
+    present = np.ones((8, 8), dtype=bool)
+    present[2, :] = False  # no decode in the row sweep: not counted
+    present[5, [0, 6]] = False
+    present[6, 1] = False
+    plan = repair.plan_sweeps(present, k)[0]
+    work = chip_smoke.decode_sweep_work(rs.decode_program(8)[1], plan.scale_bytes, plan.write)
+    mul, plain = chip_smoke.fft_butterflies(rs.decode_program(8)[1])
+    assert (work["axes"], work["reads"], work["written"]) == (2, 6 + 7, 3)
+    lanes = chip_smoke.CELL_BYTES
+    assert work["alu_ops"] == (2 * (mul * chip_smoke.FFT_MUL_OPS + plain * chip_smoke.FFT_PLAIN_OPS)
+                               + 16 * chip_smoke.CONST_MUL_OPS) * lanes / 4
+    assert work["lookups"] == (2 * mul + 16) * lanes
+    assert work["bytes"] == 16 * lanes + 3 * 64
+
+
+def test_repair_masks_plan_one_row_sweep_then_a_column_sweep():
+    from celestia_tpu_torch.ops import repair
+
+    masks = chip_smoke.repair_masks(8)
+    assert [label for label, _p in masks] == [
+        "random_7", "random_8", "random_9", "random_10", "row_column_corner"]
+    for label, present in masks:
+        assert present.shape == (16, 16)
+        if label.startswith("random"):
+            assert (~present).sum() == 64  # 25% of the cells
+    assert [p.transpose for p in repair.plan_sweeps(masks[-1][1], 8)] == [False, True]
+
+
+def test_numpy_locator_is_the_ports_locator():
+    import numpy as np
+
+    from celestia_tpu_torch.ops import gf256
+
+    erased = np.random.default_rng(3).integers(0, 2, size=(9, 256)).astype(np.int64)
+    assert np.array_equal(chip_smoke.numpy_locator(erased),
+                          gf256._error_locator_logs_batch(erased))

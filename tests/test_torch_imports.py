@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from celestia_tpu_torch import da, device
-from celestia_tpu_torch.ops import extend, transfers
+from celestia_tpu_torch.da import repair as da_repair
+from celestia_tpu_torch.ops import extend, repair, transfers
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "celestia_tpu_torch"
@@ -46,7 +47,7 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
                          capture_output=True, text=True, timeout=120)
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("ops.extend", "da", "telemetry", "faults", "tracing", "integrity",
-                 "ops.transfers"):
+                 "ops.transfers", "ops.repair", "ops.repair_cuda", "da.repair"):
         assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
@@ -75,6 +76,7 @@ def test_no_source_file_imports_jax_or_celestia_tpu():
 
 SQUARE = np.zeros((1, 1, 512), np.uint8)
 EDS = np.zeros((2, 2, 512), np.uint8)
+PRESENT = np.array([[False, True], [True, True]])
 ENTRIES = {
     "resolve": lambda: device.resolve(None),
     "roots_device": lambda: extend.roots_device(SQUARE),
@@ -87,6 +89,11 @@ ENTRIES = {
     "device_put_chunked": lambda: transfers.device_put_chunked(SQUARE, site="t"),
     "extend_shares": lambda: da.extend_shares(SQUARE.reshape(1, 512)),
     "min_data_availability_header": lambda: da.min_data_availability_header(),
+    "repair_device": lambda: repair.repair_device(EDS, PRESENT),
+    "stage_resident_repair": lambda: repair.stage_resident_repair(EDS, PRESENT),
+    "repair_resident_verified": lambda: repair.repair_resident_verified(EDS, PRESENT),
+    "da.repair.repair": lambda: da_repair.repair(EDS, PRESENT),
+    "repair_eds": lambda: da_repair.repair_eds(da.ExtendedDataSquare(EDS, 1), PRESENT),
 }
 
 

@@ -197,6 +197,65 @@ def test_clean_extend_passes_the_full_audit():
     assert integrity.get().audits == 1 and integrity.get().detections == 0
 
 
+def _damaged(k: int):
+    """``tests/test_integrity.py``'s repair case: the EDS with two cells
+    erased (and zeroed), and its mask."""
+    eds = host_eds(k)
+    present = np.ones((2 * k, 2 * k), dtype=bool)
+    present[0, 0] = False
+    present[1, 2] = False
+    return eds, np.where(present[..., None], eds, 0).astype(np.uint8), present
+
+
+@pytest.mark.parametrize("level", ["sampled", "full"])
+def test_repair_output_bitflip_drill_matches_jax_package(level):
+    from celestia_tpu.ops import repair_tpu
+    from celestia_tpu_torch.ops import repair
+
+    k = 4
+    _eds, damaged, present = _damaged(k)
+    results = []
+    for call, flt, integ in (
+            (lambda: repair_tpu.repair_tpu(damaged, present), jax_faults, jax_integrity),
+            (lambda: repair.repair_device(damaged, present, device="cpu"), faults, integrity)):
+        integ.configure(level, q=4, seed=7)
+        with flt.inject(flt.rule("device.repair.output", "bitflip"), seed=SEED):
+            try:
+                call()
+                results.append(None)
+            except integ.IntegrityError as err:
+                assert err.site == "device.repair.output" and err.where == "device.repair"
+                results.append((err.mismatches, np.asarray(err.eds).tobytes()))
+    assert results[0] == results[1]
+    assert results[1] is not None and results[1][0] > 0  # this seed's flip is caught
+
+
+def test_repair_output_bitflip_resident_raises_and_counts():
+    from celestia_tpu_torch.ops import repair
+
+    k = 4
+    eds, damaged, present = _damaged(k)
+    integrity.configure("full")
+    before = metrics.get_counter("sdc_detected_total", site="device.repair.output")
+    with faults.inject(faults.rule("device.repair.output", "bitflip"), seed=SEED):
+        with pytest.raises(integrity.IntegrityError) as ei:
+            repair.repair_resident_verified(torch.from_numpy(damaged), present, device="cpu")
+    assert ei.value.site == "device.repair.output"
+    assert np.count_nonzero(ei.value.eds != eds) == 1
+    assert metrics.get_counter("sdc_detected_total", site="device.repair.output") == before + 1
+
+
+def test_clean_repair_passes_the_full_audit():
+    from celestia_tpu_torch.ops import repair
+
+    k = 4
+    eds, damaged, present = _damaged(k)
+    integrity.configure("full")
+    out = repair.repair_device(damaged, present, device="cpu")
+    assert np.array_equal(out, eds)
+    assert integrity.get().audits == 1 and integrity.get().detections == 0
+
+
 def test_configure_levels():
     assert integrity.configure("off") is integrity.NOOP
     assert integrity.configure(None) is integrity.NOOP

@@ -204,3 +204,125 @@ def test_transfer_histogram_and_quantiles():
     assert h.counts == [1, 2, 1, 0]
     assert h.quantile(0.5) == pytest.approx(1.5)
     assert metrics.timing_quantile("no.such", 0.5) != metrics.timing_quantile("no.such", 0.5)
+
+
+# ---------------------------------------------------------------------- #
+# the repair entries (ops/repair.py, da/repair.py) against the JAX package's
+# (ops/repair_tpu.py, da/repair.py). Differences of record: the port's
+# device entry is repair_device where the JAX package's is repair_tpu (the
+# ``entry`` attribute names the function), its ``repair`` timing says
+# backend "gpu" where the JAX package says "tpu", and the host repair's
+# root check computes the roots through extend.eds_roots_device (an
+# ``extend.nmt`` span) where the JAX package's host square hashes them on
+# the host (``extend.nmt.rows`` and ``extend.nmt.cols``).
+
+
+@functools.lru_cache(maxsize=1)
+def repair_case():
+    """A k = 2 square, its resident EDS in both packages, a mask that
+    needs a row and a column sweep, the erased host square and the roots."""
+    from celestia_tpu.ops import extend_tpu as jax_extend
+
+    eds_t, rows, cols = extend.extend_roots_device_resident(SQ, device="cpu")
+    jax_eds, _rows, _cols = jax_extend.extend_roots_device_resident(SQ)
+    present = np.ones((2 * K, 2 * K), dtype=bool)
+    present[1, :] = False
+    present[:, 2] = False
+    present[0, 0] = False
+    src = np.where(present[..., None], eds_t.numpy(), 0).astype(np.uint8)
+    roots = ([r.tobytes() for r in rows], [c.tobytes() for c in cols])
+    return eds_t, jax_eds, present, src, roots
+
+
+def _repair_entries():
+    from celestia_tpu.da import repair as jax_da_repair
+    from celestia_tpu.ops import repair_tpu
+    from celestia_tpu_torch.da import repair as da_repair
+    from celestia_tpu_torch.ops import repair
+
+    eds_t, jax_eds, present, src, (rr, cc) = repair_case()
+    return {
+        "repair_device": (lambda: repair_tpu.repair_tpu(src, present),
+                          lambda: repair.repair_device(src, present, device="cpu")),
+        "repair_resident_verified": (
+            lambda: repair_tpu.repair_resident_verified(jax_eds, present, rr, cc),
+            lambda: repair.repair_resident_verified(eds_t, present, rr, cc, device="cpu")),
+        "repair": (lambda: jax_da_repair.repair(src, present.copy(), rr, cc),
+                   lambda: da_repair.repair(src, present.copy(), rr, cc, device="cpu")),
+    }
+
+
+def _renamed(tree):
+    """The JAX tree with its device entry named as the port's, and the host
+    verify's root spans as one ``extend.nmt`` node."""
+    out = []
+    for name, attrs, kids in tree:
+        if attrs.get("entry") == "repair_tpu":
+            attrs = {**attrs, "entry": "repair_device"}
+        if name == "repair.verify" and [n for n, _a, _k in kids] == [
+                "extend.nmt.rows", "extend.nmt.cols"]:
+            kids = [("extend.nmt", {"entry": "eds_roots_device", "k": attrs["k"]}, [])]
+        out.append((name, attrs, _renamed(kids)))
+    return out
+
+
+@pytest.mark.parametrize("entry", ["repair_device", "repair_resident_verified", "repair"])
+def test_repair_span_tree_equals_jax_entry(entry):
+    jax_call, port_call = _repair_entries()[entry]
+    jax_call()  # the JAX package's first call also records its compile
+    jax_integrity.configure("sampled", seed=3)
+    integrity.configure("sampled", seed=3)
+    theirs = recorded(jax_tracing, jax_call)
+    ours = recorded(tracing, port_call)
+    assert span_tree(ours, drop=is_transfer) == _renamed(span_tree(theirs, drop=is_transfer))
+    names = [s.name for s in ours]
+    if entry == "repair":
+        assert names.count("repair.sweep") == 2 and "repair.host" in names
+    else:
+        assert "integrity.audit" in names and "repair.plan" in names
+        top = [s for s in ours if s.name == "repair.device"][0]
+        assert top.attrs["backend"] == "cpu" and top.attrs["entry"] == entry
+
+
+def test_repair_device_transfer_spans_like_jax():
+    """Both packages stage the square (``transfer.repair.stage`` under
+    ``repair.upload``) and fetch the result (``transfer.repair.fetch``)."""
+    jax_call, port_call = _repair_entries()["repair_device"]
+    jax_call()
+    shapes = []
+    for trc, call in ((jax_tracing, jax_call), (tracing, port_call)):
+        spans = recorded(trc, call)
+        by_id = {s.span_id: s for s in spans}
+        shapes.append(sorted((s.name, by_id[s.parent_id].name, s.attrs["direction"],
+                              s.attrs["bytes"]) for s in spans if is_transfer(s)))
+    nbytes = (2 * K) ** 2 * SHARE_SIZE
+    assert shapes[0] == shapes[1] == [("transfer.repair.fetch", "repair.device", "d2h", nbytes),
+                                      ("transfer.repair.stage", "repair.upload", "h2d", nbytes)]
+
+
+def test_repair_entries_time_themselves_under_their_labels():
+    from celestia_tpu_torch.da import repair as da_repair
+    from celestia_tpu_torch.ops import repair
+
+    _eds_t, _jax_eds, present, src, _roots = repair_case()
+
+    def count(backend):
+        hist = metrics.get_timing("repair", backend=backend)
+        return 0 if hist is None else hist.count
+
+    gpu, host = count("gpu"), count("host")
+    repair.repair_device(src, present, device="cpu")
+    da_repair.repair(src, present.copy(), device="cpu")
+    assert count("gpu") == gpu + 1 and count("host") == host + 1
+
+
+def test_measure_records_one_timing_under_its_labels():
+    before = metrics.get_timing("t.measure", stage="a", backend="gpu")
+    assert before is None
+    with metrics.measure("t.measure", stage="a", backend="gpu") as timer:
+        time.sleep(0.002)
+    hist = metrics.get_timing("t.measure", stage="a", backend="gpu")
+    assert hist.count == 1 and hist.sum >= 0.002 and timer.start > 0
+    with pytest.raises(KeyError), metrics.measure("t.measure", stage="a", backend="gpu"):
+        raise KeyError("the block's error passes through")
+    assert hist.count == 2 and metrics.get_timing("t.measure", stage="b") is None
