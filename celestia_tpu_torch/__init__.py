@@ -27,6 +27,8 @@ find; nothing here imports jax or celestia_tpu):
   kernels; ``extend_square_xor``, the unfused XOR extend
 - ``ops.nmt_cuda``       — the NMT tree kernel (leaf-digest grid -> row and column
   roots and the row levels, one launch) and its plain level loop
+- ``ops.merkle_cuda``    — the DAH merkle kernel (K3's merkle form: B DAHs' hashes
+  from their axis roots, one launch) and its plain level loop
 - ``ops.nmt_host``       — hashlib NMT / RFC-6962 merkle (host oracle, DAH hash)
 - ``ops.transfers``      — chunked pinned H2D staging, chunked D2H, sliced reads of a
   device-resident square, with byte counters, spans and CRC-32C sink checks

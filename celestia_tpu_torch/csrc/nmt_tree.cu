@@ -213,43 +213,13 @@ __device__ __forceinline__ void inner_node(const uint32_t* l, const uint32_t* r,
 
 // The upper levels, where most of the block's threads would idle: helper
 // threads expand the message schedule of each (node, block) pair into
-// kw[t * stride] = K[t] + W[t], and the hashing thread runs only the rounds.
+// kw[t * stride] = K[t] + W[t] (sha256.cuh expand_kw), and the hashing
+// thread runs only the rounds (compress_kw).
 __device__ __forceinline__ void schedule_block(const uint32_t* l, const uint32_t* r, int sp,
                                                int b, uint32_t* kw, int stride) {
   uint32_t w[16];
   message_block(l, r, sp, b, w);
-#pragma unroll
-  for (int t = 0; t < 64; ++t) {
-    uint32_t wt;
-    if (t < 16) {
-      wt = w[t];
-    } else {
-      const uint32_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
-      const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
-      const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
-      wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
-      w[t & 15] = wt;
-    }
-    kw[t * stride] = wt + kSha256K[t];
-  }
-}
-
-// sha256_compress's 64 rounds over a precomputed K + W.
-__device__ __forceinline__ void compress_kw(uint32_t st[8], const uint32_t* kw, int stride) {
-  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
-  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll
-  for (int t = 0; t < 64; ++t) {
-    const uint32_t S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
-    const uint32_t ch = (e & f) ^ (~e & g);
-    const uint32_t t1 = h + S1 + ch + kw[t * stride];
-    const uint32_t S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
-    const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
-    h = g; g = f; f = e; e = d + t1;
-    d = c; c = b; b = a; a = t1 + S0 + maj;
-  }
-  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+  expand_kw(w, kw, stride);
 }
 
 // Nodes [0, count) of a level to out (90 bytes each, even-aligned), by the

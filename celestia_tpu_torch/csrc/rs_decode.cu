@@ -19,46 +19,62 @@
 // cell (p + k) mod 2k, address arithmetic only. consts is the sweep's plan,
 // (3, axes, n) uint8: the scale bytes and the unscale bytes per (axis,
 // position) in codeword order, then the write mask per (axis, cell) in cell
-// order. The core's operands (ops/rs.py decode_program, built once per n
-// and device): rows (n_const, 256) uint8, row i the products mul(c_i,
-// 0..255) of the i-th distinct nonzero twiddle (127 at n = 256), and group
-// (2(n - 1),) int16, each butterfly group's row or -1 for a zero twiddle;
-// logs (256,) int16 and exps (1024,) uint8 (rs.mul_log_exp), with
-// a * b = exps[logs[a] + logs[b]] and the log of 0 large enough that any
-// sum holding it reads a zero.
+// order. The core's operands (ops/rs.py decode_operands, built once per
+// device and n): table, 256 half rows H[c][y] = c * y for y < 128 (32 KiB,
+// row c at c * 128), then the 256 high-bit products c * 0x80, in device
+// memory; and twiddles, on the host, each butterfly group's multiply entry
+// (a Twiddle, below) for its twiddle constant in rs.decode_program's order
+// (0: a zero twiddle), passed as a kernel parameter.
 //
-// Design. Two blocks own one axis, 256 byte lanes each: each thread owns
-// one byte lane of every cell. A state word holds 4 positions of that
-// lane, byte b of word j being position 4j + b, so the n = 256 positions of
-// k = 128 fit in 64 registers and two blocks fit an SM (the launch bounds
-// cap a thread at 128 registers). Two lanes a word, as K4 holds its
-// shards, would take 128 state registers at n = 256 and leave one block of
-// 8 warps per SM to wait on its own lookups.
-// Butterflies with dist >= 4 pair whole words and share one twiddle, so a
-// multiply is 4 byte lookups in the twiddle's product row in shared memory
-// (addresses made by byte permutes, as in K4, csrc/rs_hash.cu). The dist 2
-// butterflies pair the two half-words of a word (y ^= x is w ^= w << 16;
-// x ^= c * y multiplies bytes 2, 3 into bytes 0, 1), and the dist 1
-// butterflies pair bytes 0, 1 and bytes 2, 3, two groups with their own
-// twiddles. The formal derivative, i ascending, work[i - b .. i) ^=
-// work[i .. i + b) with b the lowest set bit of i, is a word XOR for
-// b >= 4 and a shifted, masked XOR inside a word below; it reads only
-// bytes no earlier step wrote. The scale multiply runs before the IFFT
-// through the log/exp tables (an erased position's constant is 0, so its
-// bytes, garbage or not, drop out); the unscale multiply and the store run
-// only for the cells the plan's write mask marks, which folds JAX's
-// jnp.where(write, recovered, eds) into the store. An axis the sweep writes
-// nothing of (fully present, or not yet decodable) returns before it loads
-// a byte. Every level unrolls at compile time (n is a template parameter);
-// the twiddles stay in shared memory and are read as broadcasts, so the
-// branch over a zero twiddle is uniform.
+// Multiplies. GF(256) multiplication distributes over XOR, so
+// c * y = H[c][y & 0x7F] ^ (bit 7 of y ? c * 0x80 : 0). A half row is 128
+// bytes, 32 words, one in every bank, so the 32 byte lookups of a warp
+// into one row take one shared-memory wavefront whatever the bytes are
+// (a 256-byte row is two words a bank, and random bytes mostly cost two).
+// Every multiply of the kernel has one constant across a warp: a twiddle
+// is one per butterfly group, and a scale or unscale constant is one per
+// (axis, position) while a block works on one axis. The constant c enters
+// as (c >> 1) << 8, the row pair's offset, and c & 1 in bit 7 of the masked
+// bytes, so one byte permute still makes each lookup address; the high-bit
+// term is one sign-replicating byte permute (a mask of bit 7 of every byte)
+// and one AND with c * 0x80 in every byte. One table serves the butterflies
+// and the locator scale and unscale: no log/exp lookups.
+//
+// Design. A persistent grid of as many blocks as fit (2 an SM at 128
+// registers) loads the table into shared memory once, then walks over work
+// items, each one axis and one half of its 512 byte lanes, 256 threads a
+// block, each thread one lane of every cell. Per
+// item a block stages only that axis's plan: each position's scale and
+// unscale row offset, each state word's bit-7 and high-bit products, and
+// the write flags in position order. A state word holds 4 positions of the
+// thread's lane, byte b of word j being position 4j + b, so the n = 256
+// positions of k = 128 fit in 64 registers. Butterflies with dist >= 4 pair
+// whole words and share one twiddle. The dist 2 butterflies pair the two
+// half-words of a word (y ^= x is w ^= w << 16; x ^= c * y multiplies
+// bytes 2, 3 into bytes 0, 1), and the dist 1 butterflies pair bytes 0, 1
+// and bytes 2, 3, two groups with their own twiddles. The formal
+// derivative, i ascending, work[i - b .. i) ^= work[i .. i + b) with b the
+// lowest set bit of i, is a word XOR for b >= 4 and a shifted, masked XOR
+// inside a word below; it reads only bytes no earlier step wrote. The scale
+// multiply runs on the loaded words (an erased position's constant is 0,
+// so its bytes, garbage or not, drop out); the unscale multiply and the
+// store run only for the words that hold a cell the plan's write mask
+// marks, and only the marked bytes are stored, which folds JAX's
+// jnp.where(write, recovered, eds) into the store. An axis the sweep
+// writes nothing of loads no cell. Every level unrolls at compile time (n
+// is a template parameter), so every twiddle entry is read at a constant
+// offset of the kernel's parameters: a constant-bank operand of the permute
+// or LOP3 that uses it, with no shared-memory load and no register held.
+// The branch over a zero twiddle is uniform.
 //
 // What bounds it (k = 128: 256 axes x 512 lanes = 131,072 lanes,
 // n = 256): operations. Per lane the core has 2,048 butterflies, 1,538 of
 // them with a multiply, and 512 scale/unscale multiplies at most; the
 // 32 MiB EDS read once and the written cells stored once are 0.010 ms at
 // 3.35 TB/s. chip_smoke.py counts the bound from decode_program(256) the
-// way it counts K4's FFT bound.
+// way it counts K4's FFT bound (9 ALU operations and 4 lookups a multiply
+// word). This spelling spends 10 ALU operations and 4 conflict-free
+// lookups a multiply word.
 //
 // Every entry checks its launch with cudaGetLastError() and returns it.
 
@@ -69,88 +85,128 @@ namespace celestia {
 namespace decode {
 
 constexpr int kCell = 512;             // bytes per share
-constexpr int kThreads = 256;          // one byte lane a thread: 2 blocks per axis
+constexpr int kThreads = 256;          // one byte lane a thread: 2 items per axis
 constexpr int kMinBlocks = 2;          // blocks per SM: at most 128 registers a thread
-constexpr int kRow = 256;              // bytes per product row in shared memory
+constexpr int kHalfRow = 128;          // bytes of H[c]: c * y for y < 128
+constexpr int kTable = 256 * kHalfRow; // H, row c at c * kHalfRow
+constexpr int kTableBytes = kTable + 256;  // H, then c * 0x80 for every c
 constexpr int kBranchDist = 8;         // groups this wide branch over a zero twiddle
-constexpr int kLogZero = 511;          // rs.LOG_ZERO: the log of the byte 0
-constexpr int kExps = 1024;            // rs.mul_log_exp's exps
 constexpr int kMaxN = 256;
-static_assert(2 * kLogZero < kExps, "a sum of two logs must index the exps table");
+constexpr int kMaxDevices = 16;
 
 __host__ __device__ constexpr int log2_of(int n) { return n <= 1 ? 0 : 1 + log2_of(n / 2); }
 __host__ __device__ constexpr int groups_of(int n) { return 2 * (n - 1); }
-// the group table comes first; the product rows start on a row boundary
-__host__ __device__ constexpr int rows_offset(int n) {
-  return (groups_of(n) * 4 + kRow - 1) / kRow * kRow;
-}
+__host__ __device__ constexpr int words_of(int n) { return n < 4 ? 1 : n / 4; }
 
-// Shared memory after the product rows and the zero row.
-struct Tables {
-  int16_t* logs;    // 256
-  uint8_t* exps;    // kExps
-  int16_t* scale;   // n: log of each position's scale constant
-  int16_t* unscale; // n: log of each position's unscale constant
-  uint8_t* write;   // n: the write mask, cell order
+// A multiply by the constant c: `base` = (c >> 1) << 8, the byte offset of
+// the 256-byte row pair that holds H[c]; `cbits` = bit 0 of c in bit 7 of
+// every byte (which half of the pair); `hi` = c * 0x80 in every byte.
+struct Twiddle {
+  uint32_t base, cbits, hi;
 };
 
-__host__ __device__ constexpr size_t tables_bytes(int n) {
-  return 256 * 2 + kExps + 2 * n * 2 + n;
+// Every group's entry, by value in the kernel's parameters (6 KiB at
+// n = 256, within the 32 KiB a launch may pass).
+template <int N>
+struct TwiddleTable {
+  Twiddle e[groups_of(N)];
+};
+
+// Shared memory per block: H and the high-bit products, then one work
+// item's plan.
+template <int N>
+struct Layout {
+  static constexpr int kWords = words_of(N);
+  static constexpr int kPos = 4 * kWords;  // positions, padded to whole words
+  static constexpr int sbase = kTableBytes;                  // kPos uint32: scale bases
+  static constexpr int ubase = sbase + 4 * kPos;             // kPos uint32: unscale bases
+  static constexpr int sword = ubase + 4 * kPos;             // kWords uint2: scale cbits, hi
+  static constexpr int uword = sword + 8 * kWords;           // kWords uint2: unscale cbits, hi
+  static constexpr int wflag = uword + 8 * kWords;           // kWords uint32: write flags
+  static constexpr int bytes = wflag + 4 * kWords;
+};
+
+// PTX prmt: a selector nibble with bit 3 set replicates the sign (bit 7)
+// of the byte its low 3 bits pick.
+template <uint32_t kSel>
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "n"(kSel));
+  return d;
 }
 
-// c * y in GF(256) for the 4 bytes of y; base is the byte offset of c's
-// product row in `rows`, a multiple of 256, so a byte permute that puts a
-// byte of y into base's low byte makes the lookup address.
-__device__ __forceinline__ uint32_t gf_mul4(uint32_t y, uint32_t base, const uint8_t* rows) {
-  const uint32_t p0 = rows[__byte_perm(y, base, 0x7650)];
-  const uint32_t p1 = rows[__byte_perm(y, base, 0x7651)];
-  const uint32_t p2 = rows[__byte_perm(y, base, 0x7652)];
-  const uint32_t p3 = rows[__byte_perm(y, base, 0x7653)];
-  return __byte_perm(p0, p1, 0x1140) | __byte_perm(p2, p3, 0x4011);
+__device__ __forceinline__ uint32_t low7(uint32_t y, uint32_t cbits) {
+  return (y & 0x7F7F7F7Fu) | cbits;
 }
 
-// c * (bytes 2, 3 of y), in bytes 0, 1 (bytes 2, 3 zero): the dist 2 multiply.
-__device__ __forceinline__ uint32_t gf_mul_hi(uint32_t y, uint32_t base, const uint8_t* rows) {
-  const uint32_t p2 = rows[__byte_perm(y, base, 0x7652)];
-  const uint32_t p3 = rows[__byte_perm(y, base, 0x7653)];
-  return __byte_perm(p2, p3, 0x1140);
+// x ^ c * y in GF(256) for the 4 bytes of y (one constant): the two half
+// products and x in one three-input XOR, the high-bit term in a second.
+__device__ __forceinline__ uint32_t gf_mac4(uint32_t x, uint32_t y, const Twiddle& tw,
+                                            const uint8_t* H) {
+  const uint32_t m = low7(y, tw.cbits);
+  const uint32_t p0 = H[prmt<0x7650>(m, tw.base)];
+  const uint32_t p1 = H[prmt<0x7651>(m, tw.base)];
+  const uint32_t p2 = H[prmt<0x7652>(m, tw.base)];
+  const uint32_t p3 = H[prmt<0x7653>(m, tw.base)];
+  const uint32_t acc = x ^ prmt<0x1140>(p0, p1) ^ prmt<0x4011>(p2, p3);
+  return acc ^ (prmt<0xBA98>(y, 0u) & tw.hi);
 }
 
-// a * byte 1 of y in byte 0 and b * byte 3 in byte 2 (bytes 1, 3 zero): the
-// dist 1 multiply, two groups with their own twiddles a and b.
-__device__ __forceinline__ uint32_t gf_mul_odd(uint32_t y, uint32_t base_a, uint32_t base_b,
-                                               const uint8_t* rows) {
-  const uint32_t p1 = rows[__byte_perm(y, base_a, 0x7651)];
-  const uint32_t p3 = rows[__byte_perm(y, base_b, 0x7653)];
-  return __byte_perm(p1, p3, 0x5410);
+// x ^ c * (bytes 2, 3 of y), the product in bytes 0, 1: the dist 2 multiply.
+__device__ __forceinline__ uint32_t gf_mac_hi(uint32_t x, uint32_t y, const Twiddle& tw,
+                                              const uint8_t* H) {
+  const uint32_t m = low7(y, tw.cbits);
+  const uint32_t p2 = H[prmt<0x7652>(m, tw.base)];
+  const uint32_t p3 = H[prmt<0x7653>(m, tw.base)];
+  const uint32_t acc = x ^ prmt<0x1140>(p2, p3);
+  return acc ^ (prmt<0x44BA>(y, 0u) & tw.hi);
 }
 
-// The byte v (0..255) times the constant whose log is lc, through the
-// log/exp tables; a zero byte or constant gives 0.
-__device__ __forceinline__ uint32_t mul_const(uint32_t v, int lc, const Tables& tb) {
-  return tb.exps[tb.logs[v] + lc];
+// x ^ (a * byte 1 of y in byte 0, b * byte 3 in byte 2): the dist 1
+// multiply, two groups with their own twiddles a and b.
+__device__ __forceinline__ uint32_t gf_mac_odd(uint32_t x, uint32_t y, const Twiddle& a,
+                                               const Twiddle& b, const uint8_t* H) {
+  const uint32_t p1 = H[prmt<0x7651>(low7(y, a.cbits), a.base)];
+  const uint32_t p3 = H[prmt<0x7653>(low7(y, b.cbits), b.base)];
+  const uint32_t hi = (a.hi & 0x0000FFFFu) | (b.hi & 0xFFFF0000u);
+  const uint32_t acc = x ^ prmt<0x5410>(p1, p3);
+  return acc ^ (prmt<0x4B49>(y, 0u) & hi);
+}
+
+// Byte b of y times the constant of position 4j + b, for the positions
+// this word holds: base4 the positions' row offsets, cw their bit-7 bits
+// and high-bit products, a byte each.
+template <int N>
+__device__ __forceinline__ uint32_t gf_mul_pos(uint32_t y, int j, const uint4& base4,
+                                               const uint2& cw, const uint8_t* H) {
+  const uint32_t m = low7(y, cw.x);
+  const uint32_t p0 = H[prmt<0x7650>(m, base4.x)];
+  const uint32_t p1 = H[prmt<0x7651>(m, base4.y)];
+  const uint32_t p2 = 4 * j + 2 < N ? H[prmt<0x7652>(m, base4.z)] : 0u;
+  const uint32_t p3 = 4 * j + 3 < N ? H[prmt<0x7653>(m, base4.w)] : 0u;
+  return prmt<0x1140>(p0, p1) ^ prmt<0x4011>(p2, p3) ^ (prmt<0xBA98>(y, 0u) & cw.y);
 }
 
 // The butterflies and the formal derivative of gf256._decode_core over N
 // positions on state words in registers (every index is a compile-time
 // constant once unrolled): byte b of word j is position 4j + b (N = 2 uses
-// bytes 0 and 1 of one word). Group g's product row is at grp[g], in the
-// order ops/rs.py decode_program emits; `zero` is the zero row's offset,
-// which a zero twiddle's group points at.
+// bytes 0 and 1 of one word). Group g's twiddle is grp[g], in the order
+// ops/rs.py decode_program emits.
 template <int N>
 struct DecodeCore {
-  static constexpr int kWords = N < 4 ? 1 : N / 4;
+  static constexpr int kWords = words_of(N);
   static constexpr int kLog = log2_of(N);
 
-  // the dist 1 groups of word j: 2j (bytes 0, 1) and 2j + 1 (bytes 2, 3)
-  static __device__ __forceinline__ uint32_t odd_base(const uint32_t* grp, int g, uint32_t zero) {
-    return N < 4 ? zero : grp[g];
+  // the dist 1 groups of word j: 2j (bytes 0, 1) and 2j + 1 (bytes 2, 3);
+  // N = 2 has one, and bytes 2, 3 are zero
+  static __device__ __forceinline__ Twiddle odd_twiddle(const Twiddle* grp, int g) {
+    return N < 4 ? Twiddle{0u, 0u, 0u} : grp[g];
   }
 
   // IFFT level LV: dist = 2^LV; y ^= x, then x ^= c * y
   template <int LV>
-  static __device__ __forceinline__ void ifft(uint32_t (&w)[kWords], const uint32_t* grp,
-                                              const uint8_t* rows, uint32_t zero) {
+  static __device__ __forceinline__ void ifft(uint32_t (&w)[kWords], const Twiddle* grp,
+                                              const uint8_t* H) {
     if constexpr (LV < kLog) {
       constexpr int dist = 1 << LV;
       constexpr int g0 = N - (N >> LV);
@@ -158,49 +214,51 @@ struct DecodeCore {
 #pragma unroll
         for (int j = 0; j < kWords; ++j) {
           w[j] ^= (w[j] << 8) & 0xFF00FF00u;
-          w[j] ^= gf_mul_odd(w[j], grp[g0 + 2 * j], odd_base(grp, g0 + 2 * j + 1, zero), rows);
+          w[j] = gf_mac_odd(w[j], w[j], grp[g0 + 2 * j],
+                            odd_twiddle(grp, g0 + 2 * j + 1), H);
         }
       } else if constexpr (dist == 2) {
 #pragma unroll
         for (int j = 0; j < kWords; ++j) {
           w[j] ^= w[j] << 16;
-          w[j] ^= gf_mul_hi(w[j], grp[g0 + j], rows);
+          w[j] = gf_mac_hi(w[j], w[j], grp[g0 + j], H);
         }
       } else {
         constexpr int half = dist / 4;  // words per half of a group
 #pragma unroll
         for (int j = 0; j < N / (2 * dist); ++j) {
           const int r = 2 * half * j;  // the group's first word
-          const uint32_t base = grp[g0 + j];
+          const Twiddle tw = grp[g0 + j];
 #pragma unroll
           for (int i = 0; i < half; ++i) w[r + half + i] ^= w[r + i];
-          if (dist < kBranchDist || base != zero) {
+          if (dist < kBranchDist || tw.hi != 0u) {
 #pragma unroll
-            for (int i = 0; i < half; ++i) w[r + i] ^= gf_mul4(w[r + half + i], base, rows);
+            for (int i = 0; i < half; ++i) w[r + i] = gf_mac4(w[r + i], w[r + half + i], tw, H);
           }
         }
       }
-      ifft<LV + 1>(w, grp, rows, zero);
+      ifft<LV + 1>(w, grp, H);
     }
   }
 
   // FFT level LV: dist = N / 2^(LV + 1); x ^= c * y, then y ^= x
   template <int LV>
-  static __device__ __forceinline__ void fft(uint32_t (&w)[kWords], const uint32_t* grp,
-                                             const uint8_t* rows, uint32_t zero) {
+  static __device__ __forceinline__ void fft(uint32_t (&w)[kWords], const Twiddle* grp,
+                                             const uint8_t* H) {
     if constexpr (LV < kLog) {
       constexpr int dist = N >> (LV + 1);
       constexpr int g0 = (N - 1) + (1 << LV) - 1;
       if constexpr (dist == 1) {
 #pragma unroll
         for (int j = 0; j < kWords; ++j) {
-          w[j] ^= gf_mul_odd(w[j], grp[g0 + 2 * j], odd_base(grp, g0 + 2 * j + 1, zero), rows);
+          w[j] = gf_mac_odd(w[j], w[j], grp[g0 + 2 * j],
+                            odd_twiddle(grp, g0 + 2 * j + 1), H);
           w[j] ^= (w[j] << 8) & 0xFF00FF00u;
         }
       } else if constexpr (dist == 2) {
 #pragma unroll
         for (int j = 0; j < kWords; ++j) {
-          w[j] ^= gf_mul_hi(w[j], grp[g0 + j], rows);
+          w[j] = gf_mac_hi(w[j], w[j], grp[g0 + j], H);
           w[j] ^= w[j] << 16;
         }
       } else {
@@ -208,16 +266,16 @@ struct DecodeCore {
 #pragma unroll
         for (int j = 0; j < (1 << LV); ++j) {
           const int r = 2 * half * j;
-          const uint32_t base = grp[g0 + j];
-          if (dist < kBranchDist || base != zero) {
+          const Twiddle tw = grp[g0 + j];
+          if (dist < kBranchDist || tw.hi != 0u) {
 #pragma unroll
-            for (int i = 0; i < half; ++i) w[r + i] ^= gf_mul4(w[r + half + i], base, rows);
+            for (int i = 0; i < half; ++i) w[r + i] = gf_mac4(w[r + i], w[r + half + i], tw, H);
           }
 #pragma unroll
           for (int i = 0; i < half; ++i) w[r + half + i] ^= w[r + i];
         }
       }
-      fft<LV + 1>(w, grp, rows, zero);
+      fft<LV + 1>(w, grp, H);
     }
   }
 
@@ -247,124 +305,151 @@ template <int N>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 decode_sweep_kernel(uint8_t* __restrict__ eds, size_t axis_stride, size_t cell_stride,
                     const uint8_t* __restrict__ consts, int axes,
-                    const uint8_t* __restrict__ fft_rows, const int16_t* __restrict__ fft_group,
-                    int n_const, const int16_t* __restrict__ logs,
-                    const uint8_t* __restrict__ exps) {
-  constexpr int kGroups = groups_of(N);
-  constexpr int kWords = DecodeCore<N>::kWords;
+                    const uint8_t* __restrict__ table, const __grid_constant__ TwiddleTable<N> tw) {
+  using L = Layout<N>;
+  constexpr int kWords = L::kWords;
   constexpr int kHalf = N / 2;  // = k: position p is cell (p + k) mod N
   extern __shared__ uint4 smem_vec[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(smem_vec);
-  uint32_t* grp = reinterpret_cast<uint32_t*>(smem);  // kGroups row offsets
-  uint8_t* rows = smem + rows_offset(N);               // n_const rows, then a zero row
-  uint8_t* tail = rows + static_cast<size_t>(n_const + 1) * kRow;
-  Tables tb;
-  tb.logs = reinterpret_cast<int16_t*>(tail);
-  tb.scale = tb.logs + 256;
-  tb.unscale = tb.scale + N;
-  tb.exps = reinterpret_cast<uint8_t*>(tb.unscale + N);
-  tb.write = tb.exps + kExps;
-  const uint32_t zero = static_cast<uint32_t>(n_const) * kRow;
-
-  const int axis = blockIdx.x;
+  const uint8_t* H = smem;
+  const uint8_t* hi = smem + kTable;
+  const Twiddle* grp = tw.e;
+  uint32_t* sbase = reinterpret_cast<uint32_t*>(smem + L::sbase);
+  uint32_t* ubase = reinterpret_cast<uint32_t*>(smem + L::ubase);
+  uint2* sword = reinterpret_cast<uint2*>(smem + L::sword);
+  uint2* uword = reinterpret_cast<uint2*>(smem + L::uword);
+  uint32_t* wflag = reinterpret_cast<uint32_t*>(smem + L::wflag);
   const int t = threadIdx.x;
+
+  // once per block: the table
+  for (int i = t; i < kTableBytes / 16; i += kThreads) {
+    smem_vec[i] = reinterpret_cast<const uint4*>(table)[i];
+  }
+  __syncthreads();
+
   const size_t plane = static_cast<size_t>(axes) * N;  // bytes of one (axes, n) plane
-  const uint8_t* scale_b = consts + static_cast<size_t>(axis) * N;
-  const uint8_t* unscale_b = scale_b + plane;
-  const uint8_t* write_b = unscale_b + plane;
+  for (int item = blockIdx.x; item < 2 * axes; item += gridDim.x) {
+    const int axis = item >> 1;
+    const uint8_t* scale_b = consts + static_cast<size_t>(axis) * N;
+    const uint8_t* unscale_b = scale_b + plane;
+    const uint8_t* write_b = unscale_b + plane;
 
-  // an axis this sweep writes nothing of loads nothing
-  int wr = 0;
-  for (int c = t; c < N; c += kThreads) {
-    tb.write[c] = write_b[c];
-    wr |= write_b[c];
-  }
-  if (!__syncthreads_or(wr)) return;
-
-  // this thread's lane of every cell of the axis
-  uint8_t* lane = eds + static_cast<size_t>(axis) * axis_stride + blockIdx.y * kThreads + t;
-  uint32_t w[kWords];
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    uint32_t b[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int i = 0; i < 4 && 4 * j + i < N; ++i) {
-      b[i] = lane[((4 * j + i + kHalf) % N) * cell_stride];
+    // this item's plan; an axis this sweep writes nothing of loads nothing
+    int wr = 0;
+    for (int p = t; p < L::kPos; p += kThreads) {
+      sbase[p] = p < N ? (static_cast<uint32_t>(scale_b[p]) >> 1) << 8 : 0u;
+      ubase[p] = p < N ? (static_cast<uint32_t>(unscale_b[p]) >> 1) << 8 : 0u;
+      if (p < N) wr |= write_b[p];
     }
-    w[j] = __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040), 0x5410);
-  }
-
-  const int nvec = n_const * (kRow / 16);
-  for (int i = t; i < nvec + kRow / 16; i += kThreads) {
-    reinterpret_cast<uint4*>(rows)[i] =
-        i < nvec ? reinterpret_cast<const uint4*>(fft_rows)[i] : make_uint4(0u, 0u, 0u, 0u);
-  }
-  for (int g = t; g < kGroups; g += kThreads) {
-    const int r = fft_group[g];
-    grp[g] = r < 0 ? zero : static_cast<uint32_t>(r) * kRow;
-  }
-  for (int i = t; i < 256; i += kThreads) tb.logs[i] = logs[i];
-  for (int i = t; i < kExps; i += kThreads) tb.exps[i] = exps[i];
-  __syncthreads();
-  for (int p = t; p < N; p += kThreads) {
-    tb.scale[p] = tb.logs[scale_b[p]];
-    tb.unscale[p] = tb.logs[unscale_b[p]];
-  }
-  __syncthreads();
-
+    for (int j = t; j < kWords; j += kThreads) {
+      uint32_t scb = 0u, shi = 0u, ucb = 0u, uhi = 0u, wf = 0u;
 #pragma unroll
-  for (int j = 0; j < kWords; ++j) {
-    uint32_t b[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int i = 0; i < 4 && 4 * j + i < N; ++i) {
-      b[i] = mul_const(__byte_perm(w[j], 0u, 0x4440 + i), tb.scale[4 * j + i], tb);
+      for (int i = 0; i < 4; ++i) {
+        const int p = 4 * j + i;
+        if (p < N) {
+          const uint32_t cs = scale_b[p], cu = unscale_b[p];
+          scb |= (cs & 1u) << (8 * i + 7);
+          shi |= static_cast<uint32_t>(hi[cs]) << (8 * i);
+          ucb |= (cu & 1u) << (8 * i + 7);
+          uhi |= static_cast<uint32_t>(hi[cu]) << (8 * i);
+          wf |= static_cast<uint32_t>(write_b[(p + kHalf) % N] != 0) << (8 * i);
+        }
+      }
+      sword[j] = make_uint2(scb, shi);
+      uword[j] = make_uint2(ucb, uhi);
+      wflag[j] = wf;
     }
-    w[j] = __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040), 0x5410);
-  }
+    if (!__syncthreads_or(wr)) continue;
 
-  DecodeCore<N>::template ifft<0>(w, grp, rows, zero);
-  DecodeCore<N>::template derivative<0, N>(w);
-  DecodeCore<N>::template fft<0>(w, grp, rows, zero);
+    // this thread's lane of every cell of the axis, scaled
+    uint8_t* lane = eds + static_cast<size_t>(axis) * axis_stride + (item & 1) * kThreads + t;
+    uint32_t w[kWords];
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      uint32_t b[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int i = 0; i < 4 && 4 * j + i < N; ++i) {
+        b[i] = lane[((4 * j + i + kHalf) % N) * cell_stride];
+      }
+      w[j] = __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040), 0x5410);
+    }
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      w[j] = gf_mul_pos<N>(w[j], j, reinterpret_cast<const uint4*>(sbase)[j], sword[j], H);
+    }
 
+    DecodeCore<N>::template ifft<0>(w, grp, H);
+    DecodeCore<N>::template derivative<0, N>(w);
+    DecodeCore<N>::template fft<0>(w, grp, H);
+
+    // unscale and store the marked cells, with a copy of the cell stride
+    // the compiler cannot see is the loads': else it keeps every cell's
+    // 64-bit address from the loads live across the decode (two registers
+    // a cell) and spills them
+    size_t out_stride;
+    asm volatile("mov.b64 %0, %1;" : "=l"(out_stride) : "l"(cell_stride));
 #pragma unroll
-  for (int j = 0; j < kWords; ++j) {
+    for (int j = 0; j < kWords; ++j) {
+      const uint32_t wf = wflag[j];
+      if (wf) {
+        const uint32_t u =
+            gf_mul_pos<N>(w[j], j, reinterpret_cast<const uint4*>(ubase)[j], uword[j], H);
 #pragma unroll
-    for (int i = 0; i < 4 && 4 * j + i < N; ++i) {
-      const int c = (4 * j + i + kHalf) % N;
-      if (tb.write[c]) {
-        lane[c * cell_stride] = static_cast<uint8_t>(
-            mul_const(__byte_perm(w[j], 0u, 0x4440 + i), tb.unscale[4 * j + i], tb));
+        for (int i = 0; i < 4 && 4 * j + i < N; ++i) {
+          if (wf & (0xFFu << (8 * i))) {
+            lane[((4 * j + i + kHalf) % N) * out_stride] = static_cast<uint8_t>(u >> (8 * i));
+          }
+        }
       }
     }
+    __syncthreads();  // the next item rewrites the plan tables
   }
 }
 
 template <int N>
 static cudaError_t launch_sweep(uint8_t* eds, size_t axis_stride, size_t cell_stride,
-                                const uint8_t* consts, int axes, const uint8_t* rows,
-                                const int16_t* group, int n_const, const int16_t* logs,
-                                const uint8_t* exps, cudaStream_t stream) {
-  const size_t smem = rows_offset(N) + static_cast<size_t>(n_const + 1) * kRow + tables_bytes(N);
+                                const uint8_t* consts, int axes, const uint8_t* table,
+                                const uint32_t* twiddles, int device, cudaStream_t stream) {
+  // blocks a grid holds: as many as stay resident, per device, found once
+  static int resident[kMaxDevices] = {};
+  constexpr int smem = Layout<N>::bytes;
   cudaError_t err = cudaFuncSetAttribute(decode_sweep_kernel<N>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  decode_sweep_kernel<N><<<dim3(axes, kCell / kThreads), kThreads, smem, stream>>>(
-      eds, axis_stride, cell_stride, consts, axes, rows, group, n_const, logs, exps);
+  int blocks = device < kMaxDevices ? resident[device] : 0;
+  if (blocks == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_sweep_kernel<N>,
+                                                        kThreads, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    blocks = per_sm * sms;
+    if (device < kMaxDevices) resident[device] = blocks;
+  }
+  TwiddleTable<N> tw;
+  for (int g = 0; g < groups_of(N); ++g) {
+    tw.e[g] = {twiddles[3 * g], twiddles[3 * g + 1], twiddles[3 * g + 2]};
+  }
+  const int items = 2 * axes;
+  const int grid = items < blocks ? items : blocks;
+  decode_sweep_kernel<N><<<grid, kThreads, smem, stream>>>(eds, axis_stride, cell_stride,
+                                                           consts, axes, table, tw);
   return cudaGetLastError();
 }
 
 }  // namespace decode
 }  // namespace celestia
 
+// twiddles: host memory, (2(n - 1), 3) uint32, each group's Twiddle
+// (ops/rs.py decode_twiddles).
 extern "C" int celestia_decode_sweep(void* eds, long long axis_stride, long long cell_stride,
-                                     const void* consts, int axes, const void* fft_rows,
-                                     const void* fft_group, int n_const, const void* logs,
-                                     const void* exps, int n, int device, void* stream) {
+                                     const void* consts, int axes, const void* table,
+                                     const void* twiddles, int n, int device, void* stream) {
   using namespace celestia::decode;
   if (axis_stride <= 0 || cell_stride <= 0 || axis_stride % kCell || cell_stride % kCell ||
-      n < 2 || n > kMaxN || (n & (n - 1)) || axes <= 0 || n_const < 0 ||
-      n_const > groups_of(n)) {
+      n < 2 || n > kMaxN || (n & (n - 1)) || axes <= 0 || device < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -373,20 +458,18 @@ extern "C" int celestia_decode_sweep(void* eds, long long axis_stride, long long
   auto as = static_cast<size_t>(axis_stride);
   auto cs = static_cast<size_t>(cell_stride);
   auto c = static_cast<const uint8_t*>(consts);
-  auto r = static_cast<const uint8_t*>(fft_rows);
-  auto g = static_cast<const int16_t*>(fft_group);
-  auto l = static_cast<const int16_t*>(logs);
-  auto x = static_cast<const uint8_t*>(exps);
+  auto tb = static_cast<const uint8_t*>(table);
+  auto tw = static_cast<const uint32_t*>(twiddles);
   auto s = static_cast<cudaStream_t>(stream);
   switch (n) {
-    case 2: err = launch_sweep<2>(e, as, cs, c, axes, r, g, n_const, l, x, s); break;
-    case 4: err = launch_sweep<4>(e, as, cs, c, axes, r, g, n_const, l, x, s); break;
-    case 8: err = launch_sweep<8>(e, as, cs, c, axes, r, g, n_const, l, x, s); break;
-    case 16: err = launch_sweep<16>(e, as, cs, c, axes, r, g, n_const, l, x, s); break;
-    case 32: err = launch_sweep<32>(e, as, cs, c, axes, r, g, n_const, l, x, s); break;
-    case 64: err = launch_sweep<64>(e, as, cs, c, axes, r, g, n_const, l, x, s); break;
-    case 128: err = launch_sweep<128>(e, as, cs, c, axes, r, g, n_const, l, x, s); break;
-    default: err = launch_sweep<256>(e, as, cs, c, axes, r, g, n_const, l, x, s); break;
+    case 2: err = launch_sweep<2>(e, as, cs, c, axes, tb, tw, device, s); break;
+    case 4: err = launch_sweep<4>(e, as, cs, c, axes, tb, tw, device, s); break;
+    case 8: err = launch_sweep<8>(e, as, cs, c, axes, tb, tw, device, s); break;
+    case 16: err = launch_sweep<16>(e, as, cs, c, axes, tb, tw, device, s); break;
+    case 32: err = launch_sweep<32>(e, as, cs, c, axes, tb, tw, device, s); break;
+    case 64: err = launch_sweep<64>(e, as, cs, c, axes, tb, tw, device, s); break;
+    case 128: err = launch_sweep<128>(e, as, cs, c, axes, tb, tw, device, s); break;
+    default: err = launch_sweep<256>(e, as, cs, c, axes, tb, tw, device, s); break;
   }
   return static_cast<int>(err);
 }

@@ -1,5 +1,5 @@
-// SHA-256 compression shared by the port's hashing kernels (K1, K2, K3, K5 and
-// the NMT tree kernel).
+// SHA-256 compression shared by the port's hashing kernels (K1, K2, K3, K5,
+// the NMT tree kernel and the DAH merkle kernel).
 //
 // One thread runs one message: the 16-word schedule window and the 8 state
 // words stay in registers, the 64 rounds are fully unrolled so every
@@ -59,6 +59,44 @@ __device__ __forceinline__ void sha256_compress(uint32_t st[8], uint32_t w[16]) 
     const uint32_t S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
     const uint32_t ch = (e & f) ^ (~e & g);
     const uint32_t t1 = h + S1 + ch + kSha256K[t] + wt;
+    const uint32_t S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+    const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
+    h = g; g = f; f = e; e = d + t1;
+    d = c; c = b; b = a; a = t1 + S0 + maj;
+  }
+  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
+  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+}
+
+// The message schedule of one block, for a thread that runs only the
+// rounds: kw[t * stride] = K[t] + W[t] for t = 0..63 (the tree and merkle
+// kernels' helper threads run it for the latency-bound upper levels).
+__device__ __forceinline__ void expand_kw(uint32_t w[16], uint32_t* kw, int stride) {
+#pragma unroll
+  for (int t = 0; t < 64; ++t) {
+    uint32_t wt;
+    if (t < 16) {
+      wt = w[t];
+    } else {
+      const uint32_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
+      const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
+      const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
+      wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
+      w[t & 15] = wt;
+    }
+    kw[t * stride] = wt + kSha256K[t];
+  }
+}
+
+// sha256_compress's 64 rounds over a precomputed K + W.
+__device__ __forceinline__ void compress_kw(uint32_t st[8], const uint32_t* kw, int stride) {
+  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
+  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+#pragma unroll
+  for (int t = 0; t < 64; ++t) {
+    const uint32_t S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+    const uint32_t ch = (e & f) ^ (~e & g);
+    const uint32_t t1 = h + S1 + ch + kw[t * stride];
     const uint32_t S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
     const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
     h = g; g = f; f = e; e = d + t1;

@@ -31,7 +31,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("sha256.cuh", "rs_hash.cu", "sha256_words.cu", "xor_schedule.cu", "nmt_tree.cu",
-           "rs_decode.cu")
+           "rs_decode.cu", "dah_merkle.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,7 +41,7 @@ LIB_NAME = "libcelestia_kernels.so"
 LAUNCHES: dict[str, int] = {
     "encode2d_hash": 0, "leaf_digests2d": 0, "sha256_words": 0,
     "encode2d": 0, "encode2d_xor_hash": 0, "encode2d_xor": 0, "nmt_tree": 0,
-    "decode_sweep": 0,
+    "decode_sweep": 0, "dah_merkle": 0,
 }
 
 _V = ctypes.c_void_p
@@ -69,9 +69,11 @@ _SIGNATURES = {
     # (q0, q1, q2, q3, q0_rs, q0_cs, q1_rs, q1_cs, q2_rs, q2_cs, q3_rs, q3_cs,
     #  ns, ns_rs, ns_cs, roots, levels, k, device, stream)
     "celestia_nmt_tree": (_V, _V, _V, _V, *(_I,) * 8, _V, _I, _I, _V, _V, _I, _I, _V),
-    # (eds, axis_stride, cell_stride, consts, axes, fft_rows, fft_group, n_const,
-    #  logs, exps, n, device, stream)
-    "celestia_decode_sweep": (_V, _L, _L, _V, _I, _V, _V, _I, _V, _V, _I, _I, _V),
+    # (eds, axis_stride, cell_stride, consts, axes, table, twiddles, n, device,
+    #  stream)
+    "celestia_decode_sweep": (_V, _L, _L, _V, _I, _V, _V, _I, _I, _V),
+    # (roots, out, batch, n, device, stream)
+    "celestia_dah_merkle": (_V, _V, _I, _I, _I, _V),
     # (device) -> resident blocks per SM
     "celestia_nmt_tree_blocks_per_sm": (_I,),
 }

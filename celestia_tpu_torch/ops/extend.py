@@ -21,7 +21,7 @@ Structure:
   non-decreasing, which nmt itself enforces and the square builder
   guarantees.
 
-Routes (``_roots_of``, as in the JAX package's extend_tpu._roots_of):
+Routes (``_roots``, as in the JAX package's extend_tpu._roots_of):
 
 - fused dense (the default): the three quadrant encodes run K1
   (``rs_cuda.encode_hash_into``), which returns every parity cell's leaf
@@ -45,9 +45,10 @@ route K1's [col, row] outputs as transposed views, on the unfused routes
 four slices of K2's grid) and the Q0 namespaces as a view of the shares,
 and returns the row and column roots, with the row levels for
 ``eds_row_levels_device``. The device DAH merkle (``merkle_root_pow2``)
-runs K3 (``sha256_cuda.sha256_words``) through ``sha256.sha256_fixed``. The
-leaves of an existing EDS (``eds_roots_device``, ``eds_row_levels_device``)
-run K2.
+is one launch of K3's merkle form (``merkle_cuda.dah_merkle``) on the
+(2, 2k, 90) roots as the tree kernel wrote them, for one square or a whole
+batch. The leaves of an existing EDS (``eds_roots_device``,
+``eds_row_levels_device``) run K2.
 
 The route is chosen per k as the JAX package chooses it: the env pins
 ``CELESTIA_FUSED_KERNELS`` and ``CELESTIA_XOR_SCHEDULE`` ("0"/"off"/"false"
@@ -83,13 +84,9 @@ from celestia_tpu_torch.appconsts import (
 )
 from celestia_tpu_torch.app import calibration
 from celestia_tpu_torch.ops import (
-    nmt_cuda, rs, rs_cuda, sha256_cuda, transfers, xor_cuda, xor_schedule,
+    merkle_cuda, nmt_cuda, rs, rs_cuda, transfers, xor_cuda, xor_schedule,
 )
 from celestia_tpu_torch.ops.nmt_cuda import NMT_NODE_SIZE, leaf_namespaces as _leaf_namespaces
-from celestia_tpu_torch.ops.sha256 import sha256_fixed
-
-_LEAF_PREFIX = np.array([0], dtype=np.uint8)
-_NODE_PREFIX = np.array([1], dtype=np.uint8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +97,7 @@ class Kernels:
 
     encode2d_hash: Callable
     leaf_digests2d: Callable
-    sha256_words: Callable
+    dah_merkle: Callable
     encode2d: Callable
     encode2d_xor_hash: Callable
     encode2d_xor: Callable
@@ -108,12 +105,12 @@ class Kernels:
 
 
 KERNELS = Kernels(rs_cuda.encode_hash_into, rs_cuda.leaf_digests2d,
-                  sha256_cuda.sha256_words, rs_cuda.encode_into,
+                  merkle_cuda.dah_merkle, rs_cuda.encode_into,
                   xor_cuda.encode2d_xor_hash, xor_cuda.encode2d_xor,
                   nmt_cuda.nmt_tree)
 PLAIN = Kernels(rs_cuda.encode_hash_into_reference,
                 rs_cuda.leaf_digests2d_reference,
-                sha256_cuda.sha_core_reference, rs_cuda.encode_into_reference,
+                merkle_cuda.dah_merkle_reference, rs_cuda.encode_into_reference,
                 xor_cuda.encode2d_xor_hash_reference,
                 xor_cuda.encode2d_xor_reference,
                 nmt_cuda.nmt_tree_reference)
@@ -146,26 +143,14 @@ def _xor_active(k: int) -> bool:
     return calibration.xor_winner(k) == "xor"
 
 
-def _bcast_const(const: np.ndarray, like: torch.Tensor,
-                 batch: tuple[int, ...]) -> torch.Tensor:
-    return torch.as_tensor(const, device=like.device).expand(*batch, const.shape[0])
-
-
 def merkle_root_pow2(items: torch.Tensor, kernels: Kernels = KERNELS) -> torch.Tensor:
-    """RFC-6962 merkle root of (..., n, D) items, n a power of two
+    """RFC-6962 merkle root of (..., n, 90) items, n = 4k a power of two
     (tendermint merkle.HashFromByteSlices; the DAH hashes its 4k axis roots,
-    pkg/da/data_availability_header.go:92-108)."""
-    batch = tuple(items.shape[:-1])
-    leaves = sha256_fixed(
-        torch.cat([_bcast_const(_LEAF_PREFIX, items, batch), items], dim=-1),
-        kernels.sha256_words)
-    while leaves.shape[-2] > 1:
-        left = leaves[..., 0::2, :]
-        right = leaves[..., 1::2, :]
-        msg = torch.cat([_bcast_const(_NODE_PREFIX, items, tuple(left.shape[:-1])),
-                         left, right], dim=-1)
-        leaves = sha256_fixed(msg, kernels.sha256_words)
-    return leaves[..., 0, :]
+    pkg/da/data_availability_header.go:92-108): one ``dah_merkle`` call
+    for every tree of the batch."""
+    lead = tuple(items.shape[:-2])
+    out = kernels.dah_merkle(items.reshape(-1, *items.shape[-2:]))
+    return out.reshape(*lead, 32)
 
 
 def _eds_tree(eds: torch.Tensor, kernels: Kernels, keep_levels: bool = False):
@@ -253,10 +238,11 @@ def _roots_of_fused_xor(shares: torch.Tensor, kernels: Kernels, keep_eds: bool):
     return eds, roots
 
 
-def _roots_of(shares: torch.Tensor, m2: rs.EncodeMatrix, fused: bool | None = None,
-              xor: bool | None = None, kernels: Kernels = KERNELS, keep_eds: bool = True):
-    """(k, k, 512) contiguous -> (eds, row_roots, col_roots) on the route
-    that ``fused`` and ``xor`` name; None resolves each through
+def _roots(shares: torch.Tensor, m2: rs.EncodeMatrix, fused: bool | None = None,
+           xor: bool | None = None, kernels: Kernels = KERNELS, keep_eds: bool = True):
+    """(k, k, 512) contiguous -> (eds, roots (2, 2k, 90): the row roots, then
+    the column roots, as the tree kernel writes them) on the route that
+    ``fused`` and ``xor`` name; None resolves each through
     ``_fused_active`` / ``_xor_active``. Byte-identical any way. Without
     ``keep_eds`` the EDS is None: the fused routes do not assemble it, the
     unfused ones build it as the leaf hash's input and drop it."""
@@ -266,18 +252,16 @@ def _roots_of(shares: torch.Tensor, m2: rs.EncodeMatrix, fused: bool | None = No
     if xor is None:
         xor = _xor_active(k)
     if fused and xor:
-        eds, roots = _roots_of_fused_xor(shares, kernels, keep_eds)
-        return eds, roots[0], roots[1]
+        return _roots_of_fused_xor(shares, kernels, keep_eds)
     if fused:
-        eds, roots = _roots_of_fused_dense(shares, m2, kernels, keep_eds)
-        return eds, roots[0], roots[1]
+        return _roots_of_fused_dense(shares, m2, kernels, keep_eds)
     if xor:
         eds = xor_cuda.extend_square_xor(
             shares, xor_cuda.schedule_operands(k, shares.device), kernels.encode2d_xor)
     else:
         eds = rs_cuda.extend_square(shares, m2, kernels.encode2d)
-    row_roots, col_roots = nmt_roots_of_eds(eds, kernels)
-    return (eds if keep_eds else None), row_roots, col_roots
+    roots, _levels = _eds_tree(eds, kernels)
+    return (eds if keep_eds else None), roots
 
 
 def _rows_cols_only(shares: torch.Tensor, m2: rs.EncodeMatrix, fused: bool | None = None,
@@ -286,27 +270,29 @@ def _rows_cols_only(shares: torch.Tensor, m2: rs.EncodeMatrix, fused: bool | Non
     EDS never an output. Every roots-only entry (``roots_device``,
     ``roots_only_batched``, ``batched_roots_device``) runs it, so the
     replay verifier's roots and the proposer's cannot diverge."""
-    _eds, rows, cols = _roots_of(shares, m2, fused=fused, xor=xor, kernels=kernels,
-                                 keep_eds=False)
-    return rows, cols
+    _eds, roots = _roots(shares, m2, fused=fused, xor=xor, kernels=kernels, keep_eds=False)
+    return roots[0], roots[1]
 
 
 def extend_and_root(shares: torch.Tensor, m2: rs.EncodeMatrix,
                     kernels: Kernels = KERNELS):
     """(k, k, 512) uint8 -> (eds (2k,2k,512), row_roots (2k,90),
-    col_roots (2k,90), dah_hash (32,))."""
-    eds, row_roots, col_roots = _roots_of(shares, m2, kernels=kernels)
-    dah = merkle_root_pow2(torch.cat([row_roots, col_roots], dim=0), kernels)
-    return eds, row_roots, col_roots, dah
+    col_roots (2k,90), dah_hash (32,)). The merkle reads the tree kernel's
+    (2, 2k, 90) roots as they lie: no message or copy is built for it."""
+    eds, roots = _roots(shares, m2, kernels=kernels)
+    dah = merkle_root_pow2(roots.reshape(-1, NMT_NODE_SIZE), kernels)
+    return eds, roots[0], roots[1], dah
 
 
 def extend_and_root_batched(shares: torch.Tensor, m2: rs.EncodeMatrix,
                             kernels: Kernels = KERNELS):
     """(B, k, k, 512) -> batched (eds, row_roots, col_roots, dah): the
     multi-block form (catch-up, replay), one square after another on the
-    device's stream."""
-    outs = [extend_and_root(s, m2, kernels) for s in shares]
-    return tuple(torch.stack(parts) for parts in zip(*outs))
+    device's stream, then one merkle launch for the B DAHs."""
+    eds, roots = zip(*(_roots(s, m2, kernels=kernels) for s in shares))
+    roots = torch.stack(roots)  # (B, 2, 2k, 90)
+    dah = merkle_root_pow2(roots.reshape(roots.shape[0], -1, NMT_NODE_SIZE), kernels)
+    return torch.stack(eds), roots[:, 0], roots[:, 1], dah
 
 
 def _batch_chunk(k: int, b: int) -> int:
@@ -430,7 +416,7 @@ def _extend_resident(entry: str, shares, device, kernels: Kernels):
         with tracing.span("extend.rs_nmt", backend=backend, k=k, fused="rs+nmt",
                           sharded=False):
             t0 = time.perf_counter()
-            eds, rows, cols = _roots_of(x, rs.encode_matrix(k, dev), kernels=kernels)
+            eds, (rows, cols) = _roots(x, rs.encode_matrix(k, dev), kernels=kernels)
             transfers.profile_fence(cols, entry, t0, k=k)
         # SDC model: the result is damaged in flight; the audit must catch it
         flip = faults.fire("device.extend.output", entry=entry)

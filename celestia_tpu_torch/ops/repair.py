@@ -52,8 +52,9 @@ class SweepPlan:
     """One planned decode sweep (all axes of one orientation at once).
 
     Scale constants travel as bytes (w·n, ~65 KB at k = 128); the kernel
-    multiplies by them through log/exp tables, the plain version gathers
-    their 8×8 bit matrices from ``rs.bitmul_table``."""
+    multiplies by them through its half-row table (``rs.decode_table``),
+    the plain version gathers their 8×8 bit matrices from
+    ``rs.bitmul_table``."""
 
     transpose: bool  # False: rows are axes; True: columns are axes
     scale_bytes: np.ndarray  # (w, n) uint8 — locator scale constant

@@ -17,14 +17,19 @@ Positions are in the code's order [parity | data]: position p is cell
 rows, a column sweep the columns, through an axis stride and a cell
 stride, with no transposed copy. Only the marked cells change.
 
-The kernel runs the core as a butterfly program (``rs.decode_program``),
-each multiply a byte lookup in a shared-memory product row. The plain
-version ``sweep_reference`` is the JAX package's own spelling: the bits of
-every cell, an 8×8 GF(2) block per position for the scale and unscale
-(gathered from ``rs.bitmul_table``), and one (8n × 8n) GF(2) contraction
-with ``rs.decode_bit_matrix(n)`` in float32 (0/1 operands and at most
-2,048 terms: exact), then ``& 1``. The two are different algorithms for
-one linear map, so their agreement on the card means something.
+The kernel runs the core as a butterfly program (``rs.decode_program``,
+each group's twiddle constant), every multiply (the butterflies' and the
+locator scale and unscale) a byte lookup in one table of half rows
+(``rs.decode_table``: c·y = H[c][y & 0x7F] ^ (bit 7 of y)·c·0x80), which
+a persistent grid stages in shared memory once per resident block; the
+twiddles' multiply entries (``rs.decode_twiddles``) go by value in the
+kernel's parameters. The plain version ``sweep_reference`` is the JAX package's own spelling: the
+bits of every cell, an 8×8 GF(2) block per position for the scale and
+unscale (gathered from ``rs.bitmul_table``), and one (8n × 8n) GF(2)
+contraction with ``rs.decode_bit_matrix(n)`` in float32 (0/1 operands and
+at most 2,048 terms: exact), then ``& 1``. The two are different
+algorithms for one linear map, so their agreement on the card means
+something.
 
 What bounds the kernel at k = 128 (256 axes × 512 lanes): operations, the
 core's 1,538 multiply butterflies and 510 plain ones per lane beside the
@@ -37,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from celestia_tpu_torch.appconsts import SHARE_SIZE
@@ -121,12 +127,14 @@ def sweep(eds: torch.Tensor, plan: StagedSweep) -> None:
         raise ValueError("eds must be contiguous and 16-byte aligned")
     _cuda.require(plan.consts, "plan.consts", torch.uint8, (3, n, n), eds.device)
     ops = rs.decode_operands(n, eds.device)
-    _cuda.require(ops.rows, "rows", torch.uint8, (ops.rows.shape[0], 256), eds.device)
-    _cuda.require(ops.group, "group", torch.int16, (2 * (n - 1),), eds.device)
+    _cuda.require(ops.table, "table", torch.uint8, (rs.decode_table().size,), eds.device)
+    if ops.twiddles.shape != (2 * (n - 1), 3) or ops.twiddles.dtype != np.uint32:
+        raise ValueError(f"twiddles must be uint32 ({2 * (n - 1)}, 3), got "
+                         f"{ops.twiddles.dtype} {ops.twiddles.shape}")
     view = _axes_view(eds, plan)
     rc = _cuda.library().celestia_decode_sweep(
         eds.data_ptr(), view.stride(0), view.stride(1), plan.consts.data_ptr(), n,
-        ops.rows.data_ptr(), ops.group.data_ptr(), ops.rows.shape[0], ops.logs.data_ptr(),
-        ops.exps.data_ptr(), n, eds.device.index or 0, _cuda.stream_of(eds))
+        ops.table.data_ptr(), ops.twiddles.ctypes.data, n, eds.device.index or 0,
+        _cuda.stream_of(eds))
     _cuda.check(rc, "decode_sweep")
     _cuda.LAUNCHES["decode_sweep"] += 1

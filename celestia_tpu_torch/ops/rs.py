@@ -109,11 +109,13 @@ def fft_program(k: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=16)
-def decode_program(n: int) -> tuple[np.ndarray, np.ndarray]:
+def decode_program(n: int) -> np.ndarray:
     """The butterfly program of ``gf256._decode_core`` over n = 2k
     positions (the erasure-pattern-independent middle of the Leopard
-    decode), as the decode sweep kernel reads it: ``(rows, group)`` in
-    ``fft_program``'s format.
+    decode), as the decode sweep kernel reads it: (2(n - 1),) uint8, each
+    butterfly group's twiddle constant, 0 for a zero twiddle (the
+    butterfly skips its multiply). The kernel looks each constant up in
+    ``decode_table()`` by its own value.
 
     Groups in the order the core runs them: the IFFT levels (dist 1 ->
     n/2, r ascending: y ^= x, then x ^= c·y), then the FFT levels (dist
@@ -121,8 +123,7 @@ def decode_program(n: int) -> tuple[np.ndarray, np.ndarray]:
     ``skew[r + dist - 1]``, skew offset 0 over all n positions (the
     encode's IFFT starts at offset k - 1, so this is not
     ``fft_program(n)``). The formal derivative between the two transforms
-    has no twiddle and is not in the program. 127 distinct nonzero
-    twiddles at n = 256 (32 KiB of rows); n = 1 has no group."""
+    has no twiddle and is not in the program. n = 1 has no group."""
     _check_pow2("n", n)
     skew = gf256.fft_skew()
     logs = []
@@ -134,7 +135,43 @@ def decode_program(n: int) -> tuple[np.ndarray, np.ndarray]:
     while dist >= 1:
         logs += [int(skew[r + dist - 1]) for r in range(0, n, 2 * dist)]
         dist >>= 1
-    return _butterfly_program(logs)
+    logs = np.array(logs, dtype=np.int64)
+    consts = np.where(logs == gf256.K_MODULUS, 0,
+                      gf256.exp_table()[logs % gf256.K_MODULUS]).astype(np.uint8)
+    consts.flags.writeable = False  # shared by the cache
+    return consts
+
+
+HALF_ROW = 128  # bytes of a half row of decode_table: c·y for y < 128
+
+
+@functools.lru_cache(maxsize=16)
+def decode_twiddles(n: int) -> np.ndarray:
+    """Each butterfly group's multiply entry as the decode kernel reads it
+    (its kernel parameters), (2(n - 1), 3) uint32, from the twiddle
+    constant c of ``decode_program(n)``: the byte offset (c >> 1) << 8 of
+    the half-row pair that holds H[c] in ``decode_table()``, bit 0 of c in
+    bit 7 of every byte (which half of the pair), and c·0x80 in every
+    byte (the high-bit product)."""
+    c = decode_program(n).astype(np.uint32)
+    hi = decode_table()[256 * HALF_ROW:].astype(np.uint32)[c]
+    entries = np.stack([(c >> 1) << 8, np.where(c & 1, 0x80808080, 0).astype(np.uint32),
+                        hi * 0x01010101], axis=1).astype(np.uint32)
+    entries.flags.writeable = False
+    return entries
+
+
+@functools.lru_cache(maxsize=1)
+def decode_table() -> np.ndarray:
+    """The decode kernel's one multiply table, (256·128 + 256,) uint8: the
+    half rows H[c][y] = c·y for y < 128, row c at c·128, then the high-bit
+    products c·0x80. c·y = H[c][y & 0x7F] ^ (c·0x80 if y & 0x80 else 0),
+    since the multiply distributes over XOR. A half row is 32 words, one
+    in each shared-memory bank."""
+    mul = gf256.mul_table()
+    table = np.concatenate([mul[:, :HALF_ROW].reshape(-1), mul[:, 0x80]]).astype(np.uint8)
+    table.flags.writeable = False
+    return table
 
 
 @functools.lru_cache(maxsize=8)
@@ -151,27 +188,6 @@ def bitmul_table() -> np.ndarray:
     matrix of multiply-by-constant-c, bit lanes LSB-first."""
     consts = np.arange(256, dtype=np.uint8)[:, None]  # (256, 1) GF matrix
     return expand_bit_matrix(consts).reshape(256, 8, 8)
-
-
-LOG_ZERO = 511  # the kernel's log of the byte 0: any sum with it indexes a zero
-
-
-@functools.lru_cache(maxsize=1)
-def mul_log_exp() -> tuple[np.ndarray, np.ndarray]:
-    """The decode kernel's tables for a multiply by a per-position
-    constant: ``(logs, exps)``, with a·b = exps[logs[a] + logs[b]].
-
-    logs: (256,) int16, the field log of each byte (0..254) and LOG_ZERO
-          for 0.
-    exps: (1024,) uint8, exp(i mod 255) for i < 510 and 0 above, so a sum
-          that holds LOG_ZERO (at least 511) gives 0 without a branch."""
-    log, exp = gf256.log_table(), gf256.exp_table()
-    logs = log.astype(np.int16)
-    logs[0] = LOG_ZERO
-    i = np.arange(1024)
-    exps = np.where(i < 2 * gf256.K_MODULUS, exp[i % gf256.K_MODULUS], 0).astype(np.uint8)
-    logs.flags.writeable = exps.flags.writeable = False
-    return logs, exps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,31 +247,33 @@ class DecodeOperands:
     """The decode core over n positions on a device, as the decode sweep
     kernel reads it (``csrc/rs_decode.cu``).
 
-    rows:  (n_const, 256) uint8 — ``decode_program(n)``'s product rows.
-    group: (2(n - 1),) int16 — each butterfly group's row, -1 to skip.
-    logs:  (256,) int16 and exps: (1024,) uint8 — ``mul_log_exp()``, for
-           the per-position scale and unscale multiplies."""
+    table:    (256·128 + 256,) uint8 on the device — ``decode_table()``,
+              the one table of every multiply (the butterflies' and the
+              locator scale and unscale), shared by every n.
+    twiddles: (2(n - 1), 3) uint32 on the host — ``decode_twiddles(n)``,
+              passed by value as the kernel's parameters."""
 
-    rows: torch.Tensor
-    group: torch.Tensor
-    logs: torch.Tensor
-    exps: torch.Tensor
+    table: torch.Tensor
+    twiddles: np.ndarray
 
     @property
     def n(self) -> int:
-        return self.group.shape[0] // 2 + 1
+        return self.twiddles.shape[0] // 2 + 1
+
+
+@functools.lru_cache(maxsize=4)
+def _decode_table_cached(device: str) -> torch.Tensor:
+    return torch.tensor(decode_table(), device=device)
 
 
 @functools.lru_cache(maxsize=16)
 def _decode_operands_cached(n: int, device: str) -> DecodeOperands:
-    rows, group = decode_program(n)
-    logs, exps = mul_log_exp()
-    return DecodeOperands(*(torch.tensor(a, device=device) for a in (rows, group, logs, exps)))
+    return DecodeOperands(_decode_table_cached(device), decode_twiddles(n))
 
 
 def decode_operands(n: int, device: torch.device) -> DecodeOperands:
-    """The decode kernel's operands for n positions on ``device``, built
-    once per (n, device)."""
+    """The decode kernel's operands for n positions on ``device``: the
+    table once per device, the twiddle entries once per n."""
     return _decode_operands_cached(n, str(device))
 
 

@@ -9,11 +9,11 @@ message words transposed to (16·nb, B) uint32 — column b is message b — and
 returns (8, B) uint32 digest words. One CUDA thread hashes one message; word
 row w is read at ``words[w, lane]``, so a warp's loads coalesce.
 
-Since the tree kernel (``ops/nmt_cuda.py``, ``csrc/nmt_tree.cu``) took over
-every NMT inner-node level, K3 carries the DAH merkle when it runs on the
-device (``extend.merkle_root_pow2``: 91- and 65-byte messages, nb = 2,
-4k leaves and log2(4k) node levels, one launch each). PyTorch has no SHA-256 of its own, so this kernel has no library
-counterpart.
+The tree kernel (``ops/nmt_cuda.py``, ``csrc/nmt_tree.cu``) carries every
+NMT inner-node level and the merkle kernel (``ops/merkle_cuda.py``,
+``csrc/dah_merkle.cu``) the device DAH, so no entry's path runs K3; it
+serves ``sha256.sha256_fixed`` on CUDA tensors. PyTorch has no SHA-256 of
+its own, so this kernel has no library counterpart.
 
 What bounds it on the H100: integer ALU work. A 64-byte block compiles to
 1,265 operations on the ALU pipe (SHF, LOP3, IADD3) and 118 IMAD on the FMA

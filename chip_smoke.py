@@ -15,10 +15,11 @@ as a user picks it. Seven kernels carry them: K1 encode2d_hash, K2
 leaf_digests2d, K3 sha256_words, K4 encode2d, K5 encode2d_xor_hash, K6
 encode2d_xor, and nmt_tree, K3's tree form (every route ends in it: the
 leaf-digest grid to the row and column roots, and the row levels, in one
-launch). K3 itself is left to the device DAH of extend_and_root_device.
-An eighth, decode_sweep (csrc/rs_decode.cu), carries EDS repair: one
-launch per planned sweep of the Leopard erasure decode, in place in the
-EDS.
+launch). dah_merkle, K3's merkle form (csrc/dah_merkle.cu), is the device
+DAH of extend_and_root_device: one launch over the 4k axis roots. K3
+itself is on no entry's path any more. decode_sweep (csrc/rs_decode.cu)
+carries EDS repair: one launch per planned sweep of the Leopard erasure
+decode, in place in the EDS.
 
 Phases, in order (any failed check raises, so the script exits non-zero and
 prints no result; it also exits non-zero when no CUDA device is present):
@@ -26,8 +27,11 @@ prints no result; it also exits non-zero when no CUDA device is present):
 1. Environment: versions, the card's name, power limit, SM count and
    maximum SM clock, the kernel build (nvcc for sm_90a, from
    celestia_tpu_torch/csrc/) and its seconds, the ptxas report (registers,
-   spills; also of K5/K6) and SASS opcode mix of the k = 128 encode, K2, K3 and the tree
-   kernel, the tree kernel's resident blocks per SM, the operations of one
+   spills; also of K5/K6, every decode sweep instance and the merkle
+   kernel) and SASS opcode mix of the k = 128 encode, K2, K3, the tree
+   kernel, the merkle kernel and the n = 256 decode sweep (and its LDS,
+   PRMT, LOP3 and SHF in one pass of its work-item loop), the tree
+   kernel's resident blocks per SM, the operations of one
    SHA-256 block counted from K3's compiled block loop (ALU pipe: LOP3,
    SHF, IADD3, PRMT; FMA pipe: IMAD), which every SHA bound below uses, the
    operations of its 64 rounds alone counted from the tree kernel's
@@ -38,7 +42,9 @@ prints no result; it also exits non-zero when no CUDA device is present):
    the padding of the conflict-free operand order).
 2. Each kernel against its plain PyTorch version on the card, byte for byte:
    K3 on messages of every length 0..600 (and against hashlib) and at the
-   NMT level shapes; K1, K4, K5 and K6 at every power of two k from 1 to
+   NMT level shapes; the merkle kernel at every power of two k from 1 to
+   128, one DAH and a batch of 3 (and against hashlib); K1, K4, K5 and K6
+   at every power of two k from 1 to
    128 (the FFT program of K1/K4 differs per k), K2 at the same k on both
    of its main-path shapes, (k, k·512) and (2k, 2k·512), and at 1, 3 and
    65 rows; the FFT and XOR kernels against each other (K5 = K1,
@@ -60,8 +66,11 @@ prints no result; it also exits non-zero when no CUDA device is present):
    square (extend -> DAH -> row levels, as a block producer runs it) and
    read just after: the route's own kernels ran, the tree kernel once per
    extend and once for the row levels, K3 no time, and the other routes'
-   encode kernels did not. The device-DAH entry (extend_and_root_device,
-   where K3 runs the merkle over the axis roots) is read the same way. On
+   encode kernels did not. The device-DAH entry (extend_and_root_device)
+   is read the same way: the merkle kernel once, the tree kernel once, K3
+   no time (its ``main_path`` line comes with phase 7's timing: the
+   device DAH's aten ops and H2D copies, 0 each, and the entry's wall ms
+   at k = 64 and 128). On
    each route the kernel route equals the plain route
    (EDS, roots, DAH) and the fused dense route; on the fused dense route the
    row levels equal the plain ones, and at k = 64 the roots equal the host
@@ -82,7 +91,9 @@ prints no result; it also exits non-zero when no CUDA device is present):
    plain count, a transfer.chunk bitflip healing and raising);
    ``sliced_reads`` (row, column, cell and batch reads of the resident
    k = 128 EDS equal to a chunked full fetch, with the bytes each moved).
-6. EDS repair (``repair``), the repair-after-extend path of a catching-up
+6. EDS repair (``repair``): first the decode sweep at every power of two
+   k from 1 to 32, every sweep of one random 25% mask against its plain
+   version; then the repair-after-extend path of a catching-up
    node, at k = 128 and 64: bench.py's square extended by
    extend_roots_device_resident, erased under bench.py's four masks
    (seeds 7-10, 25%, one row sweep each) and tests/test_repair.py's
@@ -111,8 +122,10 @@ prints no result; it also exits non-zero when no CUDA device is present):
    (eds_row_levels_device's), beside both terms of its bound
    (``nmt_tree_floor``: all nodes at the card's rate, and one tree's chain
    of levels, rounds only) and the floor of its level-at-a-time design
-   (``chain_floor_seconds``); K3 at the shapes of one device DAH, bound
-   the same way; K5/K6 beside the function bound and the XOR spelling's own
+   (``chain_floor_seconds``); K3 at the shapes of one device DAH (its 10
+   launches), bound the same way; the merkle kernel at k = 64 and 128 on
+   the tree kernel's roots, beside the same bound and the 10 K3 launches;
+   K5/K6 beside the function bound and the XOR spelling's own
    floors (its operations on the ALU pipe, its operand reads from shared
    memory, and this layout's reads); the decode sweep at k = 128 and 64 (a
    random mask's row sweep) beside its bound, counted from
@@ -128,12 +141,14 @@ prints no result; it also exits non-zero when no CUDA device is present):
    differ); and a torch.profiler breakdown of one k = 128 roots_device and
    one extend_roots_device_resident call per route (device time by op,
    launches, aten ops beside the kernels, H2D copies and their ms, idle
-   share); on the fused dense route roots_device must launch no aten op
+   share), and of the device DAH alone (``merkle_root_pow2`` on the k = 128
+   roots); on the fused dense route roots_device must launch no aten op
    (no EDS is assembled) and the resident path at most one (Q0's copy
-   into the EDS).
+   into the EDS), and the device DAH none and no H2D copy. The median of
+   10 calls of extend_and_root_device at k = 64 and 128.
 
 Every measurement is one JSON line carrying the card's name and power limit.
-Then come the ``kernels`` line (the eight kernels), the card as nvidia-smi reports it, and the
+Then come the ``kernels`` line (the nine kernels), the card as nvidia-smi reports it, and the
 last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -245,16 +260,17 @@ def card() -> tuple[str, str, str]:
     return line, name, limit
 
 
-def fft_butterflies(group: np.ndarray) -> tuple[int, int]:
-    """(multiply, plain) butterflies per lane of the FFT program whose
-    groups are ``group`` (ops/rs.py fft_program order: IFFT levels with
-    dist 1 -> k/2, then FFT levels with dist k/2 -> 1; -1 marks a zero
-    twiddle, whose butterflies skip the multiply)."""
-    k = len(group) // 2 + 1
+def fft_butterflies(multiplies: np.ndarray) -> tuple[int, int]:
+    """(multiply, plain) butterflies per lane of an FFT program over k
+    positions, one bool a butterfly group, True where its twiddle is
+    nonzero (ops/rs.py fft_program and decode_program order: IFFT levels
+    with dist 1 -> k/2, then FFT levels with dist k/2 -> 1; a zero twiddle's
+    butterflies skip the multiply)."""
+    k = len(multiplies) // 2 + 1
     levels = [1 << lv for lv in range(k.bit_length() - 1)]
     dists = [d for d in levels for _ in range(k // (2 * d))]
     dists += [d for d in reversed(levels) for _ in range(k // (2 * d))]
-    mul = sum(d for d, g in zip(dists, group.tolist()) if g >= 0)
+    mul = sum(d for d, m in zip(dists, multiplies.tolist()) if m)
     return mul, sum(dists) - mul
 
 
@@ -289,19 +305,19 @@ def numpy_locator(erased: np.ndarray) -> np.ndarray:
     return (err @ gf256._locator_matrix()).astype(np.int64) % gf256.K_MODULUS
 
 
-def decode_sweep_work(group: np.ndarray, scale_bytes: np.ndarray,
+def decode_sweep_work(twiddles: np.ndarray, scale_bytes: np.ndarray,
                       write: np.ndarray) -> dict[str, float]:
     """The work of one decode sweep on its plan's data, counted as
     ``fft_butterflies`` counts the encode: the core's butterflies from the
-    decode program's groups (``rs.decode_program(n)``: IFFT levels, then FFT
-    levels, -1 a zero twiddle) for every axis the sweep writes, each byte a
+    decode program's twiddles (``rs.decode_program(n)``: IFFT levels, then
+    FFT levels, 0 a zero twiddle) for every axis the sweep writes, each byte a
     lane; a multiply by a per-position constant for every cell read (a
     nonzero scale) and every cell written. ALU operations per 4-lane word:
     FFT_MUL_OPS per multiply butterfly, FFT_PLAIN_OPS per plain one,
     CONST_MUL_OPS per constant multiply; one byte lookup per multiply and
     lane. Bytes: each read and written cell once, and the plan's three
     (w, n) arrays. An axis the sweep writes nothing of needs no work."""
-    mul, plain = fft_butterflies(group)
+    mul, plain = fft_butterflies(twiddles != 0)
     active = write.any(axis=1)
     axes = int(active.sum())
     reads = int((scale_bytes[active] != 0).sum())
@@ -386,6 +402,12 @@ def block_loop_mix(sass: str, fragment: str) -> collections.Counter:
     return loops[0]
 
 
+def opcode_counts(loop: collections.Counter, names) -> dict[str, int]:
+    """Instructions of each base opcode in ``names`` (modifiers dropped)."""
+    return {name: sum(n for op, n in loop.items() if op.split(".")[0] == name)
+            for name in names}
+
+
 def rounds_loop_mix(sass: str, fragment: str) -> collections.Counter:
     """One pass of the tree kernel's rounds-only loop (compress_kw in
     csrc/nmt_tree.cu: the 64 rounds of a block over a K + W its helper
@@ -443,6 +465,12 @@ def tree_chain_seconds(depth: int, blocks: int, round_alu: float, round_fma: flo
     return depth * blocks * chain_block_seconds(round_alu, round_fma)
 
 
+def dah_levels(k: int) -> list[int]:
+    """Messages of each level of a DAH's merkle tree over its 4k axis
+    roots: the 4k leaves, then 2k, k, ..., 1 nodes (2 SHA-256 blocks each)."""
+    return [4 * k >> lv for lv in range((4 * k).bit_length())]
+
+
 def nmt_tree_levels(k: int, families: int) -> list[int]:
     """Inner nodes of each level of ``families`` families of 2k NMT trees of
     2k leaves, leaves' parents first."""
@@ -460,6 +488,16 @@ def nmt_tree_floor(k: int, families: int, alu: float, fma: float, round_alu: flo
     levels = nmt_tree_levels(k, families)
     throughput = pipe_seconds(sum(levels) * NODE_BLOCKS * alu, sum(levels) * NODE_BLOCKS * fma)
     return throughput, tree_chain_seconds(len(levels), NODE_BLOCKS, round_alu, round_fma)
+
+
+def hashlib_merkle(items: np.ndarray) -> bytes:
+    """RFC-6962 merkle root of (n, D) items through hashlib, n a power of
+    two (leaf SHA-256(0x00 ‖ item), node SHA-256(0x01 ‖ left ‖ right))."""
+    nodes = [hashlib.sha256(b"\x00" + it.tobytes()).digest() for it in items]
+    while len(nodes) > 1:
+        nodes = [hashlib.sha256(b"\x01" + nodes[i] + nodes[i + 1]).digest()
+                 for i in range(0, len(nodes), 2)]
+    return nodes[0]
 
 
 def shuffled_layout_prog(layout, seed: int, rows: bool, nodes: bool) -> np.ndarray:
@@ -515,7 +553,8 @@ def main(argv: list[str]) -> int:
     from celestia_tpu_torch import namespace as ns
     from celestia_tpu_torch.appconsts import NAMESPACE_SIZE, SHARE_SIZE
     from celestia_tpu_torch.app import calibration
-    from celestia_tpu_torch.ops import _cuda, extend, gf256, nmt_cuda, nmt_host, rs, rs_cuda
+    from celestia_tpu_torch.ops import _cuda, extend, gf256, merkle_cuda, nmt_cuda, nmt_host, rs
+    from celestia_tpu_torch.ops import rs_cuda
     from celestia_tpu_torch.ops import sha256, sha256_cuda, transfers, xor_cuda, xor_schedule
     from celestia_tpu_torch.telemetry import metrics
 
@@ -558,7 +597,8 @@ def main(argv: list[str]) -> int:
     for line in _cuda.build_log().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line or "error" in line:
             print("ptxas:", line.strip(), file=sys.stderr)
-    sha_kernels = ("leaf_digests2d_kernel", "sha256_words_kernel", "nmt_tree_kernel")
+    sha_kernels = ("leaf_digests2d_kernel", "sha256_words_kernel", "nmt_tree_kernel",
+                   "dah_merkle_kernel")
     for name, report in ptxas_report(_cuda.build_log()).items():
         if any(f in name for f in ("encode2d_fft_kernel", "encode2d_xor_kernel",
                                    "decode_sweep_kernel", *sha_kernels)):
@@ -566,10 +606,17 @@ def main(argv: list[str]) -> int:
     cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib._name], check=True, capture_output=True,
                           text=True, timeout=300).stdout
-    for fragment in ("encode2d_fft_kernelILi128E", *sha_kernels):
+    for fragment in ("encode2d_fft_kernelILi128E", "decode_sweep_kernelILi256E", *sha_kernels):
         for kname, mix in sass_mix(sass, fragment).items():
             emit(phase="sass_mix", kernel=kname, instructions=sum(mix.values()),
                  ops=dict(mix.most_common(10)))
+    # one pass of the decode sweep's work-item loop (its widest) at n = 256:
+    # the lookups (LDS), their addresses and products (PRMT) and the rest
+    decode_pass = block_loop_mix(sass, "decode_sweep_kernelILi256E")
+    emit(phase="sass_mix", kernel="decode_sweep_kernel<256>", scope="one work item",
+         instructions=sum(decode_pass.values()),
+         per_pass=opcode_counts(decode_pass, ("LDS", "PRMT", "LOP3", "SHF", "IMAD", "IADD3",
+                                              "LDG", "STG", "BAR")))
     emit(phase="occupancy", kernel="nmt_tree_kernel",
          blocks_per_sm=lib.celestia_nmt_tree_blocks_per_sm(0))
     if args.sass_out:
@@ -636,6 +683,18 @@ def main(argv: list[str]) -> int:
              sha256_cuda.sha_core_reference(words), f"K3 ({16 * nb}, {batch})")
     emit(phase="kernel_vs_plain", kernel="sha256_words", lengths="0..600",
          tolerance=0, max_abs_err=max_err["sha256_words"])
+    # K3's merkle form at every power-of-two k, one DAH and a batch of 3
+    for k in (1, 2, 4, 8, 16, 32, 64, 128):
+        for b in (1, 3):
+            roots = dev_bytes((b, 4 * k, merkle_cuda.ROOT_SIZE))
+            got = merkle_cuda.dah_merkle(roots)
+            same("dah_merkle", got, merkle_cuda.dah_merkle_reference(roots),
+                 f"dah_merkle k={k} B={b}")
+            host = roots.cpu().numpy()
+            check(all(got[i].cpu().numpy().tobytes() == hashlib_merkle(host[i])
+                      for i in range(b)), f"dah_merkle k={k} B={b} differs from hashlib")
+    emit(phase="kernel_vs_plain", kernel="dah_merkle", k=[1, 2, 4, 8, 16, 32, 64, 128],
+         batches=[1, 3], tolerance=0, max_abs_err=max_err["dah_merkle"], hashlib=True)
 
     def identical(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
         check(a.shape == b.shape and bool(torch.equal(a, b)), f"{what}: not byte-identical")
@@ -848,19 +907,22 @@ def main(argv: list[str]) -> int:
             launches["nmt_tree"] = counts["nmt_tree"]
         main[rname] = (r_eds, r_dah, r_levels)
     main_eds, main_dah, main_levels = main["fused-dense"]
-    # K3's own path: the device DAH, a merkle over the 4k axis roots
+    # the device DAH: K3's merkle form, one launch over the 4k axis roots
+    # (its main_path line, with the DAH's aten ops and the entry's wall ms,
+    # comes with the timing of phase 7)
     with pinned("fused-dense"):
         torch.cuda.synchronize()
         _cuda.reset_launches()
         dah_dev = extend.extend_and_root_device(main_sq, dev)[3]
         torch.cuda.synchronize()
-        counts = dict(_cuda.LAUNCHES)
-    emit(phase="main_path", route="fused-dense", k=main_sq.shape[0],
-         entry="extend_and_root_device", launches=counts, dah=dah_dev.tobytes().hex())
+        dah_counts = dict(_cuda.LAUNCHES)
     check(dah_dev.tobytes() == main_dah.hash(), "extend_and_root_device DAH != main path DAH")
-    check(counts["sha256_words"] > 0 and counts["nmt_tree"] == 1,
-          "extend_and_root_device did not run K3 for its DAH and the tree kernel once")
-    launches["sha256_words"] = counts["sha256_words"]
+    check(dah_counts["dah_merkle"] == 1 and dah_counts["sha256_words"] == 0
+          and dah_counts["nmt_tree"] == 1,
+          f"extend_and_root_device launched {dah_counts}: expected dah_merkle 1, "
+          f"sha256_words 0, nmt_tree 1")
+    launches["dah_merkle"] = dah_counts["dah_merkle"]
+    launches["sha256_words"] = dah_counts["sha256_words"]
 
     squares = [("realistic", 64, realistic(64, 0)), ("tail_padding", 64, realistic(64, 700)),
                ("realistic", 128, main_sq), ("tail_padding", 128, realistic(128, 3000))]
@@ -1142,6 +1204,37 @@ def main(argv: list[str]) -> int:
             flat[i, :NAMESPACE_SIZE] = np.frombuffer(ns.new_v0(bytes(sub)).bytes, np.uint8)
         return flat.reshape(kk, kk, SHARE_SIZE)
 
+    # the decode sweep at every power of two k to 32: one random 25% mask
+    # (the first of its seed's draws that a repair can undo), every sweep
+    # against the plain version, the swept square the extended one
+    from celestia_tpu_torch.da.repair import UnrepairableError
+
+    small_sweeps = 0
+    for kk in (1, 2, 4, 8, 16, 32):
+        with pinned("fused-dense"):
+            s_eds = extend.extend_roots_device_resident(bench_square(kk), dev)[0]
+        w = 2 * kk
+        draw = np.random.default_rng(SEED + kk)
+        while True:
+            present = np.ones((w, w), dtype=bool)
+            present.reshape(-1)[draw.choice(w * w, size=max(1, w * w // 4), replace=False)] = False
+            try:
+                s_plans = repair.plan_sweeps(present, kk)
+                break
+            except UnrepairableError:
+                continue
+        a = torch.where(torch.from_numpy(present).to(dev)[..., None], s_eds, 0)
+        b = a.clone()
+        for i, plan in enumerate(repair._stage_plans(s_plans, dev)):
+            repair_cuda.sweep(a, plan)
+            repair_cuda.sweep_reference(b, plan)
+            same("decode_sweep", a, b, f"decode sweep {i} k={kk} (25% mask)")
+        identical(a, s_eds, f"the swept square k={kk} (25% mask)")
+        small_sweeps += len(s_plans)
+    emit(phase="kernel_vs_plain", kernel="decode_sweep", k=[1, 2, 4, 8, 16, 32],
+         masks="one random 25% mask each", sweeps=small_sweeps, tolerance=0,
+         max_abs_err=max_err["decode_sweep"])
+
     repair_timed = {}  # k: (repaired square, a row sweep of a random mask, its plan)
     for kk in (128, 64):
         with pinned("fused-dense"):
@@ -1348,7 +1441,7 @@ def main(argv: list[str]) -> int:
     smem_words_per_s = SMEM_WAVEFRONT_WORDS * SMS * CLOCK_HZ
     xor_smem_floor = (2 * ops.sched.n_nodes + int(nnz.sum())) * (n / 32) / smem_words_per_s
     xor_layout_floor = ops.layout.padded_reads * (n / 32) / smem_words_per_s
-    fft_mul, fft_plain = fft_butterflies(m2.fft_group.cpu().numpy())
+    fft_mul, fft_plain = fft_butterflies(m2.fft_group.cpu().numpy() >= 0)
     fft_alu = (fft_mul * FFT_MUL_OPS + fft_plain * FFT_PLAIN_OPS) * (n / 4)
     fft_lookups = fft_mul * n / LOOKUPS_PER_S
     fft_bytes = m2.fft_rows.numel() + 2 * m2.fft_group.numel()
@@ -1416,11 +1509,19 @@ def main(argv: list[str]) -> int:
     # K3 at the shapes of one device DAH (extend_and_root_device): the 4k
     # axis roots' merkle leaves, then its 2k, k, ..., 1 nodes, 2 blocks each
     k3_shapes = []
-    for batch in [4 * k] + [2 * k >> i for i in range((2 * k).bit_length())]:
+    for batch in dah_levels(k):
         words = dev_bytes((16 * DAH_BLOCKS, batch * 4)).view(torch.int32)
         words = words.view(torch.uint32).reshape(16 * DAH_BLOCKS, batch)
         k3_shapes.append((batch, words))
         calls[f"sha256_words_{batch}"] = (lambda w=words: sha256_cuda.sha256_words(w))
+    # K3's merkle form on the device DAH's roots at k = 64 and 128, as
+    # extend_and_root hands them over (the tree kernel's (2, 2k, 90) roots)
+    dah_roots = {}
+    for kk, sq in ((64, squares[0][2]), (k, main_sq)):
+        _e, r_kk = extend._roots(torch.from_numpy(sq).to(dev), rs.encode_matrix(kk, dev))
+        dah_roots[kk] = r_kk.reshape(1, 4 * kk, merkle_cuda.ROOT_SIZE)
+        calls[f"dah_merkle_{kk}"] = lambda r=dah_roots[kk]: merkle_cuda.dah_merkle(r)
+
     # the tree kernel at its two main-path calls, k = 64 and 128: an
     # extend's (both families, K1's and K2's digest tiles in the fused
     # route's layout) and eds_row_levels_device's (rows and their levels,
@@ -1483,6 +1584,9 @@ def main(argv: list[str]) -> int:
     for batch, words in k3_shapes:
         plain_ms[f"sha256_words_{batch}"] = cuda_ms(
             lambda w=words: sha256_cuda.sha_core_reference(w))
+    for kk, r in dah_roots.items():
+        plain_ms[f"dah_merkle_{kk}"] = cuda_ms(lambda r=r: merkle_cuda.dah_merkle_reference(r),
+                                               reps=3)
     for name, (_kk, _f, a, kw) in tree_calls.items():
         plain_ms[name] = cuda_ms(lambda a=a, kw=kw: nmt_cuda.nmt_tree_reference(*a, **kw),
                                  reps=3)
@@ -1514,6 +1618,9 @@ def main(argv: list[str]) -> int:
         eds_kk = extend.extend_roots_device_resident(sq, dev)[0]
         emit(phase="end_to_end", k=kk, route=None, entry="eds_row_levels_device",
              ms=host_ms(lambda: extend.eds_row_levels_device(eds_kk, dev)))
+    with pinned("fused-dense"):  # the device DAH's entry
+        dah_entry_ms = {kk: host_ms(lambda sq=sq: extend.extend_and_root_device(sq, dev))
+                        for kk, sq in squares_e2e.items()}
     profiled_entries = {"roots_device": extend.roots_device,
                         "extend_roots_device_resident": extend.extend_roots_device_resident}
 
@@ -1555,6 +1662,11 @@ def main(argv: list[str]) -> int:
                     fn(main_sq, dev)  # ends in a D2H copy of the roots
                     profiled_ms[(rname, entry)] = (time.perf_counter() - t) * 1e3
                 torch.cuda.synchronize()
+        # the device DAH of extend_and_root, alone: the k = 128 roots on the
+        # card to the DAH hash
+        time.sleep(gap_s)
+        extend.merkle_root_pow2(dah_roots[k][0])
+        torch.cuda.synchronize()
     evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and e.name != "Activity Buffer Request"), key=lambda e: e.time_range.start)
     segments: list[list] = []
@@ -1564,7 +1676,7 @@ def main(argv: list[str]) -> int:
             segments.append([])
         segments[-1].append(e)
         last_end = e.time_range.end if last_end is None else max(last_end, e.time_range.end)
-    n_calls = len(calls) + len(profiled_ms)
+    n_calls = len(calls) + len(profiled_ms) + 1
     check(len(segments) in (n_calls, n_calls + 1),  # + 1: the warm-up pass
           f"the profiler's records split into {len(segments)} calls, expected {n_calls}")
     segments = segments[-n_calls:]
@@ -1607,6 +1719,17 @@ def main(argv: list[str]) -> int:
             json.dump(table.to_json(), f, indent=2)
             f.write("\n")
     segments = segments[len(calls):]
+    dah_seg = segments[len(profiled_ms)]
+    dah_aten = sorted({e.name[:90] for e in dah_seg if "celestia::" not in e.name
+                       and not e.name.startswith(("Memcpy", "Memset"))})
+    dah_h2d = sum("HtoD" in e.name for e in dah_seg)
+    check([e.name for e in dah_seg if "celestia::" in e.name] != [] and not dah_aten
+          and dah_h2d == 0, f"the device DAH ran {sorted(e.name[:90] for e in dah_seg)}: "
+                            f"one merkle launch, no aten op and no H2D copy expected")
+    emit(phase="main_path", route="fused-dense", k=main_sq.shape[0],
+         entry="extend_and_root_device", launches=dah_counts, dah=dah_dev.tobytes().hex(),
+         dah_launches=len(dah_seg), dah_aten_ops=len(dah_aten), dah_h2d_copies=dah_h2d,
+         wall_ms=dah_entry_ms)
     for (rname, entry), seg in zip(profiled_ms, segments):
         by_op: dict[str, list] = {}
         for e in seg:
@@ -1664,6 +1787,24 @@ def main(argv: list[str]) -> int:
          level_floor_ms=chain_floor_seconds(k3_batches, DAH_BLOCKS, sha_alu, sha_fma) * 1e3)
     results["sha256_words"] = (k3_dev, k3_event, k3_plain,
                                bound(max(k3_throughput, k3_chain), k3_bytes))
+    # K3's merkle form: the same tree, its bound the same two terms; the
+    # bytes are the roots in and the hash out
+    for kk in dah_roots:
+        name = f"dah_merkle_{kk}"
+        levels = dah_levels(kk)
+        throughput = pipe_seconds(sum(levels) * DAH_BLOCKS * sha_alu,
+                                  sum(levels) * DAH_BLOCKS * sha_fma)
+        chain = tree_chain_seconds(len(levels), DAH_BLOCKS, round_alu, round_fma)
+        b_ms, b_by = bound(max(throughput, chain), 4 * kk * merkle_cuda.ROOT_SIZE + 32)
+        emit(phase="timing", kernel="dah_merkle", k=kk, device_ms=dev_ms[name],
+             launch_range_ms=[min(per_launch[name]), max(per_launch[name])],
+             event_ms=event_ms[name], plain_ms=plain_ms[name], bound_ms=b_ms, bound_by=b_by,
+             throughput_ms=throughput * 1e3, chain_floor_ms=chain * 1e3,
+             cluster=merkle_cuda.cluster_size(4 * kk),
+             k3_launches=len(levels) if kk == k else None,
+             k3_device_ms=k3_dev if kk == k else None)
+        if kk == k:
+            results["dah_merkle"] = (dev_ms[name], event_ms[name], plain_ms[name], (b_ms, b_by))
     for name, (kk, fams, _a, kw) in tree_calls.items():
         throughput, chain = nmt_tree_floor(kk, fams, sha_alu, sha_fma, round_alu, round_fma)
         level_floor = chain_floor_seconds(nmt_tree_levels(kk, fams), NODE_BLOCKS,
@@ -1682,7 +1823,7 @@ def main(argv: list[str]) -> int:
         if name == f"nmt_tree_both_{k}":
             results["nmt_tree"] = (dev_ms[name], event_ms[name], plain_ms[name], (b_ms, b_by))
     for kname, (t_d, t_e, t_p, (b_ms, b_by)) in results.items():
-        if kname not in ("leaf_digests2d", "nmt_tree", "sha256_words"):
+        if kname not in ("leaf_digests2d", "nmt_tree", "sha256_words", "dah_merkle"):
             floors = xor_floors if kname.startswith("encode2d_xor") else {}
             emit(phase="timing", kernel=kname, k=k, device_ms=t_d, event_ms=t_e, plain_ms=t_p,
                  bound_ms=b_ms, bound_by=b_by, **floors)
@@ -1702,7 +1843,7 @@ def main(argv: list[str]) -> int:
 
     for kk, (_s, _q, _plan, plan_np) in repair_timed.items():
         name = f"decode_sweep_{kk}"
-        work = decode_sweep_work(rs.decode_program(2 * kk)[1], plan_np.scale_bytes,
+        work = decode_sweep_work(rs.decode_program(2 * kk), plan_np.scale_bytes,
                                  plan_np.write)
         alu_s = pipe_seconds(work["alu_ops"], 0)
         lookup_s = work["lookups"] / LOOKUPS_PER_S
@@ -1732,6 +1873,9 @@ def main(argv: list[str]) -> int:
         # the repair sweep, an XLA graph in JAX (no Pallas kernel)
         "decode_sweep": ("celestia_tpu_torch/csrc/rs_decode.cu",
                          "celestia_tpu/ops/repair_tpu.py:124"),
+        # the merkle form of K3: every level of extend_tpu.merkle_root_pow2
+        "dah_merkle": ("celestia_tpu_torch/csrc/dah_merkle.cu",
+                       "celestia_tpu/ops/sha256_pallas.py:129"),
     }
     kernels = []
     for kname, (t_d, _t_e, t_p, (b_ms, b_by)) in results.items():

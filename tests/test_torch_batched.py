@@ -140,8 +140,8 @@ def test_rows_cols_only_equals_roots_device_on_every_route(k, fused, xor, monkey
     _eds, j_rows, j_cols, _dah = jax_host(k, 1000 * k)
     assert np.array_equal(rows.numpy(), d_rows) and np.array_equal(cols.numpy(), d_cols)
     assert np.array_equal(d_rows, j_rows) and np.array_equal(d_cols, j_cols)
-    eds, e_rows, e_cols = extend._roots_of(torch.from_numpy(sq), rs.encode_matrix(k, CPU),
-                                           fused=fused, xor=xor)
+    eds, (e_rows, e_cols) = extend._roots(torch.from_numpy(sq), rs.encode_matrix(k, CPU),
+                                          fused=fused, xor=xor)
     assert np.array_equal(eds.numpy(), _eds)
     assert torch.equal(e_rows, rows) and torch.equal(e_cols, cols)
 
@@ -162,7 +162,7 @@ def test_roots_only_core_assembles_no_eds(monkeypatch):
     x = torch.from_numpy(square(k))
     extend._rows_cols_only(x, m2, fused=True, xor=False)
     assert made == []
-    extend._roots_of(x, m2, fused=True, xor=False)
+    extend._roots(x, m2, fused=True, xor=False)
     assert made == [(k, k, SHARE_SIZE)]
 
 

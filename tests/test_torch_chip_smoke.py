@@ -213,28 +213,63 @@ def test_shuffled_layout_prog_keeps_every_read(rows, nodes):
 
 def test_decode_sweep_work_counts_the_decode_program_and_the_plan():
     """The decode sweep's bound: the core's butterflies from
-    rs.decode_program for each axis the sweep writes, one constant multiply
-    per cell read or written, each byte a lane."""
+    rs.decode_program's twiddles (0: no multiply) for each axis the sweep
+    writes, one constant multiply per cell read or written, each byte a
+    lane."""
     import numpy as np
 
     from celestia_tpu_torch.ops import repair, rs
 
-    group = rs.decode_program(256)[1]
-    assert chip_smoke.fft_butterflies(group) == (1538, 510)  # of 2,048 per lane
+    twiddles = rs.decode_program(256)
+    assert chip_smoke.fft_butterflies(twiddles != 0) == (1538, 510)  # of 2,048 per lane
+    # the encode's program marks a zero twiddle -1: the same count either way
+    fft_group = rs.fft_program(128)[1]
+    assert sum(chip_smoke.fft_butterflies(fft_group >= 0)) == 7 * 128
     k = 4
     present = np.ones((8, 8), dtype=bool)
     present[2, :] = False  # no decode in the row sweep: not counted
     present[5, [0, 6]] = False
     present[6, 1] = False
     plan = repair.plan_sweeps(present, k)[0]
-    work = chip_smoke.decode_sweep_work(rs.decode_program(8)[1], plan.scale_bytes, plan.write)
-    mul, plain = chip_smoke.fft_butterflies(rs.decode_program(8)[1])
+    work = chip_smoke.decode_sweep_work(rs.decode_program(8), plan.scale_bytes, plan.write)
+    mul, plain = chip_smoke.fft_butterflies(rs.decode_program(8) != 0)
     assert (work["axes"], work["reads"], work["written"]) == (2, 6 + 7, 3)
     lanes = chip_smoke.CELL_BYTES
     assert work["alu_ops"] == (2 * (mul * chip_smoke.FFT_MUL_OPS + plain * chip_smoke.FFT_PLAIN_OPS)
                                + 16 * chip_smoke.CONST_MUL_OPS) * lanes / 4
     assert work["lookups"] == (2 * mul + 16) * lanes
     assert work["bytes"] == 16 * lanes + 3 * 64
+
+
+def test_opcode_counts_sums_each_base_opcode():
+    loop = collections.Counter({"LDS.U8": 5, "LDS.128": 2, "PRMT": 7, "LOP3.LUT": 3,
+                                "SHF.R.U32.HI": 1, "IADD3": 4})
+    assert chip_smoke.opcode_counts(loop, ("LDS", "PRMT", "LOP3", "SHF", "STG")) == {
+        "LDS": 7, "PRMT": 7, "LOP3": 3, "SHF": 1, "STG": 0}
+    # one pass of the widest loop, as the decode sweep's sass_mix line reads it
+    loop = chip_smoke.block_loop_mix(SASS, "sha256_words_kernel")
+    assert chip_smoke.opcode_counts(loop, ("SHF", "LOP3", "PRMT", "LDG")) == {
+        "SHF": 1, "LOP3": 1, "PRMT": 1, "LDG": 1}
+
+
+@pytest.mark.parametrize("k,levels", [
+    (1, [4, 2, 1]),
+    (2, [8, 4, 2, 1]),
+    (128, [512, 256, 128, 64, 32, 16, 8, 4, 2, 1]),  # the 10 levels of K3's old launches
+])
+def test_dah_levels_are_the_merkle_trees_levels(k, levels):
+    assert chip_smoke.dah_levels(k) == levels
+
+
+def test_hashlib_merkle_is_the_plain_merkle():
+    import numpy as np
+    import torch
+
+    from celestia_tpu_torch.ops import merkle_cuda
+
+    roots = np.random.default_rng(5).integers(0, 256, size=(2, 16, 90), dtype=np.uint8)
+    plain = merkle_cuda.dah_merkle_reference(torch.from_numpy(roots)).numpy()
+    assert [chip_smoke.hashlib_merkle(r) for r in roots] == [p.tobytes() for p in plain]
 
 
 def test_repair_masks_plan_one_row_sweep_then_a_column_sweep():

@@ -47,7 +47,8 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
                          capture_output=True, text=True, timeout=120)
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("ops.extend", "da", "telemetry", "faults", "tracing", "integrity",
-                 "ops.transfers", "ops.repair", "ops.repair_cuda", "da.repair"):
+                 "ops.transfers", "ops.repair", "ops.repair_cuda", "da.repair",
+                 "ops.merkle_cuda"):
         assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"

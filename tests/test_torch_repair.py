@@ -9,16 +9,17 @@ comparison is exact equality.
 
 ``_kernel_sweep`` is a numpy emulation of what ``csrc/rs_decode.cu`` runs
 on the card. It reads only the operands the wrapper sends
-(``rs.decode_operands``: the product rows, the group table and the
-log/exp tables; the plan's scale, unscale and write bytes; the axis and
-cell strides of the square), stages the rows as the kernel does (a zero
-row after them), holds 4 positions of one lane per state word, multiplies
-with the kernel's byte permutes, maps codeword positions to cells with
-the kernel's address arithmetic, runs the derivative in the kernel's order
-and stores only the marked cells. It is held against
-``celestia_tpu.ops.gf256.leopard_decode_batch`` and against every sweep of
-the JAX package's ``repair_tpu._sweep_device``. On the card,
-``chip_smoke.py`` holds the kernel itself against its plain version.
+(``rs.decode_operands``: the one multiply table of half rows and
+high-bit products, and the twiddles' multiply entries; the plan's scale, unscale
+and write bytes; the axis and cell strides of the square), builds each
+work item's staged constants as the kernel does,
+holds 4 positions of one lane per state word, multiplies with the
+kernel's byte permutes (the sign-replicating ones included), maps
+codeword positions to cells with the kernel's address arithmetic, runs the
+derivative in the kernel's order and stores only the marked cells. It is
+held against ``celestia_tpu.ops.gf256.leopard_decode_batch`` and against
+every sweep of the JAX package's ``repair_tpu._sweep_device``. On the
+card, ``chip_smoke.py`` holds the kernel itself against its plain version.
 """
 
 import jax.numpy as jnp
@@ -36,11 +37,10 @@ from celestia_tpu_torch.da import repair as da_repair
 from celestia_tpu_torch.da.repair import UnrepairableError
 from celestia_tpu_torch.ops import extend, gf256, repair, repair_cuda, rs
 from tests.test_torch_extend import square
-from tests.test_torch_fft import _prmt
 
 SMALL_K = [1, 2, 4, 8, 16]
 CPU = torch.device("cpu")
-ROW = 256  # bytes per product-row slot (kRow)
+TABLE = 256 * rs.HALF_ROW  # bytes of the half rows H before the high-bit products
 BRANCH_DIST = 8  # groups this wide branch over a zero twiddle (kBranchDist)
 LANES = SHARE_SIZE  # two blocks of 256 threads per axis, one byte lane a thread
 U32 = np.uint32
@@ -150,11 +150,8 @@ def test_gf_matmul_and_inverse_match_jax():
 
 @pytest.mark.parametrize("n", [1, 2, 4, 8, 16, 32, 64, 128, 256])
 def test_decode_program_shape(n):
-    rows, group = rs.decode_program(n)
-    assert rows.dtype == np.uint8 and group.dtype == np.int16
-    assert group.shape == (2 * (n - 1),)
-    assert set(group.tolist()) - {-1} == set(range(rows.shape[0]))
-    assert np.array_equal(rows, gf256.mul_table()[rows[:, 1]]) if len(rows) else True
+    consts = rs.decode_program(n)
+    assert consts.dtype == np.uint8 and consts.shape == (2 * (n - 1),)
     # both transforms take skew[r + dist - 1], offset 0: twiddle by twiddle
     skew = gf256.fft_skew()
     logs = []
@@ -162,10 +159,62 @@ def test_decode_program_shape(n):
         logs += [int(skew[r + dist - 1]) for r in range(0, n, 2 * dist)]
     for dist in [n >> (i + 1) for i in range(n.bit_length() - 1)]:
         logs += [int(skew[r + dist - 1]) for r in range(0, n, 2 * dist)]
-    consts = [0 if g < 0 else int(rows[g, 1]) for g in group.tolist()]
-    assert consts == [0 if lg == gf256.K_MODULUS else int(gf256.exp_table()[lg]) for lg in logs]
+    assert consts.tolist() == [0 if lg == gf256.K_MODULUS else int(gf256.exp_table()[lg])
+                               for lg in logs]
     if n == 256:
-        assert rows.shape == (127, 256)  # 32 KiB of product rows
+        assert len(set(consts.tolist()) - {0}) == 127  # distinct nonzero twiddles
+
+
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 64, 128, 256])
+def test_decode_program_is_the_twiddles_of_decode_core(n):
+    """The group table's entries are the twiddle constants the JAX
+    package's ``_decode_core`` multiplies by, level by level (its
+    ``_level_logs``, offset 0), in the kernel's group order."""
+    want = []
+    levels = [1 << i for i in range(n.bit_length() - 1)]
+    for dist in levels + levels[::-1]:
+        logs = jax_gf256._level_logs(n, dist, 0)
+        want += [0 if lg == gf256.K_MODULUS else int(gf256.exp_table()[lg]) for lg in logs]
+    assert rs.decode_program(n).tolist() == want
+
+
+def test_decode_table_multiplies_every_pair():
+    """H equals GF(256) multiplication on every half row, and
+    c·y = H[c][y & 0x7F] ^ [y >= 128]·c·0x80 for all 256 × 256 pairs."""
+    table = rs.decode_table()
+    assert table.shape == (256 * rs.HALF_ROW + 256,) and table.dtype == np.uint8
+    mul = jax_gf256.mul_table()
+    h = table[:TABLE].reshape(256, rs.HALF_ROW)
+    hi = table[TABLE:]
+    assert np.array_equal(h, mul[:, :rs.HALF_ROW])
+    assert np.array_equal(hi, mul[:, 0x80])
+    c = np.arange(256)[:, None]
+    y = np.arange(256)[None, :]
+    assert np.array_equal(h[c, y & 0x7F] ^ np.where(y >= 128, hi[c], 0), mul)
+
+
+def test_emulated_multiplies_match_gf256_for_every_pair():
+    """The kernel's word multiplies, emulated on all 256 × 256 (constant,
+    byte) pairs in every byte position: gf_mac4 (with and without an
+    accumulator), the dist 2 and dist 1 forms, and the per-position form."""
+    table = rs.decode_table()
+    hi = table[TABLE:]
+    mul = gf256.mul_table().astype(U32)
+    y = np.arange(256, dtype=U32)
+    for c in range(256):
+        tw = _twiddle(c, hi)
+        want = mul[c]
+        words = y * U32(0x01010101)
+        zero = np.zeros_like(words)
+        assert np.array_equal(_gf_mac4(zero, words, tw, table), want * U32(0x01010101))
+        assert np.array_equal(_gf_mac4(words, words, tw, table),
+                              words ^ (want * U32(0x01010101)))
+        assert np.array_equal(_gf_mac_hi(zero, words, tw, table), want * U32(0x0101))
+        assert np.array_equal(_gf_mac_odd(zero, words, tw, tw, table), want * U32(0x010001))
+        col = np.full((256, 1), c, dtype=U32)
+        base, cw = _stage_item(np.repeat(col, 4, axis=1), hi, 4)
+        assert np.array_equal(_gf_mul_pos(words[:, None], 0, 4, base[0], cw[0], table)[:, 0],
+                              want * U32(0x01010101))
 
 
 def test_decode_bit_matrix_and_bitmul_match_jax():
@@ -174,17 +223,24 @@ def test_decode_bit_matrix_and_bitmul_match_jax():
     assert np.array_equal(rs.bitmul_table(), repair_tpu._bitmul_table())
 
 
-def test_mul_log_exp_multiplies_every_pair():
-    logs, exps = rs.mul_log_exp()
-    a = np.arange(256)[:, None]
-    b = np.arange(256)[None, :]
-    assert np.array_equal(exps[logs[a].astype(np.int64) + logs[b]], gf256.mul_table())
-
-
 def test_decode_operands_built_once_per_n_and_device():
     a = rs.decode_operands(32, CPU)
     assert rs.decode_operands(32, torch.device("cpu")) is a
     assert a.n == 32 and rs.decode_operands(64, CPU).n == 64
+    assert rs.decode_operands(64, CPU).table is a.table  # one table for every n
+    assert np.array_equal(a.table.numpy(), rs.decode_table())
+    assert a.twiddles is rs.decode_twiddles(32)
+
+
+@pytest.mark.parametrize("n", [2, 8, 64, 256])
+def test_decode_twiddles_are_the_entries_of_the_program_constants(n):
+    """Each group's kernel parameter is its twiddle constant's row-pair
+    offset, bit 0 and high-bit product (the emulation's ``_twiddle``)."""
+    entries = rs.decode_twiddles(n)
+    assert entries.dtype == np.uint32 and entries.shape == (2 * (n - 1), 3)
+    hi = rs.decode_table()[TABLE:]
+    want = [_twiddle(int(c), hi) for c in rs.decode_program(n)]
+    assert [tuple(e) for e in entries.tolist()] == [tuple(int(v) for v in w) for w in want]
     assert rs.decode_bits(8, CPU) is rs.decode_bits(8, torch.device("cpu"))
 
 
@@ -220,21 +276,66 @@ def test_plan_sweeps_refuses_an_unrepairable_mask():
 # the kernel's program, emulated
 
 
-def _gf_mul4(y, base, smem):
-    p = [smem[_prmt(y, base, sel)].astype(U32) for sel in (0x7650, 0x7651, 0x7652, 0x7653)]
-    return _prmt(p[0], p[1], 0x1140) | _prmt(p[2], p[3], 0x4011)
+def _prmt(a, b, sel: int):
+    """PTX ``prmt.b32`` (default mode) on uint32 arrays: result byte i is
+    byte ``(sel >> 4i) & 7`` of b‖a (bytes 0-3 from a, 4-7 from b), or,
+    where bit 3 of that nibble is set, that byte's bit 7 replicated."""
+    a, b = np.broadcast_arrays(np.asarray(a, dtype=U32), np.asarray(b, dtype=U32))
+    src = [(a >> U32(8 * j)) & U32(0xFF) for j in range(4)]
+    src += [(b >> U32(8 * j)) & U32(0xFF) for j in range(4)]
+    out = np.zeros(a.shape, dtype=U32)
+    for i in range(4):
+        nib = (sel >> (4 * i)) & 0xF
+        v = src[nib & 7]
+        if nib & 8:
+            v = np.where(v & U32(0x80), U32(0xFF), U32(0))
+        out |= v << U32(8 * i)
+    return out
 
 
-def _gf_mul_hi(y, base, smem):
-    p2 = smem[_prmt(y, base, 0x7652)].astype(U32)
-    p3 = smem[_prmt(y, base, 0x7653)].astype(U32)
-    return _prmt(p2, p3, 0x1140)
+def _twiddle(c: int, hi: np.ndarray) -> tuple:
+    """The kernel's entry of a multiply by c: the row pair's offset, bit 0
+    of c in bit 7 of every byte, c·0x80 in every byte."""
+    return U32((c >> 1) << 8), U32(0x80808080 if c & 1 else 0), U32(int(hi[c]) * 0x01010101)
 
 
-def _gf_mul_odd(y, base_a, base_b, smem):
-    p1 = smem[_prmt(y, base_a, 0x7651)].astype(U32)
-    p3 = smem[_prmt(y, base_b, 0x7653)].astype(U32)
-    return _prmt(p1, p3, 0x5410)
+def _low7(y, cbits):
+    return (y & U32(0x7F7F7F7F)) | cbits
+
+
+def _gf_mac4(x, y, tw, smem):
+    """x ^ c·y, one constant for the 4 bytes of y."""
+    base, cbits, hi = tw
+    m = _low7(y, cbits)
+    p = [smem[_prmt(m, base, sel)].astype(U32) for sel in (0x7650, 0x7651, 0x7652, 0x7653)]
+    acc = x ^ _prmt(p[0], p[1], 0x1140) ^ _prmt(p[2], p[3], 0x4011)
+    return acc ^ (_prmt(y, 0, 0xBA98) & hi)
+
+
+def _gf_mac_hi(x, y, tw, smem):
+    """x ^ c·(bytes 2, 3 of y), the product in bytes 0, 1."""
+    base, cbits, hi = tw
+    m = _low7(y, cbits)
+    p2 = smem[_prmt(m, base, 0x7652)].astype(U32)
+    p3 = smem[_prmt(m, base, 0x7653)].astype(U32)
+    return (x ^ _prmt(p2, p3, 0x1140)) ^ (_prmt(y, 0, 0x44BA) & hi)
+
+
+def _gf_mac_odd(x, y, ta, tb, smem):
+    """x ^ (a·byte 1 of y in byte 0, b·byte 3 in byte 2)."""
+    p1 = smem[_prmt(_low7(y, ta[1]), ta[0], 0x7651)].astype(U32)
+    p3 = smem[_prmt(_low7(y, tb[1]), tb[0], 0x7653)].astype(U32)
+    hi = (ta[2] & U32(0x0000FFFF)) | (tb[2] & U32(0xFFFF0000))
+    return (x ^ _prmt(p1, p3, 0x5410)) ^ (_prmt(y, 0, 0x4B49) & hi)
+
+
+def _gf_mul_pos(y, j: int, n: int, base4, cw, smem):
+    """The scale or unscale multiply of word j: byte b times position
+    4j + b's constant (per axis: base4 and cw are (A, 1) columns)."""
+    m = _low7(y, cw[0])
+    p = [smem[_prmt(m, base4[i], 0x7650 + i)].astype(U32) if 4 * j + i < n
+         else np.zeros(y.shape, dtype=U32) for i in range(4)]
+    return _prmt(p[0], p[1], 0x1140) ^ _prmt(p[2], p[3], 0x4011) ^ (_prmt(y, 0, 0xBA98) & cw[1])
 
 
 def _derivative(w, lo: int, m: int) -> None:
@@ -253,39 +354,48 @@ def _derivative(w, lo: int, m: int) -> None:
     _derivative(w, lo + m // 2, m // 2)
 
 
+def _stage_item(c: np.ndarray, hi: np.ndarray, n: int):
+    """A work item's staged constants of one (A, n) constant plane: each
+    position's row offset (padded to whole words) and each word's bit-7
+    bits and high-bit products, as (A, 1) columns."""
+    words = max(n // 4, 1)
+    pad = np.zeros((c.shape[0], 4 * words), dtype=U32)
+    pad[:, :n] = c
+    base = (pad >> U32(1)) << U32(8)
+    cbits = np.zeros((c.shape[0], words), dtype=U32)
+    his = np.zeros((c.shape[0], words), dtype=U32)
+    for p in range(n):
+        cbits[:, p // 4] |= (pad[:, p] & U32(1)) << U32(8 * (p % 4) + 7)
+        his[:, p // 4] |= hi[pad[:, p]].astype(U32) << U32(8 * (p % 4))
+    return ([[base[:, 4 * j + i, None] for i in range(4)] for j in range(words)],
+            [(cbits[:, j, None], his[:, j, None]) for j in range(words)])
+
+
 def _kernel_sweep(buf: np.ndarray, axis_stride: int, cell_stride: int, consts: np.ndarray,
                   ops: rs.DecodeOperands) -> None:
     """One decode sweep as the kernel runs it, in place in the flat byte
     buffer ``buf``: axis a, cell c, lane l at a·axis_stride + c·cell_stride
-    + l. Every axis with a marked cell is two blocks of 256 threads, one
-    byte lane a thread; the axes and the 512 lanes are the vector axes.
+    + l. Every axis with a marked cell is two work items of 256 threads,
+    one byte lane a thread; the axes and the 512 lanes are the vector axes.
     Byte b of state word j is position 4j + b."""
     n = ops.n
     k = n // 2
-    rows, group = ops.rows.numpy(), ops.group.numpy()
-    logs, exps = ops.logs.numpy().astype(np.int64), ops.exps.numpy()
-    n_const = rows.shape[0]
-    smem = np.zeros((n_const + 1) * ROW, dtype=np.uint8)  # the last slot is zero
-    smem[: n_const * ROW] = rows.reshape(-1)
-    zero = U32(n_const * ROW)
-    grp = [zero if r < 0 else U32(r * ROW) for r in group.tolist()]
-    blocks = np.flatnonzero(consts[2].any(axis=1))  # the others return at once
+    smem = ops.table.numpy()  # H, then the high-bit products
+    hi = smem[TABLE:]
+    grp = [tuple(U32(v) for v in e) for e in ops.twiddles]  # the kernel's parameters
+    blocks = np.flatnonzero(consts[2].any(axis=1))  # the others load nothing
     if not len(blocks):
         return
     lane = (blocks[:, None] * axis_stride + np.arange(LANES)[None, :]).astype(np.int64)
-    scale = logs[consts[0, blocks]]  # (A, n)
-    unscale = logs[consts[1, blocks]]
-    write = consts[2, blocks].astype(bool)
+    sbase, sword = _stage_item(consts[0, blocks].astype(U32), hi, n)
+    ubase, uword = _stage_item(consts[1, blocks].astype(U32), hi, n)
     words = max(n // 4, 1)
+    wflag = np.zeros((len(blocks), words), dtype=U32)
+    for p in range(n):  # the write flags in position order
+        wflag[:, p // 4] |= (consts[2, blocks, (p + k) % n] != 0).astype(U32) << U32(8 * (p % 4))
 
     def cell(p: int) -> int:
         return (p + k) % n
-
-    def byte(v, i: int):
-        return _prmt(v, U32(0), 0x4440 + i)
-
-    def mul(v, lc):
-        return exps[logs[v] + lc[:, None]].astype(U32)
 
     def pack(b):
         return _prmt(_prmt(b[0], b[1], 0x0040), _prmt(b[2], b[3], 0x0040), 0x5410)
@@ -300,14 +410,12 @@ def _kernel_sweep(buf: np.ndarray, axis_stride: int, cell_stride: int, consts: n
         for p in positions(j):
             b[p - 4 * j] = buf[lane + cell(p) * cell_stride].astype(U32)
         w.append(pack(b))
-    for j in range(words):
-        b = [zeros] * 4
-        for p in positions(j):
-            b[p - 4 * j] = mul(byte(w[j], p - 4 * j), scale[:, p])
-        w[j] = pack(b)
+    w = [_gf_mul_pos(w[j], j, n, sbase[j], sword[j], smem) for j in range(words)]
 
-    def odd_base(g: int):
-        return zero if n < 4 else grp[g]
+    zero_tw = (U32(0), U32(0), U32(0))
+
+    def odd_twiddle(g: int):
+        return zero_tw if n < 4 else grp[g]
 
     g = 0
     dist = 1
@@ -315,56 +423,57 @@ def _kernel_sweep(buf: np.ndarray, axis_stride: int, cell_stride: int, consts: n
         if dist == 1:
             for j in range(words):
                 w[j] ^= (w[j] << U32(8)) & U32(0xFF00FF00)
-                w[j] ^= _gf_mul_odd(w[j], grp[g + 2 * j], odd_base(g + 2 * j + 1), smem)
+                w[j] = _gf_mac_odd(w[j], w[j], grp[g + 2 * j], odd_twiddle(g + 2 * j + 1), smem)
             g += n // 2
         elif dist == 2:
             for j in range(words):
                 w[j] ^= w[j] << U32(16)
-                w[j] ^= _gf_mul_hi(w[j], grp[g + j], smem)
+                w[j] = _gf_mac_hi(w[j], w[j], grp[g + j], smem)
             g += n // 4
         else:
             half = dist // 4
             for j in range(n // (2 * dist)):
-                r, base = 2 * half * j, grp[g]
+                r, tw = 2 * half * j, grp[g]
                 g += 1
                 for i in range(half):
                     w[r + half + i] ^= w[r + i]
-                if dist < BRANCH_DIST or base != zero:
+                if dist < BRANCH_DIST or tw[2] != 0:
                     for i in range(half):
-                        w[r + i] ^= _gf_mul4(w[r + half + i], base, smem)
+                        w[r + i] = _gf_mac4(w[r + i], w[r + half + i], tw, smem)
         dist *= 2
     _derivative(w, 0, n)
     dist = n >> 1
     while dist >= 1:  # FFT: x ^= c * y, then y ^= x
         if dist == 1:
             for j in range(words):
-                w[j] ^= _gf_mul_odd(w[j], grp[g + 2 * j], odd_base(g + 2 * j + 1), smem)
+                w[j] = _gf_mac_odd(w[j], w[j], grp[g + 2 * j], odd_twiddle(g + 2 * j + 1), smem)
                 w[j] ^= (w[j] << U32(8)) & U32(0xFF00FF00)
             g += n // 2
         elif dist == 2:
             for j in range(words):
-                w[j] ^= _gf_mul_hi(w[j], grp[g + j], smem)
+                w[j] = _gf_mac_hi(w[j], w[j], grp[g + j], smem)
                 w[j] ^= w[j] << U32(16)
             g += n // 4
         else:
             half = dist // 4
             for j in range(n // (2 * dist)):
-                r, base = 2 * half * j, grp[g]
+                r, tw = 2 * half * j, grp[g]
                 g += 1
-                if dist < BRANCH_DIST or base != zero:
+                if dist < BRANCH_DIST or tw[2] != 0:
                     for i in range(half):
-                        w[r + i] ^= _gf_mul4(w[r + half + i], base, smem)
+                        w[r + i] = _gf_mac4(w[r + i], w[r + half + i], tw, smem)
                 for i in range(half):
                     w[r + half + i] ^= w[r + i]
         dist >>= 1
     assert g == len(grp)
     for j in range(words):
+        u = _gf_mul_pos(w[j], j, n, ubase[j], uword[j], smem)
         for p in positions(j):
-            c = cell(p)
-            marked = write[:, c]
+            i = p - 4 * j
+            marked = ((wflag[:, j] >> U32(8 * i)) & U32(0xFF)) != 0
             if marked.any():
-                v = mul(byte(w[j], p - 4 * j), unscale[:, p])[marked]
-                buf[lane[marked] + c * cell_stride] = v.astype(np.uint8)
+                v = (u[marked] >> U32(8 * i)) & U32(0xFF)
+                buf[lane[marked] + cell(p) * cell_stride] = v.astype(np.uint8)
 
 
 def _emulated_sweep(eds: np.ndarray, plan: repair.SweepPlan) -> np.ndarray:

@@ -83,8 +83,8 @@ def jax_routes(k: int, xor: bool):
 @pytest.mark.parametrize("k", SMALL_K)
 def test_route_matches_jax(k, fused, xor):
     sq = square(k)
-    eds, rows, cols = extend._roots_of(torch.from_numpy(sq), rs.encode_matrix(k, CPU),
-                                       fused=fused, xor=xor)
+    eds, (rows, cols) = extend._roots(torch.from_numpy(sq), rs.encode_matrix(k, CPU),
+                                      fused=fused, xor=xor)
     unfused, fused_ref, dah = jax_routes(k, xor)
     for ours, a, b in zip((eds, rows, cols), unfused, fused_ref):
         assert np.array_equal(ours.numpy(), a)

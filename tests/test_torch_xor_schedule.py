@@ -261,8 +261,8 @@ def test_routes_agree_under_a_table_that_picks_xor(table, monkeypatch):
     real = xor_cuda.schedule_operands
     monkeypatch.setattr(xor_cuda, "schedule_operands",
                         lambda kk, dev: asked.append(kk) or real(kk, dev))
-    auto = extend._roots_of(sq, m2)
+    auto = extend._roots(sq, m2)
     assert asked == [k]  # the table sent the extend through the schedule
-    pinned = extend._roots_of(sq, m2, fused=True, xor=False)
+    pinned = extend._roots(sq, m2, fused=True, xor=False)
     for a, b in zip(auto, pinned):
         assert torch.equal(a, b)
