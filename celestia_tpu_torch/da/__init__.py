@@ -32,6 +32,7 @@ from celestia_tpu_torch.appconsts import (
 from celestia_tpu_torch.ops import extend, gf256, transfers
 from celestia_tpu_torch.ops.nmt_host import merkle_root
 
+PARITY_NS = ns.PARITY_SHARES_NAMESPACE.bytes
 MAX_EXTENDED_SQUARE_WIDTH = DEFAULT_SQUARE_SIZE_UPPER_BOUND * 2
 MIN_EXTENDED_SQUARE_WIDTH = MIN_SQUARE_SIZE * 2
 
@@ -190,6 +191,28 @@ class ExtendedDataSquare:
 
     def col_roots(self) -> list[bytes]:
         return [c.tobytes() for c in self._axis_roots()[1]]
+
+
+def erasured_leaf_namespace(
+    axis_index: int, share_index: int, cell: bytes, k: int
+) -> bytes:
+    """The wrapper's quadrant rule for ONE leaf
+    (pkg/wrapper/nmt_wrapper.go:93-114): the share's own namespace in
+    Q0, the parity namespace otherwise."""
+    if axis_index < k and share_index < k:
+        return cell[:NAMESPACE_SIZE]
+    return PARITY_NS
+
+
+def erasured_axis_leaves(
+    cells: list[bytes], axis_index: int, k: int
+) -> list[bytes]:
+    """Namespaced NMT leaves of one row/column: leaf = ns ‖ share with ns
+    per erasured_leaf_namespace."""
+    return [
+        erasured_leaf_namespace(axis_index, share_index, cell, k) + cell
+        for share_index, cell in enumerate(cells)
+    ]
 
 
 def extend_host(q0: np.ndarray) -> np.ndarray:

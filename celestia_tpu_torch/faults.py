@@ -8,6 +8,8 @@ Named sites a test or a drill can arm without touching the code path:
     device.repair          repair device entries          (ops/repair.py)
     device.repair.output   a repair's result square       (ops/repair.py)
     transfer.chunk         one chunk of a chunked H2D/D2H (ops/transfers.py)
+    cache.demote           a page's host copy on demotion (node/eds_cache.py)
+    cache.faultin          a page's host copy before its upload (node/eds_cache.py)
 
 Fault kinds, as in the JAX package:
 

@@ -1,6 +1,6 @@
-"""Telemetry: counters and histogram timers (port of the JAX package's
-telemetry.py, as far as the port's transfers, integrity audit and repair
-entries call it: no gauge has a caller in the port yet).
+"""Telemetry: counters, gauges and histogram timers (port of the JAX
+package's telemetry.py, as far as the port's transfers, integrity audit,
+repair entries and EDS caches call it).
 
 Reference semantics: Cosmos SDK telemetry timers and counters on the
 proposal paths (app/prepare_proposal.go:23, app/process_proposal.go:25,31).
@@ -65,6 +65,7 @@ class Registry:
         self._lock = threading.Lock()
         self._buckets = tuple(buckets)
         self.counters: dict[str, float] = collections.defaultdict(float)
+        self.gauges: dict[str, float] = {}
         self.timings: dict[str, Histogram] = {}
 
     def incr_counter(self, name: str, value: float = 1.0, **labels) -> None:
@@ -76,6 +77,16 @@ class Registry:
         """A counter's value (0.0 if never incremented)."""
         with self._lock:
             return self.counters.get(_key(name, labels), 0.0)
+
+    def set_gauge(self, name: str, value: float, **labels) -> None:
+        key = _key(name, labels)
+        with self._lock:
+            self.gauges[key] = value
+
+    def get_gauge(self, name: str, **labels) -> float | None:
+        """A gauge's value (None if never set)."""
+        with self._lock:
+            return self.gauges.get(_key(name, labels))
 
     def observe(self, name: str, value: float, **labels) -> None:
         """One histogram observation (seconds)."""
@@ -105,6 +116,7 @@ class Registry:
     def reset(self) -> None:
         with self._lock:
             self.counters.clear()
+            self.gauges.clear()
             self.timings.clear()
 
 

@@ -19,7 +19,9 @@ launch). dah_merkle, K3's merkle form (csrc/dah_merkle.cu), is the device
 DAH of extend_and_root_device: one launch over the 4k axis roots. K3
 itself is on no entry's path any more. decode_sweep (csrc/rs_decode.cu)
 carries EDS repair: one launch per planned sweep of the Leopard erasure
-decode, in place in the EDS.
+decode, in place in the EDS. ragged_gather (csrc/ragged_gather.cu) carries
+the serving reads: one launch per page geometry of a crowd of DAS samples
+across heights, reading every row in place through the paged cache's pages.
 
 Phases, in order (any failed check raises, so the script exits non-zero and
 prints no result; it also exits non-zero when no CUDA device is present):
@@ -112,6 +114,26 @@ prints no result; it also exits non-zero when no CUDA device is present):
    BLAS (``repair_levers``: blocks of 2 warm-up and 5 timed calls, the
    spellings in turns, twice), and a device.repair.output bitflip
    under the full audit raises IntegrityError at that site.
+6b. Serving reads (``serving``): the ragged gather against its plain
+   version byte for byte at every power of two k from 1 to 128 (one
+   descriptor, a group with duplicates, 300 descriptors at k = 128), over
+   more descriptors and pages than one launch's parameter table holds (one
+   launch a table), and over four page geometries in one group (one launch
+   each). Then a node (``Node``) with its default paged cache (128 MiB,
+   4 heights, 8-row pages) holding four heights of bench.py's square at
+   k = 128 (seeds 42-45, extended by da.extend_shares and put as ExtendBlock
+   retention puts them): a crowd of 256 samples uniform over the heights
+   through sample_batch_ragged, with the counts from 0 (ragged_gather once,
+   nothing else), every document equal to the host's from the fetched EDS
+   and verified against block_dah(h); ms per sample (median of 5 fresh
+   crowds) and the stage split of one, and sample_batch at one height (64
+   samples). The same squares and crowd at a budget of 8 pages: the same
+   documents, demotions and fault-ins, the device bytes back inside the
+   budget and one page after each call, each square's memory freed when its
+   handle is dropped (the pages are buffers of their own), ms per sample,
+   and one page's demotion, fault-in and CRC32C ms; a cache.faultin bitflip
+   drill healing the one height it names; and a ResidentEdsCache node whose
+   provers come from one K2 and one tree launch, its proofs the host's.
 7. Timing, after warm-up: each kernel at its main-path shapes (K2 at
    k = 64 and 128, on Q0 and on the EDS), as its own device time per launch
    (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
@@ -148,7 +170,8 @@ prints no result; it also exits non-zero when no CUDA device is present):
    10 calls of extend_and_root_device at k = 64 and 128.
 
 Every measurement is one JSON line carrying the card's name and power limit.
-Then come the ``kernels`` line (the nine kernels), the card as nvidia-smi reports it, and the
+Then come the ``kernels`` line (the ten kernels; the ragged gather timed at
+the full-width crowd's bucket), the card as nvidia-smi reports it, and the
 last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -235,6 +258,64 @@ def pinned(route: str):
                 os.environ.pop(v, None)
             else:
                 os.environ[v] = old
+
+
+# the serving phase (6b): four heights of bench.py's square at k = 128 in a
+# node's default paged cache, a crowd of 256 samples over them, and the same
+# at a budget of 8 pages
+SERVING_HEIGHTS = (1, 2, 3, 4)
+SERVING_K = 128
+SERVING_SAMPLES = 256
+SERVING_TIGHT_PAGES = 8
+
+# every kernel of the port: its source and the TPU kernel (or XLA graph) it
+# replaces, as the ``kernels`` line names them
+KERNEL_SOURCES = {
+    "encode2d_hash": ("celestia_tpu_torch/csrc/rs_hash.cu", "celestia_tpu/ops/rs_pallas.py:276"),
+    "leaf_digests2d": ("celestia_tpu_torch/csrc/rs_hash.cu", "celestia_tpu/ops/rs_pallas.py:295"),
+    "sha256_words": ("celestia_tpu_torch/csrc/sha256_words.cu",
+                     "celestia_tpu/ops/sha256_pallas.py:129"),
+    "encode2d": ("celestia_tpu_torch/csrc/rs_hash.cu", "celestia_tpu/ops/rs_pallas.py:270"),
+    "encode2d_xor_hash": ("celestia_tpu_torch/csrc/xor_schedule.cu",
+                          "celestia_tpu/ops/xor_schedule.py:537"),
+    "encode2d_xor": ("celestia_tpu_torch/csrc/xor_schedule.cu",
+                     "celestia_tpu/ops/xor_schedule.py:476"),
+    # the tree form of K3: every NMT level of extend_tpu._nmt_reduce_once
+    "nmt_tree": ("celestia_tpu_torch/csrc/nmt_tree.cu", "celestia_tpu/ops/sha256_pallas.py:129"),
+    # the repair sweep, an XLA graph in JAX (no Pallas kernel)
+    "decode_sweep": ("celestia_tpu_torch/csrc/rs_decode.cu", "celestia_tpu/ops/repair_tpu.py:124"),
+    # the merkle form of K3: every level of extend_tpu.merkle_root_pow2
+    "dah_merkle": ("celestia_tpu_torch/csrc/dah_merkle.cu", "celestia_tpu/ops/sha256_pallas.py:129"),
+    # the ragged cross-height gather, an XLA graph in JAX (no Pallas kernel)
+    "ragged_gather": ("celestia_tpu_torch/csrc/ragged_gather.cu", "celestia_tpu/ops/ragged.py:51"),
+}
+
+
+def serving_crowd(seed: int, heights, width: int, n: int) -> list[tuple[int, int, int]]:
+    """n DAS samples (height, row, column), uniform over the heights and
+    over the cells of a width x width square."""
+    r = np.random.default_rng(seed)
+    hs = r.choice(np.asarray(heights), size=n)
+    cells = r.integers(0, width, size=(n, 2))
+    return [(int(h), int(i), int(j)) for h, (i, j) in zip(hs, cells)]
+
+
+def gather_case(pages_of, payloads, rows_per_page: int) -> tuple[list, list[int], list[int]]:
+    """The bucket a crowd's ragged gather reads, as the kernel takes it: the
+    unique pages in first-use order (``pages_of(h)[i // rows_per_page]``)
+    and one (slot, row in page) descriptor per distinct (height, row)."""
+    pages, slot_of, slots, rows, seen = [], {}, [], [], set()
+    for h, i, _j in payloads:
+        if (h, i) in seen:
+            continue
+        seen.add((h, i))
+        key = (h, i // rows_per_page)
+        if key not in slot_of:
+            slot_of[key] = len(pages)
+            pages.append(pages_of(h)[i // rows_per_page])
+        slots.append(slot_of[key])
+        rows.append(i % rows_per_page)
+    return pages, slots, rows
 
 
 def fail(msg: str) -> None:
@@ -601,7 +682,8 @@ def main(argv: list[str]) -> int:
                    "dah_merkle_kernel")
     for name, report in ptxas_report(_cuda.build_log()).items():
         if any(f in name for f in ("encode2d_fft_kernel", "encode2d_xor_kernel",
-                                   "decode_sweep_kernel", *sha_kernels)):
+                                   "decode_sweep_kernel", "ragged_gather_kernel",
+                                   *sha_kernels)):
             emit(phase="ptxas", kernel=name, **report)
     cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", lib._name], check=True, capture_output=True,
@@ -1195,9 +1277,9 @@ def main(argv: list[str]) -> int:
     # node (BASELINE config 4): bench.py's square and masks at k = 128 and 64
     from celestia_tpu_torch.ops import repair, repair_cuda
 
-    def bench_square(kk: int) -> np.ndarray:
-        """bench.py's build_square(kk): seed 42, sorted v0 namespaces."""
-        r = np.random.default_rng(42)
+    def bench_square(kk: int, seed: int = 42) -> np.ndarray:
+        """bench.py's build_square(kk, seed): sorted v0 namespaces."""
+        r = np.random.default_rng(seed)
         flat = r.integers(0, 256, size=(kk * kk, SHARE_SIZE), dtype=np.uint8)
         subs = sorted(r.integers(0, 200, size=(kk * kk, 10), dtype=np.uint8).tolist())
         for i, sub in enumerate(subs):
@@ -1376,6 +1458,275 @@ def main(argv: list[str]) -> int:
                 integrity.configure("off")
             emit(phase="integrity_drill", k=kk, level="full", site="device.repair.output",
                  mismatches=repair_drill)
+
+    # ---- phase 6b: serving reads, DAS samples off the paged device EDS cache
+    from celestia_tpu_torch import proof, tracing
+    from celestia_tpu_torch.node import Node
+    from celestia_tpu_torch.node.eds_cache import PagedEdsCache, ResidentEdsCache
+    from celestia_tpu_torch.ops import ragged, ragged_cuda
+
+    def pages_of(eds_t: torch.Tensor, rpp: int) -> list[torch.Tensor]:
+        return [eds_t[lo:lo + rpp].clone() for lo in range(0, eds_t.shape[0], rpp)]
+
+    # (a) the gather kernel against its plain version at every power of two k
+    # (8-row pages), one descriptor and a group with duplicates; a group of
+    # 300 at k = 128 (the full parameter table); more descriptors and pages
+    # than one table holds; and two geometries in one group
+    pick = np.random.default_rng(SEED + 1)
+    cases = 0
+    for kk in (1, 2, 4, 8, 16, 32, 64, 128):
+        pages = pages_of(dev_bytes((2 * kk, 2 * kk, SHARE_SIZE)), 8)
+        n = 300 if kk == 128 else 40
+        slots = [int(s) for s in pick.integers(len(pages), size=n)]
+        rows = [int(r) for r in pick.integers(pages[0].shape[0], size=n)]
+        slots, rows = slots + slots[:7], rows + rows[:7]  # duplicates
+        for s, r in ((slots[:1], rows[:1]), (slots, rows)):
+            same("ragged_gather", ragged_cuda.ragged_gather(pages, s, r),
+                 ragged_cuda.gather_rows_reference(pages, s, r),
+                 f"ragged_gather k={kk} n={len(s)}")
+            cases += 1
+    many = pages_of(dev_bytes((2 * (ragged_cuda.MAX_PAGES + 128), 2, SHARE_SIZE)), 2)
+    n_many = ragged_cuda.MAX_DESCS + 1000
+    slots = [int(s) for s in pick.integers(len(many), size=n_many)]
+    rows = [int(r) for r in pick.integers(2, size=n_many)]
+    plan = ragged_cuda.plan_launches(slots, rows)
+    before = _cuda.LAUNCHES["ragged_gather"]
+    got = ragged_cuda.ragged_gather(many, slots, rows)
+    check(len(plan) >= 2 and _cuda.LAUNCHES["ragged_gather"] - before == len(plan),
+          f"{n_many} descriptors over {len(many)} pages: {len(plan)} planned launches, "
+          f"{_cuda.LAUNCHES['ragged_gather'] - before} made")
+    same("ragged_gather", got, ragged_cuda.gather_rows_reference(many, slots, rows),
+         f"ragged_gather over {len(plan)} launches")
+    geo = {kk: pages_of(dev_bytes((2 * kk, 2 * kk, SHARE_SIZE)), 3) for kk in (8, 16)}
+    # every page once (full 3-row pages and each k's short tail page), then
+    # 20 more, alternating k
+    picks = [(kk, i) for kk in (8, 16) for i in range(len(geo[kk]))]
+    picks += [((8, 16)[t % 2], None) for t in range(20)]
+    descs, want = [], []
+    for kk, i in picks:
+        page = geo[kk][int(pick.integers(len(geo[kk]))) if i is None else i]
+        r = int(pick.integers(page.shape[0]))
+        descs.append((page, r, 2 * kk))
+        want.append(page[r].cpu().numpy())
+    shapes = {tuple(d[0].shape) for d in descs}
+    before = _cuda.LAUNCHES["ragged_gather"]
+    got = ragged.gather_rows(descs)
+    check(_cuda.LAUNCHES["ragged_gather"] - before == len(shapes) == 4,
+          f"gather_rows over {len(shapes)} geometries launched "
+          f"{_cuda.LAUNCHES['ragged_gather'] - before} times")
+    check(all(g.tobytes() == w.tobytes() for g, w in zip(got, want)),
+          "gather_rows over mixed geometries differs from the rows sliced one by one")
+    emit(phase="kernel_vs_plain", kernel="ragged_gather", k=[1, 2, 4, 8, 16, 32, 64, 128],
+         cases=cases, table_launches=len(plan), descriptors=n_many, pages=len(many),
+         geometries=len(shapes), tolerance=0, max_abs_err=max_err["ragged_gather"])
+
+    # (b) full width: four heights of bench.py's square at k = 128 in a
+    # node's default paged cache (128 MiB, 4 heights, 8-row pages: 32 a
+    # height, every page resident), a crowd of 256 samples uniform over them,
+    # one ragged_gather launch and nothing else
+    sk, width = SERVING_K, 2 * SERVING_K
+    heights = SERVING_HEIGHTS
+    node = Node(device=dev)
+    cache = node._eds_cache
+    check((cache.device_byte_budget, cache.max_heights, cache.rows_per_page)
+          == (128 << 20, 4, 8), f"the node's default cache is {cache.stats()}")
+    host_eds, host_rows = {}, {}
+    for h in heights:
+        with pinned("fused-dense"):
+            eds = da.extend_shares(bench_square(sk, 41 + h).reshape(-1, SHARE_SIZE), dev)
+        host_eds[h], host_rows[h] = eds.data, eds.row_roots()
+        cache.put(h, eds)  # ExtendBlock retention's call
+        del eds
+    check(all(len(cache.get(h).pages) == width // cache.rows_per_page for h in heights)
+          and cache.stats()["page_demotes"] == 0, f"paging: {cache.stats()}")
+    host_provers: dict[int, dict] = {h: {} for h in heights}
+
+    def host_docs(payloads) -> list:
+        """Every document built on the host from the fetched EDS."""
+        return [proof.das_sample_docs({i: [host_eds[h][i, c].tobytes() for c in range(width)]},
+                                      [(i, j)], sk, provers=host_provers[h])[0]
+                for h, i, j in payloads]
+
+    def serve(which: str, srv, payloads) -> list:
+        """The crowd through sample_batch_ragged with the counts from 0: one
+        ragged_gather launch (one geometry) and nothing else."""
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        out = srv.sample_batch_ragged(payloads)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        emit(phase="main_path", entry="Node.sample_batch_ragged", cache=which,
+             samples=len(payloads), launches=counts)
+        check(counts["ragged_gather"] == 1 and sum(counts.values()) == 1,
+              f"the {which} crowd launched {counts}: ragged_gather once, nothing else")
+        check(out == host_docs(payloads), f"the {which} crowd's documents differ from the host's")
+        return out, counts
+
+    def crowd_ms(srv, seeds) -> list[float]:
+        """Host ms per sample of sample_batch_ragged, a fresh crowd a call."""
+        out = []
+        for s in seeds:
+            p = serving_crowd(s, heights, width, SERVING_SAMPLES)
+            t = time.perf_counter()
+            srv.sample_batch_ragged(p)
+            out.append((time.perf_counter() - t) * 1e3 / len(p))
+        return out
+
+    def stages_of(srv, payloads) -> dict:
+        sink = tracing.push_stage_sink()
+        try:
+            t = time.perf_counter()
+            srv.sample_batch_ragged(payloads)
+            wall = (time.perf_counter() - t) * 1e3
+        finally:
+            tracing.pop_stage_sink()
+        return {"wall_ms": wall, **{name: s * 1e3 for name, s in sink.data.items()}}
+
+    crowd0 = serving_crowd(SEED, heights, width, SERVING_SAMPLES)
+    docs, counts = serve("full_width", node, crowd0)
+    launches["ragged_gather"] = counts["ragged_gather"]
+    g_case = gather_case(lambda h: [p.dev for p in cache.get(h).pages], crowd0, 8)
+    same("ragged_gather", ragged_cuda.ragged_gather(*g_case),
+         ragged_cuda.gather_rows_reference(*g_case), "ragged_gather at the crowd's bucket")
+    full_ms = crowd_ms(node, range(SEED + 10, SEED + 15))
+    full_stages = stages_of(node, serving_crowd(SEED + 20, heights, width, SERVING_SAMPLES))
+    one = [(i, j) for _h, i, j in serving_crowd(SEED + 30, (1,), width, 64)]
+    one_ms = []
+    for s in range(5):
+        coords = [(i, j) for _h, i, j in serving_crowd(SEED + 40 + s, (1,), width, 64)]
+        t = time.perf_counter()
+        node.sample_batch(1, coords)
+        one_ms.append((time.perf_counter() - t) * 1e3 / len(coords))
+    check(node.sample_batch(1, one) == host_docs([(1, i, j) for i, j in one]),
+          "sample_batch at one height differs from the host's documents")
+    # every document verifies against the block's DAH (block_dah materializes
+    # each paged square on the host, so it comes after the timed crowds)
+    verified = 0
+    for h in heights:
+        check(node.block_dah(h).row_roots == host_rows[h], f"block_dah({h}) row roots")
+    for (h, i, j), doc in zip(crowd0, docs):
+        share = bytes.fromhex(doc["share"])
+        p = doc["proof"]
+        pr = proof.NmtRangeProof(p["start"], p["end"], [bytes.fromhex(x) for x in p["nodes"]],
+                                 p["tree_size"])
+        pr.verify_inclusion(node.block_dah(h).row_roots[i],
+                            [da.erasured_leaf_namespace(i, j, share, sk)], [share])
+        verified += 1
+    emit(phase="serving", part="full_width", k=sk, heights=len(heights),
+         samples=SERVING_SAMPLES, unique_rows=len(g_case[1]), unique_pages=len(g_case[0]),
+         verified=verified, ms_per_sample=statistics.median(full_ms), ms_per_sample_all=full_ms,
+         stages=full_stages, sample_batch_ms_per_sample=statistics.median(one_ms),
+         sample_batch_samples=64, stats=cache.stats())
+
+    # (c) the same squares and crowd at a budget of 8 pages: demotions and
+    # fault-ins, the same bytes, the device bytes back inside the budget (and
+    # one page) after each call, and each square's memory freed once its
+    # handle is dropped: the pages are buffers of their own
+    page_bytes = 8 * width * SHARE_SIZE
+    tight = Node(device=dev)
+    tight._eds_cache = tc = PagedEdsCache(device_byte_budget=SERVING_TIGHT_PAGES * page_bytes,
+                                          device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    mem = []
+    for h in heights:
+        with pinned("fused-dense"):
+            eds = da.extend_shares(bench_square(sk, 41 + h).reshape(-1, SHARE_SIZE), dev)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        tc.put(h, eds)
+        torch.cuda.synchronize()
+        put = torch.cuda.memory_allocated()
+        del eds
+        torch.cuda.synchronize()
+        dropped = torch.cuda.memory_allocated()
+        mem.append({"height": h, "square_mib": (held - base) / 2**20,
+                    "after_put_mib": (put - base) / 2**20,
+                    "after_drop_mib": (dropped - base) / 2**20,
+                    "resident_mib": tc.device_bytes() / 2**20})
+        check(put - dropped >= 2 * sk * width * SHARE_SIZE,
+              f"height {h}: dropping the square freed {(put - dropped) / 2**20} MiB, not "
+              f"its {2 * sk * width * SHARE_SIZE / 2**20}: the cache holds its storage")
+        check(dropped - base <= tc.device_bytes() + page_bytes,
+              f"height {h}: {(dropped - base) / 2**20} MiB allocated for "
+              f"{tc.device_bytes() / 2**20} MiB of resident pages")
+        check(tc.device_bytes() <= tc.device_byte_budget + page_bytes, "over budget after put")
+    torch.cuda.reset_peak_memory_stats()
+    peak0 = torch.cuda.memory_allocated()
+    tight_docs, _counts = serve("tight_budget", tight, crowd0)
+    peak = torch.cuda.max_memory_allocated() - peak0
+    check(tight_docs == docs, "the tight budget changed the documents")
+    st = tc.stats()
+    check(st["page_demotes"] > 0 and st["page_faultins"] > 0 and st["page_corrupt"] == 0,
+          f"the tight budget did not churn: {st}")
+    check(tc.device_bytes() <= tc.device_byte_budget + page_bytes,
+          f"{tc.device_bytes()} device bytes after the crowd, budget {tc.device_byte_budget}")
+    tight_ms = crowd_ms(tight, range(SEED + 10, SEED + 12))
+    check(tc.device_bytes() <= tc.device_byte_budget + page_bytes, "over budget after the crowds")
+    tight_stages = stages_of(tight, serving_crowd(SEED + 21, heights, width, SERVING_SAMPLES))
+    # one page's demotion (fetch + CRC32C) and fault-in (CRC32C + upload,
+    # until it has landed), each through the cache's own leg, median of 5
+    resident = next(p for p in tc._pages if p.dev is not None and not p.pins)
+    demoted = next(p for p in tc._pages if p.dev is None and p.host is not None)
+
+    def leg_ms(fn) -> float:
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    demote_ms = leg_ms(lambda: tc._demote(resident, resident.dev))
+    faultin_ms = leg_ms(lambda: tc._fault_in(demoted))
+    crc_ms = leg_ms(lambda: integrity.crc32c(demoted.host))
+    emit(phase="serving", part="tight_budget", k=sk, budget_pages=SERVING_TIGHT_PAGES,
+         samples=SERVING_SAMPLES, ms_per_sample=statistics.median(tight_ms),
+         ms_per_sample_all=tight_ms, stages=tight_stages, peak_crowd_mib=peak / 2**20,
+         memory=mem, demote_ms_per_page=demote_ms, faultin_ms_per_page=faultin_ms,
+         crc32c_ms_per_page=crc_ms, page_mib=page_bytes / 2**20, stats=tc.stats())
+
+    # (d) a cache.faultin bitflip drill: sample_batch_ragged invalidates the
+    # one height the IntegrityError names and answers the rest
+    drill = serving_crowd(SEED + 50, heights, width, SERVING_SAMPLES)
+    with faults.inject(faults.rule("cache.faultin", "bitflip", times=1), seed=SEED):
+        drilled = tight.sample_batch_ragged(drill)
+    gone = [h for h in heights if h not in tc]
+    check(len(gone) == 1 and tc.stats()["page_corrupt"] == 1,
+          f"the drill invalidated {gone}, {tc.stats()['page_corrupt']} corrupt pages")
+    check(all(d is None if h in gone else d == w
+              for (h, _i, _j), d, w in zip(drill, drilled, host_docs(drill))),
+          "the drill's other heights were not answered as the host answers them")
+    emit(phase="integrity_drill", site="cache.faultin", entry="Node.sample_batch_ragged",
+         healed=gone, answered=sum(d is not None for d in drilled), samples=len(drill))
+
+    # (e) a ResidentEdsCache node: its provers come from the device's row
+    # levels, one K2 and one tree launch, proofs equal to the host's
+    res = Node(device=dev)
+    res._eds_cache = ResidentEdsCache()
+    with pinned("fused-dense"):
+        res._eds_cache.put(1, da.extend_shares(bench_square(sk, 42).reshape(-1, SHARE_SIZE), dev))
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    rdocs = res.sample_batch(1, one)
+    first_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    emit(phase="main_path", entry="Node._row_provers", cache="resident", k=sk, launches=counts)
+    check(counts["leaf_digests2d"] == 1 and counts["nmt_tree"] == 1 and sum(counts.values()) == 2,
+          f"the resident node's provers launched {counts}: K2 once and nmt_tree once")
+    check(res._prover_cache[1][0] is not None, "the resident node built its provers on the host")
+    check(rdocs == host_docs([(1, i, j) for i, j in one]),
+          "the resident node's documents differ from the host's")
+    res_ms = []
+    for s in range(5):
+        coords = [(i, j) for _h, i, j in serving_crowd(SEED + 60 + s, (1,), width, 64)]
+        t = time.perf_counter()
+        res.sample_batch(1, coords)
+        res_ms.append((time.perf_counter() - t) * 1e3 / len(coords))
+    emit(phase="serving", part="resident", k=sk, samples=64, first_call_ms=first_ms,
+         ms_per_sample=statistics.median(res_ms))
 
     # ---- phase 7: timing
     def cuda_ms(fn, inner: int = 1, reps: int = REPS) -> float:
@@ -1565,6 +1916,8 @@ def main(argv: list[str]) -> int:
     # the same work)
     for kk, (swept, _plain_sq, plan, _p) in repair_timed.items():
         calls[f"decode_sweep_{kk}"] = lambda s=swept, p=plan: repair_cuda.sweep(s, p)
+    # the ragged gather at the full-width crowd's one bucket (phase 6b)
+    calls["ragged_gather"] = lambda: ragged_cuda.ragged_gather(*g_case)
     event_ms = {name: cuda_ms(fn, inner=10) for name, fn in calls.items()}
     plain_ms = {
         "encode2d_hash": cuda_ms(lambda: rs_cuda.encode2d_hash_reference(x2, m2)),
@@ -1578,6 +1931,8 @@ def main(argv: list[str]) -> int:
         "encode2d_xor_hash": cuda_ms(lambda: xor_cuda.encode2d_xor_hash_reference(x2, ops)),
         "encode2d_xor": cuda_ms(lambda: xor_cuda.encode2d_xor_reference(x2, ops)),
     }
+    plain_ms["ragged_gather"] = cuda_ms(lambda: ragged_cuda.gather_rows_reference(*g_case),
+                                        reps=3)
     for kk, (_swept, plain_sq, plan, _p) in repair_timed.items():
         plain_ms[f"decode_sweep_{kk}"] = cuda_ms(
             lambda s=plain_sq, p=plan: repair_cuda.sweep_reference(s, p), reps=3)
@@ -1857,29 +2212,22 @@ def main(argv: list[str]) -> int:
         if kk == 128:
             results["decode_sweep"] = (dev_ms[name], event_ms[name], plain_ms[name], (b_ms, b_by))
 
-    sources = {
-        "encode2d_hash": ("celestia_tpu_torch/csrc/rs_hash.cu", "celestia_tpu/ops/rs_pallas.py:276"),
-        "leaf_digests2d": ("celestia_tpu_torch/csrc/rs_hash.cu", "celestia_tpu/ops/rs_pallas.py:295"),
-        "sha256_words": ("celestia_tpu_torch/csrc/sha256_words.cu",
-                         "celestia_tpu/ops/sha256_pallas.py:129"),
-        "encode2d": ("celestia_tpu_torch/csrc/rs_hash.cu", "celestia_tpu/ops/rs_pallas.py:270"),
-        "encode2d_xor_hash": ("celestia_tpu_torch/csrc/xor_schedule.cu",
-                              "celestia_tpu/ops/xor_schedule.py:537"),
-        "encode2d_xor": ("celestia_tpu_torch/csrc/xor_schedule.cu",
-                         "celestia_tpu/ops/xor_schedule.py:476"),
-        # the tree form of K3: every NMT level of extend_tpu._nmt_reduce_once
-        "nmt_tree": ("celestia_tpu_torch/csrc/nmt_tree.cu",
-                     "celestia_tpu/ops/sha256_pallas.py:129"),
-        # the repair sweep, an XLA graph in JAX (no Pallas kernel)
-        "decode_sweep": ("celestia_tpu_torch/csrc/rs_decode.cu",
-                         "celestia_tpu/ops/repair_tpu.py:124"),
-        # the merkle form of K3: every level of extend_tpu.merkle_root_pow2
-        "dah_merkle": ("celestia_tpu_torch/csrc/dah_merkle.cu",
-                       "celestia_tpu/ops/sha256_pallas.py:129"),
-    }
+    # the ragged gather: every row read once and written once
+    g_rows, g_row_bytes = len(g_case[1]), int(np.prod(g_case[0][0].shape[1:]))
+    g_bound = bound(0.0, 2 * g_rows * g_row_bytes)
+    emit(phase="timing", kernel="ragged_gather", k=SERVING_K, rows=g_rows,
+         pages=len(g_case[0]), row_bytes=g_row_bytes, device_ms=dev_ms["ragged_gather"],
+         launch_range_ms=[min(per_launch["ragged_gather"]), max(per_launch["ragged_gather"])],
+         event_ms=event_ms["ragged_gather"], plain_ms=plain_ms["ragged_gather"],
+         bound_ms=g_bound[0], bound_by=g_bound[1])
+    results["ragged_gather"] = (dev_ms["ragged_gather"], event_ms["ragged_gather"],
+                                plain_ms["ragged_gather"], g_bound)
+
+    check(set(results) == set(KERNEL_SOURCES) == set(_cuda.LAUNCHES),
+          f"the kernels line has {sorted(results)}, the port {sorted(_cuda.LAUNCHES)}")
     kernels = []
     for kname, (t_d, _t_e, t_p, (b_ms, b_by)) in results.items():
-        src, replaces = sources[kname]
+        src, replaces = KERNEL_SOURCES[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": max_err[kname],

@@ -293,3 +293,76 @@ def test_numpy_locator_is_the_ports_locator():
     erased = np.random.default_rng(3).integers(0, 2, size=(9, 256)).astype(np.int64)
     assert np.array_equal(chip_smoke.numpy_locator(erased),
                           gf256._error_locator_logs_batch(erased))
+
+
+# ---- the serving phase (6b)
+
+def _serving_source() -> str:
+    src = (REPO / "chip_smoke.py").read_text()
+    return src[src.index("    # ---- phase 6b"):src.index("    # ---- phase 7: timing")]
+
+
+def test_kernel_sources_name_every_kernel_of_the_port():
+    """The ``kernels`` line lists all ten kernels: every wrapper's launch
+    count, its source in the repo and the line of the JAX code it replaces."""
+    from celestia_tpu_torch.ops import _cuda
+
+    assert list(chip_smoke.KERNEL_SOURCES) == list(_cuda.LAUNCHES)
+    assert len(chip_smoke.KERNEL_SOURCES) == 10
+    for name, (source, replaces) in chip_smoke.KERNEL_SOURCES.items():
+        assert (REPO / source).is_file(), name
+        path, line = replaces.split(":")
+        assert 0 < int(line) <= len((REPO / path).read_text().splitlines()), name
+    assert chip_smoke.KERNEL_SOURCES["ragged_gather"] == (
+        "celestia_tpu_torch/csrc/ragged_gather.cu", "celestia_tpu/ops/ragged.py:51")
+    assert "def _jitted_gather" in (REPO / "celestia_tpu/ops/ragged.py").read_text(
+        ).splitlines()[51]
+
+
+def test_serving_phase_catches_no_failure():
+    """Every check of the phase raises: no except clause in it (a finally
+    only restores state), and each of its parts reports under its name."""
+    import ast
+    import textwrap
+
+    tree = ast.parse(textwrap.dedent(_serving_source()))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    src = _serving_source()
+    for name in ('part="full_width"', 'part="tight_budget"', 'part="resident"',
+                 'phase="kernel_vs_plain", kernel="ragged_gather"',
+                 'phase="integrity_drill", site="cache.faultin"',
+                 'entry="Node.sample_batch_ragged"', 'entry="Node._row_provers"'):
+        assert name in src, name
+    assert src.count("check(") >= 15
+
+
+def test_serving_crowd_is_seeded_and_uniform():
+    a = chip_smoke.serving_crowd(7, (1, 2, 3, 4), 256, 4096)
+    assert a == chip_smoke.serving_crowd(7, (1, 2, 3, 4), 256, 4096)
+    assert a != chip_smoke.serving_crowd(8, (1, 2, 3, 4), 256, 4096)
+    hs = [h for h, _i, _j in a]
+    assert {hs.count(h) for h in (1, 2, 3, 4)} <= set(range(900, 1150))
+    assert all(0 <= i < 256 and 0 <= j < 256 for _h, i, j in a)
+    assert all(type(v) is int for t in a[:5] for v in t)
+
+
+def test_gather_case_is_the_crowds_one_bucket():
+    """The kernel's timed input is what ``pages_batch`` gathers for the
+    crowd: each distinct (height, row) once, from its page, in order."""
+    import numpy as np
+    import torch
+
+    from celestia_tpu_torch.ops import ragged_cuda
+
+    rng = np.random.default_rng(3)
+    squares = {h: torch.from_numpy(rng.integers(0, 256, size=(16, 16, 8), dtype=np.uint8))
+               for h in (1, 2)}
+    pages = {h: [sq[lo:lo + 4].clone() for lo in range(0, 16, 4)] for h, sq in squares.items()}
+    crowd = chip_smoke.serving_crowd(5, (1, 2), 16, 40)
+    case = chip_smoke.gather_case(lambda h: pages[h], crowd, 4)
+    distinct = list(dict.fromkeys((h, i) for h, i, _j in crowd))
+    assert len(case[1]) == len(case[2]) == len(distinct)
+    assert len(case[0]) == len({(h, i // 4) for h, i in distinct})
+    got = ragged_cuda.gather_rows_reference(*case)
+    for t, (h, i) in enumerate(distinct):
+        assert torch.equal(got[t], squares[h][i])

@@ -14,7 +14,8 @@ import torch
 
 from celestia_tpu_torch import da, device
 from celestia_tpu_torch.da import repair as da_repair
-from celestia_tpu_torch.ops import extend, repair, transfers
+from celestia_tpu_torch.node import Node, eds_cache
+from celestia_tpu_torch.ops import extend, ragged, repair, transfers
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "celestia_tpu_torch"
@@ -48,7 +49,8 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("ops.extend", "da", "telemetry", "faults", "tracing", "integrity",
                  "ops.transfers", "ops.repair", "ops.repair_cuda", "da.repair",
-                 "ops.merkle_cuda"):
+                 "ops.merkle_cuda", "ops.ragged", "ops.ragged_cuda", "proof", "node",
+                 "node.node", "node.eds_cache"):
         assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
@@ -78,6 +80,22 @@ def test_no_source_file_imports_jax_or_celestia_tpu():
 SQUARE = np.zeros((1, 1, 512), np.uint8)
 EDS = np.zeros((2, 2, 512), np.uint8)
 PRESENT = np.array([[False, True], [True, True]])
+
+
+def _resident_dah():
+    """A node on the CPU serving a host square from a ResidentEdsCache:
+    the square's roots go to its own device, None = CUDA."""
+    node = Node(device="cpu")
+    node._eds_cache = eds_cache.ResidentEdsCache()
+    node._eds_cache.put(1, da.ExtendedDataSquare(EDS, 1))
+    return node.block_dah(1)
+
+
+def _gather_cuda_page():
+    """gather_rows on a page on the CUDA device, which must exist."""
+    page = torch.zeros((2, 2, 512), dtype=torch.uint8, device=device.resolve(None))
+    return ragged.gather_rows([(page, 0, 2)])
+
 ENTRIES = {
     "resolve": lambda: device.resolve(None),
     "roots_device": lambda: extend.roots_device(SQUARE),
@@ -95,6 +113,10 @@ ENTRIES = {
     "repair_resident_verified": lambda: repair.repair_resident_verified(EDS, PRESENT),
     "da.repair.repair": lambda: da_repair.repair(EDS, PRESENT),
     "repair_eds": lambda: da_repair.repair_eds(da.ExtendedDataSquare(EDS, 1), PRESENT),
+    "Node": lambda: Node(),
+    "PagedEdsCache": lambda: eds_cache.PagedEdsCache(),
+    "ResidentEdsCache.block_dah": _resident_dah,
+    "gather_rows": _gather_cuda_page,
 }
 
 
