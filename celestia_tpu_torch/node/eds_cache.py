@@ -106,6 +106,16 @@ class ResidentEdsCache:
         with self._lock:
             return self._pins[height]
 
+    def device_bytes(self) -> int:
+        """Device bytes of every retained square. Entries without a device
+        buffer (host squares, opaque values) count zero."""
+        with self._lock:
+            total = 0
+            for value in self._entries.values():
+                dev = getattr(value, "device_data", None)
+                total += int(getattr(dev, "nbytes", 0) or 0)
+            return total
+
     def stats(self) -> dict:
         """The ``/status`` "eds_cache" payload (whole-square flavour)."""
         with self._lock:
@@ -315,6 +325,9 @@ class PagedEds:
     def col_roots(self) -> list[bytes]:
         return self._materialized().col_roots()
 
+    def flattened_shares(self) -> list[bytes]:
+        return self._materialized().flattened_shares()
+
 
 class PagedEdsCache:
     """Paged device cache for retained extended squares.
@@ -500,6 +513,12 @@ class PagedEdsCache:
             for t in members:
                 out[t] = cells
         return out
+
+    def pin_count(self, height: int) -> int:
+        """Readers holding ``height``: its height pins and its pages' pins."""
+        with self._cond:
+            pages = sum(p.pins for p in self._pages if p.height == height)
+            return self._height_pins[height] + pages
 
     def __len__(self) -> int:
         with self._cond:

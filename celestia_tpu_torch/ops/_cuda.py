@@ -31,7 +31,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("sha256.cuh", "rs_hash.cu", "sha256_words.cu", "xor_schedule.cu", "nmt_tree.cu",
-           "rs_decode.cu", "dah_merkle.cu", "ragged_gather.cu")
+           "rs_decode.cu", "dah_merkle.cu", "ragged_gather.cu", "assemble_square.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,7 +41,7 @@ LIB_NAME = "libcelestia_kernels.so"
 LAUNCHES: dict[str, int] = {
     "encode2d_hash": 0, "leaf_digests2d": 0, "sha256_words": 0,
     "encode2d": 0, "encode2d_xor_hash": 0, "encode2d_xor": 0, "nmt_tree": 0,
-    "decode_sweep": 0, "dah_merkle": 0, "ragged_gather": 0,
+    "decode_sweep": 0, "dah_merkle": 0, "ragged_gather": 0, "assemble_square": 0,
 }
 
 _V = ctypes.c_void_p
@@ -76,6 +76,9 @@ _SIGNATURES = {
     "celestia_dah_merkle": (_V, _V, _I, _I, _I, _V),
     # (pages, n_pages, descs, n, row_bytes, out, device, stream)
     "celestia_ragged_gather": (_V, _I, _V, _I, _L, _V, _I, _V),
+    # (arena, n_arena, host, n_host, meta, ns, n_blobs, sparse, n_sparse, out, k,
+    #  device, stream)
+    "celestia_assemble_square": (_V, _L, _V, _I, _V, _V, _I, _V, _I, _V, _I, _I, _V),
     # (device) -> resident blocks per SM
     "celestia_nmt_tree_blocks_per_sm": (_I,),
 }

@@ -37,7 +37,9 @@ Routes (``_roots``, as in the JAX package's extend_tpu._roots_of):
 - unfused XOR: the same with K6 (``xor_cuda.encode2d_xor``).
 
 ``_rows_cols_only`` is the roots-only core (no EDS output) that
-``roots_device`` and the batched entries run.
+``roots_device``, the batched entries and ``assembled_roots`` (the
+proposer's square assembled on the card from the blob arena, one launch
+of ``assemble_cuda.assemble_square``) run.
 
 Every route ends in one launch of the tree kernel (``nmt_cuda.nmt_tree``):
 it reads the four quadrant tiles of leaf digests in place (on the fused
@@ -84,7 +86,8 @@ from celestia_tpu_torch.appconsts import (
 )
 from celestia_tpu_torch.app import calibration
 from celestia_tpu_torch.ops import (
-    merkle_cuda, nmt_cuda, rs, rs_cuda, transfers, xor_cuda, xor_schedule,
+    assemble, assemble_cuda, merkle_cuda, nmt_cuda, rs, rs_cuda, transfers, xor_cuda,
+    xor_schedule,
 )
 from celestia_tpu_torch.ops.nmt_cuda import NMT_NODE_SIZE, leaf_namespaces as _leaf_namespaces
 
@@ -102,18 +105,19 @@ class Kernels:
     encode2d_xor_hash: Callable
     encode2d_xor: Callable
     nmt_tree: Callable
+    assemble_square: Callable
 
 
 KERNELS = Kernels(rs_cuda.encode_hash_into, rs_cuda.leaf_digests2d,
                   merkle_cuda.dah_merkle, rs_cuda.encode_into,
                   xor_cuda.encode2d_xor_hash, xor_cuda.encode2d_xor,
-                  nmt_cuda.nmt_tree)
+                  nmt_cuda.nmt_tree, assemble_cuda.assemble_square)
 PLAIN = Kernels(rs_cuda.encode_hash_into_reference,
                 rs_cuda.leaf_digests2d_reference,
                 merkle_cuda.dah_merkle_reference, rs_cuda.encode_into_reference,
                 xor_cuda.encode2d_xor_hash_reference,
                 xor_cuda.encode2d_xor_reference,
-                nmt_cuda.nmt_tree_reference)
+                nmt_cuda.nmt_tree_reference, assemble.assemble_square_reference)
 
 _FUSED_ENV = "CELESTIA_FUSED_KERNELS"
 _XOR_ENV = "CELESTIA_XOR_SCHEDULE"
@@ -520,3 +524,80 @@ def eds_row_levels_device(eds, device=None, kernels: Kernels = KERNELS) -> list[
         _roots, levels = _eds_tree(_stage(eds, dev), kernels, keep_levels=True)
         transfers.profile_fence(levels, "eds_row_levels_device", t0, k=k)
         return nmt_cuda.split_levels(levels.cpu().numpy(), k)  # one D2H copy
+
+
+# ------------------------------------------------------------------ #
+# Device-side square assembly from the resident blob arena
+# (ops/blob_pool.py), the JAX package's extend_tpu.assembled_roots
+# (celestia_tpu/ops/extend_tpu.py:838). With the blob bytes already on the
+# card, only per-blob and host-cell metadata and the deduplicated host
+# shares cross per proposal; the assembled square feeds the roots-only core
+# as it lies on the card and never exists on the host.
+
+
+def _stage_meta(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """One metadata block to the card at site ``proposal.stage``; an empty
+    block crosses nothing."""
+    if arr.size == 0:
+        return torch.from_numpy(arr).to(dev)
+    return transfers.device_put_chunked(arr, dev, site="proposal.stage")
+
+
+def assembled_roots(
+    arena,
+    host_shares: np.ndarray,    # (H, 512) uint8 — dedup'd host table
+    host_pos: np.ndarray,       # (Hc,) int32 — cell indexes of host cells, ascending
+    host_row: np.ndarray,       # (Hc,) int32 — row into host_shares
+    blob_start: np.ndarray,     # (B,) int32 — first cell per resident blob, ASCENDING
+    blob_nshares: np.ndarray,   # (B,) int32
+    blob_off: np.ndarray,       # (B,) int32 — absolute arena offsets
+    blob_len: np.ndarray,       # (B,) int32 — blob byte lengths
+    ns_table: np.ndarray,       # (B, 29) uint8
+    k: int,
+    kernels: Kernels = KERNELS,
+):
+    """Assemble the (k, k, 512) square on the arena's device and return
+    numpy (row_roots, col_roots): the roots-only proposal path.
+
+    ``arena`` is a ``blob_pool.DeviceBlobArena`` (the launch then waits on
+    its inserts) or its byte tensor; the square is built where it lies (a
+    CPU arena runs the plain versions). The upload is O(#blobs + #host
+    cells), not O(k²). The JAX package pads its counts to powers of two to
+    bound its jit cache; the kernel takes the true counts, so nothing is
+    padded. The caller holds the arena's lock until this returns."""
+    if k < 1 or k & (k - 1) or k > DEFAULT_SQUARE_SIZE_UPPER_BOUND:
+        raise ValueError(f"k must be a power of two <= {DEFAULT_SQUARE_SIZE_UPPER_BOUND}, "
+                         f"got {k}")
+    s = k * k
+    starts_arr = np.asarray(blob_start, np.int64)
+    if len(starts_arr) > 1 and not np.all(np.diff(starts_arr) > 0):
+        # the blob lookup misattributes cells if starts are not strictly
+        # ascending: fail loudly rather than sign corrupt roots
+        raise ValueError("blob_start must be strictly ascending")
+    pos = np.asarray(host_pos, np.int64)
+    rows = np.asarray(host_row, np.int64)
+    n_h = len(host_shares)
+    if len(pos) != len(rows) or (len(pos) and (
+            pos[0] < 0 or pos[-1] >= s or np.any(np.diff(pos) <= 0)
+            or rows.min() < 0 or rows.max() >= n_h)):
+        raise ValueError("host_pos must be strictly ascending cells of the square and "
+                         "host_row rows of host_shares, one each")
+    tensor = getattr(arena, "arena", arena)
+    dev = tensor.device
+    with tracing.span("extend.assemble", backend="gpu" if dev.type == "cuda" else dev.type,
+                      k=k, blobs=len(ns_table), host_cells=len(pos)):
+        t0 = time.perf_counter()
+        hs_dev = _stage_meta(np.ascontiguousarray(host_shares, np.uint8).reshape(
+            n_h, SHARE_SIZE), dev)
+        ns_dev = _stage_meta(np.ascontiguousarray(ns_table, np.uint8).reshape(
+            -1, NAMESPACE_SIZE), dev)
+        bm_dev = _stage_meta(np.stack([np.asarray(a, np.int32).reshape(-1) for a in
+                                       (blob_start, blob_nshares, blob_off, blob_len)]), dev)
+        hsp_dev = _stage_meta(np.stack([pos.astype(np.int32), rows.astype(np.int32)]), dev)
+        if hasattr(arena, "ready"):
+            arena.ready()  # the launch follows every insert it may read
+        square = kernels.assemble_square(tensor, hs_dev, bm_dev, ns_dev, hsp_dev, k)
+        row_roots, col_roots = _rows_cols_only(square, rs.encode_matrix(k, dev),
+                                               kernels=kernels)
+        transfers.profile_fence(col_roots, "assembled_roots", t0, k=k)
+        return _numpy(row_roots, col_roots)

@@ -21,7 +21,10 @@ itself is on no entry's path any more. decode_sweep (csrc/rs_decode.cu)
 carries EDS repair: one launch per planned sweep of the Leopard erasure
 decode, in place in the EDS. ragged_gather (csrc/ragged_gather.cu) carries
 the serving reads: one launch per page geometry of a crowd of DAS samples
-across heights, reading every row in place through the paged cache's pages.
+across heights, reading every row in place through the paged cache's pages, and
+assemble_square (csrc/assemble_square.cu) the proposer's square: one
+launch builds it on the card from the resident blob arena and the
+deduplicated host shares.
 
 Phases, in order (any failed check raises, so the script exits non-zero and
 prints no result; it also exits non-zero when no CUDA device is present):
@@ -134,6 +137,23 @@ prints no result; it also exits non-zero when no CUDA device is present):
    and one page's demotion, fault-in and CRC32C ms; a cache.faultin bitflip
    drill healing the one height it names; and a ResidentEdsCache node whose
    provers come from one K2 and one tree launch, its proofs the host's.
+6c. The proposer's path from transactions (``proposal``): the square
+   assembly kernel against its plain version byte for byte at every power
+   of two k from 1 to 128 on six input families (one blob; many blobs of
+   random share counts and odd lengths; host cells over blob cells; cells
+   no blob or host row covers; no blob; blobs running past the arena's
+   end), with its registers and spills. Then bench.py config 8b's traffic
+   (60 blobs of 120,000 random bytes, seed 11, each in its own v0
+   namespace, a fixed inner tx of a signed PFB's length): the port's
+   square.build_ex to a k = 128 square, the blobs staged by put_many into
+   a fresh DeviceBlobArena (median of 5), and assembled_proposal_dah with
+   the counts from 0 (assemble_square 1, K2 1, K1 3, the tree 1, nothing
+   else; the bytes counted at proposal.stage and at arena.stage), its DAH
+   equal to roots_device's and to the host NMT DAH of the same square, and
+   the MIN/TYPICAL/MAX DAHs through assembled_roots with every cell a host
+   cell; host ms of the blob content keys and of the proposal's metadata,
+   and the medians of 20 of assembled_proposal_dah and of roots_device on
+   the same square, in turns.
 7. Timing, after warm-up: each kernel at its main-path shapes (K2 at
    k = 64 and 128, on Q0 and on the EDS), as its own device time per launch
    (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
@@ -152,7 +172,9 @@ prints no result; it also exits non-zero when no CUDA device is present):
    memory, and this layout's reads); the decode sweep at k = 128 and 64 (a
    random mask's row sweep) beside its bound, counted from
    rs.decode_program and the plan's data (``decode_sweep_work``), and
-   its plain version (median of 3); and K6 with the layout's levers undone
+   its plain version (median of 3); the assembly at config 8b's square
+   beside its bound (every cell written, every blob byte and host row read
+   once) and its plain version (median of 3); and K6 with the layout's levers undone
    one at a time (``xor_levers``: the rows' or the nodes' conflict-free
    order shuffled, 8 groups instead of 4); end to end (host clock, H2D and D2H included) at k = 64 and
    128, 20 calls of roots_device and extend_roots_device_resident per route
@@ -170,8 +192,9 @@ prints no result; it also exits non-zero when no CUDA device is present):
    10 calls of extend_and_root_device at k = 64 and 128.
 
 Every measurement is one JSON line carrying the card's name and power limit.
-Then come the ``kernels`` line (the ten kernels; the ragged gather timed at
-the full-width crowd's bucket), the card as nvidia-smi reports it, and the
+Then come the ``kernels`` line (the eleven kernels; the ragged gather timed
+at the full-width crowd's bucket, its library time the device time of
+torch.cat of the bucket's row views; the assembly at config 8b's square), the card as nvidia-smi reports it, and the
 last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -288,7 +311,24 @@ KERNEL_SOURCES = {
     "dah_merkle": ("celestia_tpu_torch/csrc/dah_merkle.cu", "celestia_tpu/ops/sha256_pallas.py:129"),
     # the ragged cross-height gather, an XLA graph in JAX (no Pallas kernel)
     "ragged_gather": ("celestia_tpu_torch/csrc/ragged_gather.cu", "celestia_tpu/ops/ragged.py:51"),
+    "assemble_square": ("celestia_tpu_torch/csrc/assemble_square.cu",
+                        "celestia_tpu/ops/extend_tpu.py:766"),
 }
+
+# the proposal phase (6c): bench.py config 8b's traffic (bench.py:726-757),
+# 60 blobs of 120,000 random bytes (seed 11), each in its own v0 namespace,
+# at k = 128. A signed PFB is 333-337 bytes (the JAX package's sign_tx of one
+# MsgPayForBlobs); the port cannot sign yet, so each BlobTx carries a fixed
+# inner tx of that length, opaque to square construction.
+PROPOSAL_K = 128
+PROPOSAL_BLOBS = 60
+PROPOSAL_BLOB_BYTES = 120_000
+PROPOSAL_SEED = 11
+PFB_INNER_BYTES = 337
+# the assembly kernel's input families (kernel against plain, phase 6c)
+ASSEMBLY_FAMILIES = ("one_blob", "many_blobs", "host_over_blob", "uncovered", "no_blobs",
+                     "arena_edge")
+FIRST_SPARSE, CONT_SPARSE = 478, 482  # data bytes of a blob's first and later shares
 
 
 def serving_crowd(seed: int, heights, width: int, n: int) -> list[tuple[int, int, int]]:
@@ -316,6 +356,93 @@ def gather_case(pages_of, payloads, rows_per_page: int) -> tuple[list, list[int]
         slots.append(slot_of[key])
         rows.append(i % rows_per_page)
     return pages, slots, rows
+
+
+def proposal_txs(seed: int = PROPOSAL_SEED, n: int = PROPOSAL_BLOBS,
+                 size: int = PROPOSAL_BLOB_BYTES) -> list[bytes]:
+    """bench.py config 8b's blob txs, each blob in its own v0 namespace and
+    its data drawn in bench.py's order; the inner tx is a fixed byte string
+    of a signed PFB's length with the tx's index in front."""
+    from celestia_tpu_torch import blob as blob_pkg
+    from celestia_tpu_torch import namespace as ns
+
+    r = np.random.default_rng(seed)
+    filler = np.random.default_rng(seed + 1).integers(
+        0, 256, PFB_INNER_BYTES - 2, dtype=np.uint8).tobytes()
+    txs = []
+    for i in range(n):
+        data = r.integers(0, 256, size, dtype=np.uint8).tobytes()
+        b = blob_pkg.new_blob(ns.new_v0(b"arena" + i.to_bytes(5, "big")), data, 0)
+        txs.append(blob_pkg.marshal_blob_tx(i.to_bytes(2, "big") + filler, [b]))
+    return txs
+
+
+def assembly_case(k: int, seed: int, family: str) -> dict[str, np.ndarray]:
+    """Inputs of ``extend.assembled_roots`` (its host arrays, and the arena's
+    bytes) for one of ASSEMBLY_FAMILIES at k: blobs at strictly ascending
+    starts with a random share count each (mostly a full blob's bytes,
+    sometimes fewer), the host cells every cell no blob covers, except:
+    ``one_blob``, one blob; ``no_blobs``, none, half the cells host cells;
+    ``host_over_blob``, a quarter of all cells host cells, blob cells among
+    them; ``uncovered``, no host cell, cell 0 before every blob and each
+    blob over half its gap (the rest blob 0's namespace and zeros); ``arena_edge``, blobs that run past the
+    arena's end (their indexes clamped)."""
+    if family not in ASSEMBLY_FAMILIES:
+        raise ValueError(f"unknown assembly family {family!r}")
+    r = np.random.default_rng(seed)
+    s = k * k
+    n_arena = max(8192, s * 256)
+    if family == "no_blobs":
+        starts: list[int] = []
+    elif family == "one_blob":
+        starts = [int(r.integers(0, max(1, s // 4)))]
+    elif family == "uncovered" and s > 1:  # cell 0 and each blob's tail uncovered
+        starts = sorted(int(x) + 1 for x in r.choice(
+            s - 1, size=min(max(1, s // 4), int(r.integers(2, 65))), replace=False))
+    else:
+        starts = sorted(int(x) for x in r.choice(s, size=min(s, int(r.integers(2, 65))),
+                                                 replace=False))
+    nsh, lens, offs = [], [], []
+    for st, en in zip(starts, starts[1:] + [s]):
+        gap = en - st
+        n = max(1, gap // 2) if family == "uncovered" else int(r.integers(1, gap + 1))
+        full = FIRST_SPARSE + (n - 1) * CONT_SPARSE
+        lo = full - CONT_SPARSE + 1 if n > 1 and r.random() < 0.8 else 1
+        ln = int(r.integers(lo, full + 1))
+        off = (n_arena - ln // 2 if family == "arena_edge"
+               else int(r.integers(0, max(1, n_arena - ln))))
+        nsh.append(n)
+        lens.append(ln)
+        offs.append(off)
+    covered = np.zeros(s, bool)
+    for st, n in zip(starts, nsh):
+        covered[st: st + n] = True
+    if family == "host_over_blob":
+        pos = np.flatnonzero(r.random(s) < 0.25)
+    elif family == "uncovered":
+        pos = np.zeros(0, np.int64)
+    elif family == "no_blobs":
+        pos = np.flatnonzero(r.random(s) < 0.5)
+    else:
+        pos = np.flatnonzero(~covered)
+    h = min(len(pos), 7)
+    return {
+        "arena": r.integers(0, 256, n_arena, dtype=np.uint8),
+        "host_shares": r.integers(0, 256, (h, 512), dtype=np.uint8),
+        "host_pos": pos.astype(np.int32),
+        "host_row": r.integers(0, max(h, 1), len(pos)).astype(np.int32),
+        "blob_start": np.asarray(starts, np.int32),
+        "blob_nshares": np.asarray(nsh, np.int32),
+        "blob_off": np.asarray(offs, np.int32),
+        "blob_len": np.asarray(lens, np.int32),
+        "ns_table": r.integers(0, 256, (len(starts), 29), dtype=np.uint8),
+    }
+
+
+def assembly_bytes(k: int, blob_len, host_rows: int) -> int:
+    """The bytes the assembly must move: every cell written once, every
+    blob byte and every host row read once."""
+    return k * k * 512 + int(np.sum(np.asarray(blob_len, np.int64))) + host_rows * 512
 
 
 def fail(msg: str) -> None:
@@ -683,6 +810,7 @@ def main(argv: list[str]) -> int:
     for name, report in ptxas_report(_cuda.build_log()).items():
         if any(f in name for f in ("encode2d_fft_kernel", "encode2d_xor_kernel",
                                    "decode_sweep_kernel", "ragged_gather_kernel",
+                                   "assemble_square_kernel",
                                    *sha_kernels)):
             emit(phase="ptxas", kernel=name, **report)
     cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
@@ -1728,7 +1856,6 @@ def main(argv: list[str]) -> int:
     emit(phase="serving", part="resident", k=sk, samples=64, first_call_ms=first_ms,
          ms_per_sample=statistics.median(res_ms))
 
-    # ---- phase 7: timing
     def cuda_ms(fn, inner: int = 1, reps: int = REPS) -> float:
         """Median over `reps` samples of the CUDA-event time of `inner`
         back-to-back calls, per call. A call's host work (wrapper checks,
@@ -1759,6 +1886,134 @@ def main(argv: list[str]) -> int:
             times.append((time.perf_counter() - t) * 1e3)
         return statistics.median(times)
 
+    # ---- phase 6c: the proposer's path from transactions (bench.py config 8b):
+    # square construction, the blobs staged in the arena, the square
+    # assembled on the card from it, the roots-only core, the DAH
+    from celestia_tpu_torch import square as square_pkg
+    from celestia_tpu_torch.app import proposal
+    from celestia_tpu_torch.ops import assemble, assemble_cuda
+    from celestia_tpu_torch.ops.blob_pool import DeviceBlobArena, blob_key
+    from celestia_tpu_torch.shares import to_bytes
+
+    def assembly_tensors(case: dict) -> tuple:
+        """A case's kernel inputs on the card, in the layout assembled_roots
+        stages (the arena's bytes first)."""
+        meta = np.stack([case[f] for f in ("blob_start", "blob_nshares", "blob_off",
+                                           "blob_len")]).astype(np.int32)
+        sparse = np.stack([case["host_pos"], case["host_row"]]).astype(np.int32)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            case["arena"], case["host_shares"], meta, case["ns_table"], sparse))
+
+    # (a) the kernel against its plain version at every power of two k, on
+    # every input family
+    asm_k = [1, 2, 4, 8, 16, 32, 64, 128]
+    cases = 0
+    for kk in asm_k:
+        for fi, fam in enumerate(ASSEMBLY_FAMILIES):
+            a = assembly_tensors(assembly_case(kk, SEED + 31 * kk + fi, fam))
+            same("assemble_square", assemble_cuda.assemble_square(*a, kk),
+                 assemble.assemble_square_reference(*a, kk), f"assemble_square k={kk} {fam}")
+            cases += 1
+    asm_ptxas = [r for name, r in ptxas_report(_cuda.build_log()).items()
+                 if "assemble_square_kernel" in name]
+    check(len(asm_ptxas) == 1, "no ptxas report of the assembly kernel")
+    emit(phase="kernel_vs_plain", kernel="assemble_square", k=asm_k,
+         families=list(ASSEMBLY_FAMILIES), cases=cases, tolerance=0,
+         max_abs_err=max_err["assemble_square"], **asm_ptxas[0])
+
+    # (b) the main path at full width: build the square, stage the blobs,
+    # assemble and root it, with the counts from 0
+    def h2d_bytes(site: str) -> float:
+        return metrics.get_counter("transfer_bytes", site=site, direction="h2d")
+
+    txs = proposal_txs()
+    t = time.perf_counter()
+    p_square, kept, builder = square_pkg.build_ex(txs, 1, PROPOSAL_K)
+    build_ms = (time.perf_counter() - t) * 1e3
+    pk = square_pkg.square_size(len(p_square))
+    check(pk == PROPOSAL_K and len(kept) == PROPOSAL_BLOBS,
+          f"config 8b's square is k = {pk} with {len(kept)} of {PROPOSAL_BLOBS} txs")
+    p_arr = np.frombuffer(b"".join(to_bytes(p_square)), np.uint8).reshape(pk, pk, SHARE_SIZE)
+    blobs = [b.data for _s, b in builder.blob_layout()]
+    put_ms = []
+    for _rep in range(5):  # a fresh arena each time, so every blob is staged
+        p_arena = DeviceBlobArena(device=dev)
+        torch.cuda.synchronize()
+        before = h2d_bytes("arena.stage")
+        t = time.perf_counter()
+        p_arena.put_many(blobs)
+        p_arena.ready()
+        torch.cuda.synchronize()
+        put_ms.append((time.perf_counter() - t) * 1e3)
+        arena_bytes = h2d_bytes("arena.stage") - before
+    check(p_arena.resident_bytes() == sum(map(len, blobs)),
+          f"{p_arena.resident_bytes()} of {sum(map(len, blobs))} blob bytes resident")
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    before = h2d_bytes("proposal.stage")
+    p_dah = proposal.assembled_proposal_dah(p_arena, p_square, builder, pk, dev)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    staged = h2d_bytes("proposal.stage") - before
+    emit(phase="main_path", entry="assembled_proposal_dah", k=pk, launches=counts,
+         proposal_stage_bytes=staged, arena_stage_bytes=arena_bytes)
+    want = {"assemble_square": 1, "leaf_digests2d": 1, "encode2d_hash": 3, "nmt_tree": 1}
+    check(p_dah is not None and counts == {**dict.fromkeys(counts, 0), **want},
+          f"assembled_proposal_dah launched {counts}: {want} expected")
+    check(staged < 1 << 20, f"{staged} bytes staged for the proposal: tens of KB expected")
+    launches["assemble_square"] = counts["assemble_square"]
+    rd_rows, rd_cols = extend.roots_device(p_arr, dev)
+    h_rows, h_cols = host_oracle_roots(p_arr)
+    check(p_dah.row_roots == [r.tobytes() for r in rd_rows] == [r.tobytes() for r in h_rows]
+          and p_dah.column_roots == [c.tobytes() for c in rd_cols]
+          == [c.tobytes() for c in h_cols] and p_dah.hash() == host_dah(h_rows, h_cols),
+          "the assembled proposal DAH differs from roots_device's or the host NMT DAH")
+    # the reference DAHs again, through the assembly: no blob, every cell a
+    # row of the deduplicated host table
+    no_arena = torch.zeros(4096, dtype=torch.uint8, device=dev)
+    empty = np.zeros(0, np.int32)
+    for label, kk, share, expect in oracles:
+        flat = (np.frombuffer(share, np.uint8)[None] if share is not None
+                else oracle_square(kk * kk))
+        uniq, inv = np.unique(flat, axis=0, return_inverse=True)
+        o_rows, o_cols = extend.assembled_roots(
+            no_arena, uniq, np.arange(kk * kk, dtype=np.int32), inv.reshape(-1).astype(np.int32),
+            empty, empty, empty, empty, np.zeros((0, NAMESPACE_SIZE), np.uint8), kk)
+        got = host_dah(o_rows, o_cols).hex()
+        check(got == expect, f"{label} DAH through the assembly: {got} != {expect}")
+        emit(phase="oracle", route="assembled", name=label, k=kk, dah=got)
+    # host times of the proposal: the content key of every blob (the JAX
+    # contract hashes each blob on each proposal), the metadata, and the
+    # entry against roots_device on the same square, in turns
+    p_inputs = proposal.proposal_inputs(p_arena, p_square, builder, pk)
+    key_ms = host_ms(lambda: [blob_key(b) for b in blobs])
+    inputs_ms = host_ms(lambda: proposal.proposal_inputs(p_arena, p_square, builder, pk))
+    p_e2e: dict[str, list[float]] = {"assembled_proposal_dah": [], "roots_device": []}
+    p_entries = {
+        "assembled_proposal_dah":
+            lambda: proposal.assembled_proposal_dah(p_arena, p_square, builder, pk, dev),
+        "roots_device": lambda: extend.roots_device(p_arr, dev)}
+    for rep in range(2 + E2E_REPS):  # two warm-up rounds
+        for entry, fn in p_entries.items():
+            t = time.perf_counter()
+            fn()  # ends in a D2H copy of the roots
+            if rep >= 2:
+                p_e2e[entry].append((time.perf_counter() - t) * 1e3)
+    asm_args = (*assembly_tensors({"arena": p_arena.arena.cpu().numpy(), **p_inputs}), pk)
+    check(torch.equal(assemble_cuda.assemble_square(*asm_args),
+                      torch.from_numpy(p_arr).to(dev)),
+          "the assembled config-8b square differs from the host-built square")
+    asm_bytes = assembly_bytes(pk, p_inputs["blob_len"], len(p_inputs["host_shares"]))
+    emit(phase="proposal", k=pk, blobs=len(blobs), blob_bytes=sum(map(len, blobs)),
+         host_cells=len(p_inputs["host_pos"]), host_table_rows=len(p_inputs["host_shares"]),
+         proposal_stage_bytes=staged, arena_stage_bytes=arena_bytes, build_ex_ms=build_ms,
+         put_many_ms=statistics.median(put_ms), put_many_all_ms=put_ms, blob_key_ms=key_ms,
+         proposal_inputs_ms=inputs_ms,
+         **{f"{e}_ms": statistics.median(v) for e, v in p_e2e.items()},
+         **{f"{e}_q1_q3_ms": statistics.quantiles(v, n=4)[::2] for e, v in p_e2e.items()},
+         samples=E2E_REPS, assembly_bytes=asm_bytes, dah=p_dah.hash().hex())
+
+    # ---- phase 7: timing
     def bound(ops_s: float, nbytes: float) -> tuple[float, str]:
         t_bytes = nbytes / HBM_BYTES_PER_S
         return max(ops_s, t_bytes) * 1e3, ("operations" if ops_s >= t_bytes else "bytes")
@@ -1918,6 +2173,8 @@ def main(argv: list[str]) -> int:
         calls[f"decode_sweep_{kk}"] = lambda s=swept, p=plan: repair_cuda.sweep(s, p)
     # the ragged gather at the full-width crowd's one bucket (phase 6b)
     calls["ragged_gather"] = lambda: ragged_cuda.ragged_gather(*g_case)
+    # the assembly at config 8b's square (phase 6c)
+    calls["assemble_square"] = lambda: assemble_cuda.assemble_square(*asm_args)
     event_ms = {name: cuda_ms(fn, inner=10) for name, fn in calls.items()}
     plain_ms = {
         "encode2d_hash": cuda_ms(lambda: rs_cuda.encode2d_hash_reference(x2, m2)),
@@ -1933,6 +2190,16 @@ def main(argv: list[str]) -> int:
     }
     plain_ms["ragged_gather"] = cuda_ms(lambda: ragged_cuda.gather_rows_reference(*g_case),
                                         reps=3)
+    plain_ms["assemble_square"] = cuda_ms(lambda: assemble.assemble_square_reference(*asm_args),
+                                          reps=3)
+    # the one PyTorch call that computes the gather: torch.cat of the bucket's
+    # row views (timed here as the kernels are, by the profiler and by CUDA
+    # events; the port never calls it)
+    row_views = [g_case[0][sl][r:r + 1] for sl, r in zip(g_case[1], g_case[2])]
+    check(torch.equal(torch.cat(row_views), ragged_cuda.ragged_gather(*g_case)),
+          "torch.cat of the row views differs from the ragged gather")
+    library_calls = {"ragged_gather": lambda: torch.cat(row_views)}
+    library_event_ms = {name: cuda_ms(fn, inner=10) for name, fn in library_calls.items()}
     for kk, (_swept, plain_sq, plan, _p) in repair_timed.items():
         plain_ms[f"decode_sweep_{kk}"] = cuda_ms(
             lambda s=plain_sq, p=plan: repair_cuda.sweep_reference(s, p), reps=3)
@@ -2022,6 +2289,11 @@ def main(argv: list[str]) -> int:
         time.sleep(gap_s)
         extend.merkle_root_pow2(dah_roots[k][0])
         torch.cuda.synchronize()
+        for fn in library_calls.values():  # last: the segments above keep their places
+            time.sleep(gap_s)
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
     evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                   and e.name != "Activity Buffer Request"), key=lambda e: e.time_range.start)
     segments: list[list] = []
@@ -2031,10 +2303,17 @@ def main(argv: list[str]) -> int:
             segments.append([])
         segments[-1].append(e)
         last_end = e.time_range.end if last_end is None else max(last_end, e.time_range.end)
-    n_calls = len(calls) + len(profiled_ms) + 1
+    n_calls = len(calls) + len(profiled_ms) + 1 + len(library_calls)
     check(len(segments) in (n_calls, n_calls + 1),  # + 1: the warm-up pass
           f"the profiler's records split into {len(segments)} calls, expected {n_calls}")
     segments = segments[-n_calls:]
+    # a library call's device time: every record of its segment (it may
+    # launch several kernels), per call
+    library_ms = {}
+    for name, seg in zip(library_calls, segments[n_calls - len(library_calls):]):
+        check(len(seg) > 0 and not any("celestia::" in e.name for e in seg),
+              f"the profiler's records of torch's {name} hold {sorted({e.name for e in seg})}")
+        library_ms[name] = sum(e.time_range.elapsed_us() for e in seg) / 1e3 / REPS
     dev_ms, per_launch = {}, {}
     for name, seg in zip(calls, segments):
         kern = [e for e in seg if "celestia::" in e.name]
@@ -2222,6 +2501,21 @@ def main(argv: list[str]) -> int:
          bound_ms=g_bound[0], bound_by=g_bound[1])
     results["ragged_gather"] = (dev_ms["ragged_gather"], event_ms["ragged_gather"],
                                 plain_ms["ragged_gather"], g_bound)
+    emit(phase="library", kernel="ragged_gather", call="torch.cat of the row views",
+         device_ms=library_ms["ragged_gather"], event_ms=library_event_ms["ragged_gather"],
+         kernel_device_ms=dev_ms["ragged_gather"], kernel_event_ms=event_ms["ragged_gather"])
+
+    # the assembly: every cell written once, every blob byte and host row read once
+    a_bound = bound(0.0, asm_bytes)
+    emit(phase="timing", kernel="assemble_square", k=pk, blobs=len(blobs),
+         host_table_rows=len(p_inputs["host_shares"]), bytes=asm_bytes,
+         device_ms=dev_ms["assemble_square"],
+         launch_range_ms=[min(per_launch["assemble_square"]),
+                          max(per_launch["assemble_square"])],
+         event_ms=event_ms["assemble_square"], plain_ms=plain_ms["assemble_square"],
+         bound_ms=a_bound[0], bound_by=a_bound[1])
+    results["assemble_square"] = (dev_ms["assemble_square"], event_ms["assemble_square"],
+                                  plain_ms["assemble_square"], a_bound)
 
     check(set(results) == set(KERNEL_SOURCES) == set(_cuda.LAUNCHES),
           f"the kernels line has {sorted(results)}, the port {sorted(_cuda.LAUNCHES)}")
@@ -2232,7 +2526,7 @@ def main(argv: list[str]) -> int:
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": max_err[kname],
             "ms": t_d, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "library_ms": library_ms.get(kname),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -299,16 +299,21 @@ def test_numpy_locator_is_the_ports_locator():
 
 def _serving_source() -> str:
     src = (REPO / "chip_smoke.py").read_text()
-    return src[src.index("    # ---- phase 6b"):src.index("    # ---- phase 7: timing")]
+    return src[src.index("    # ---- phase 6b"):src.index("    # ---- phase 6c")]
+
+
+def _proposal_source() -> str:
+    src = (REPO / "chip_smoke.py").read_text()
+    return src[src.index("    # ---- phase 6c"):src.index("    # ---- phase 7: timing")]
 
 
 def test_kernel_sources_name_every_kernel_of_the_port():
-    """The ``kernels`` line lists all ten kernels: every wrapper's launch
+    """The ``kernels`` line lists all eleven kernels: every wrapper's launch
     count, its source in the repo and the line of the JAX code it replaces."""
     from celestia_tpu_torch.ops import _cuda
 
     assert list(chip_smoke.KERNEL_SOURCES) == list(_cuda.LAUNCHES)
-    assert len(chip_smoke.KERNEL_SOURCES) == 10
+    assert len(chip_smoke.KERNEL_SOURCES) == 11
     for name, (source, replaces) in chip_smoke.KERNEL_SOURCES.items():
         assert (REPO / source).is_file(), name
         path, line = replaces.split(":")
@@ -317,6 +322,27 @@ def test_kernel_sources_name_every_kernel_of_the_port():
         "celestia_tpu_torch/csrc/ragged_gather.cu", "celestia_tpu/ops/ragged.py:51")
     assert "def _jitted_gather" in (REPO / "celestia_tpu/ops/ragged.py").read_text(
         ).splitlines()[51]
+    assert chip_smoke.KERNEL_SOURCES["assemble_square"] == (
+        "celestia_tpu_torch/csrc/assemble_square.cu", "celestia_tpu/ops/extend_tpu.py:766")
+    assert (REPO / "celestia_tpu/ops/extend_tpu.py").read_text().splitlines()[765].startswith(
+        "def _assemble_square(")
+
+
+def test_proposal_phase_catches_no_failure():
+    """Every check of the proposal phase raises (no except clause), and it
+    reports the kernel against its plain version, the main path's launches,
+    the oracle DAHs through the assembly and the proposal's times."""
+    import ast
+    import textwrap
+
+    src = _proposal_source()
+    tree = ast.parse(textwrap.dedent(src))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    for name in ('phase="kernel_vs_plain", kernel="assemble_square"',
+                 'entry="assembled_proposal_dah"', 'route="assembled"', 'phase="proposal"',
+                 'launches["assemble_square"]'):
+        assert name in src, name
+    assert src.count("check(") >= 8
 
 
 def test_serving_phase_catches_no_failure():
@@ -366,3 +392,52 @@ def test_gather_case_is_the_crowds_one_bucket():
     got = ragged_cuda.gather_rows_reference(*case)
     for t, (h, i) in enumerate(distinct):
         assert torch.equal(got[t], squares[h][i])
+
+
+@pytest.mark.parametrize("family", chip_smoke.ASSEMBLY_FAMILIES)
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_assembly_case_is_an_input_assembled_roots_accepts(k, family):
+    case = chip_smoke.assembly_case(k, 5, family)
+    s = k * k
+    starts, pos = case["blob_start"], case["host_pos"]
+    assert all(a < b for a, b in zip(starts, starts[1:])) and all(0 <= x < s for x in starts)
+    assert all(a < b for a, b in zip(pos, pos[1:])) and all(0 <= x < s for x in pos)
+    assert len(case["host_row"]) == len(pos)
+    assert len(pos) == 0 or 0 <= case["host_row"].min() <= case["host_row"].max() < len(
+        case["host_shares"])
+    n = len(starts)
+    assert all(len(case[f]) == n for f in ("blob_nshares", "blob_off", "blob_len"))
+    assert case["ns_table"].shape == (n, 29) and case["host_shares"].shape[1] == 512
+    assert (case["blob_nshares"] >= 1).all() and (case["blob_len"] >= 1).all()
+    # no blob runs into the next one's start
+    assert all(st + ns <= nxt for st, ns, nxt in zip(starts, case["blob_nshares"],
+                                                     list(starts[1:]) + [s]))
+    past_end = case["blob_off"] + case["blob_len"] > len(case["arena"])
+    assert past_end.any() if family == "arena_edge" else not past_end.any()
+    if family == "no_blobs":
+        assert n == 0
+    if family == "one_blob":
+        assert n == 1
+
+
+def test_assembly_case_rejects_an_unknown_family():
+    with pytest.raises(ValueError):
+        chip_smoke.assembly_case(4, 0, "no_such_family")
+
+
+def test_proposal_txs_fill_a_k128_square():
+    """bench.py config 8b's traffic: 60 blob txs, each one blob of 120,000
+    bytes in its own namespace; the port's build_ex keeps all of them in a
+    k = 128 square, and the assembly's byte count is the issue's."""
+    from celestia_tpu_torch import blob, square
+
+    txs = chip_smoke.proposal_txs()
+    assert len(txs) == chip_smoke.PROPOSAL_BLOBS == 60
+    parsed = [blob.unmarshal_blob_tx(tx)[0] for tx in txs]
+    assert all(len(p.tx) == chip_smoke.PFB_INNER_BYTES and len(p.blobs) == 1 for p in parsed)
+    assert len({p.blobs[0].namespace().bytes for p in parsed}) == 60
+    assert {len(p.blobs[0].data) for p in parsed} == {120_000}
+    sq, kept, builder = square.build_ex(txs, 1, chip_smoke.PROPOSAL_K)
+    assert kept == txs and square.square_size(len(sq)) == 128
+    assert len(builder.blob_layout()) == 60
+    assert chip_smoke.assembly_bytes(128, [120_000] * 60, 0) == 128 * 128 * 512 + 7_200_000

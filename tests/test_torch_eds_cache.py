@@ -321,3 +321,53 @@ def test_resident_cache_pin_and_evict_contract():
     assert ours.stats() == theirs.stats()
     for g in GAUGES[:2]:
         assert metrics.get_gauge(g) == jax_metrics.get_gauge(g)
+
+
+def test_pin_count_equal_jax():
+    """PagedEdsCache.pin_count: a height's pins and its pages' pins, on the
+    same puts, pins and reads as the JAX cache."""
+    pair = Pair(rows_per_page=2, max_heights=2)
+    pair.put(1, 4)
+    pair.put(2, 4)
+    for cache in (pair.jax, pair.port):
+        assert cache.pin_count(1) == cache.pin_count(2) == cache.pin_count(9) == 0
+    for cache in (pair.jax, pair.port):
+        with cache.pinned(1):
+            with cache.pinned(1):
+                assert cache.pin_count(1) == 2 and cache.pin_count(2) == 0
+            page = cache.get(2).pages[1]
+            cache._pin_resident(page)
+            assert cache.pin_count(2) == 1 and cache.pin_count(1) == 1
+            cache._unpin(page)
+        cache.get(2).row(3)  # a read pins and unpins its page
+        assert cache.pin_count(1) == cache.pin_count(2) == 0
+    pair.assert_same_state()
+
+
+def test_flattened_shares_equal_jax():
+    """PagedEds.flattened_shares: every cell row-major, as the JAX handle's,
+    under a one-page budget (the square is assembled from every page)."""
+    pair = one_page_pair(heights=(1,))
+    theirs, ours = pair.both(lambda c: c.get(1).flattened_shares())
+    host = pair.hosts[1]
+    w = host.shape[0]
+    assert ours == theirs == [host[i, j].tobytes() for i in range(w) for j in range(w)]
+    pair.assert_same_state()
+
+
+def test_resident_device_bytes_equal_jax():
+    """ResidentEdsCache.device_bytes: the device bytes of every retained
+    square; entries without a device buffer count zero."""
+    caches = (jax_eds_cache.ResidentEdsCache(capacity=3), eds_cache.ResidentEdsCache(capacity=3))
+    host = host_eds(2, 1)
+    jax_cache, port_cache = caches
+    assert jax_cache.device_bytes() == port_cache.device_bytes() == 0
+    jax_cache.put(1, jax_da.ExtendedDataSquare.from_device(jax.device_put(host), 2))
+    port_cache.put(1, da.ExtendedDataSquare.from_device(torch.from_numpy(host.copy()), 2))
+    for cache in caches:
+        cache.put(2, "opaque")
+        cache.put(3, da.ExtendedDataSquare(host, 2, "cpu"))  # host bytes only
+    assert jax_cache.device_bytes() == port_cache.device_bytes() == host.nbytes
+    for cache in caches:
+        cache.put(4, "evicts 1")
+    assert jax_cache.device_bytes() == port_cache.device_bytes() == 0

@@ -12,10 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from celestia_tpu_torch import da, device
+from celestia_tpu_torch import da, device, proof
+from celestia_tpu_torch.app import proposal
 from celestia_tpu_torch.da import repair as da_repair
 from celestia_tpu_torch.node import Node, eds_cache
-from celestia_tpu_torch.ops import extend, ragged, repair, transfers
+from celestia_tpu_torch.ops import blob_pool, extend, ragged, repair, transfers
+from celestia_tpu_torch.shares import tail_padding_share
+from celestia_tpu_torch.shares.splitters import Range
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "celestia_tpu_torch"
@@ -50,7 +53,10 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
     for name in ("ops.extend", "da", "telemetry", "faults", "tracing", "integrity",
                  "ops.transfers", "ops.repair", "ops.repair_cuda", "da.repair",
                  "ops.merkle_cuda", "ops.ragged", "ops.ragged_cuda", "proof", "node",
-                 "node.node", "node.eds_cache"):
+                 "node.node", "node.eds_cache", "appconsts", "blob", "shares",
+                 "shares.info_byte", "shares.splitters", "shares.parse", "inclusion",
+                 "inclusion.cache", "square", "ops.blob_pool", "ops.assemble",
+                 "ops.assemble_cuda", "app.proposal"):
         assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
@@ -117,6 +123,12 @@ ENTRIES = {
     "PagedEdsCache": lambda: eds_cache.PagedEdsCache(),
     "ResidentEdsCache.block_dah": _resident_dah,
     "gather_rows": _gather_cuda_page,
+    "DeviceBlobArena": lambda: blob_pool.DeviceBlobArena(8192),
+    "assembled_proposal_dah": lambda: proposal.assembled_proposal_dah(
+        blob_pool.DeviceBlobArena(8192, device="cpu"), [tail_padding_share()], None, 1),
+    "new_share_inclusion_proof": lambda: proof.new_share_inclusion_proof(
+        [tail_padding_share()], tail_padding_share().namespace(), Range(0, 1)),
+    "new_tx_inclusion_proof": lambda: proof.new_tx_inclusion_proof([b"\x01" * 40], 0, 1),
 }
 
 

@@ -1,5 +1,5 @@
-"""The port's DAS proofs (celestia_tpu_torch/proof) against the JAX
-package's proof module.
+"""The port's proofs (celestia_tpu_torch/proof) against the JAX package's
+proof module.
 
 For each k from 1 to 16, one square (sorted v0 namespaces over random bytes,
 made with numpy from a seed) is extended by the port on the CPU. The port's
@@ -8,7 +8,9 @@ package's; the port's provers, host-built and seeded from those levels,
 give the JAX provers' roots and proofs byte for byte; ``das_sample_docs``
 gives the JAX documents; every proof verifies against the port's DAH row
 roots and fails for a changed share; and every ValueError the JAX module
-raises, the port raises.
+raises, the port raises. The Merkle, absence, share and tx inclusion
+proofs (squares built from the same txs by both packages, the port's
+extended on the CPU) equal the JAX proofs and verify against the DAH.
 """
 
 import functools
@@ -16,11 +18,20 @@ import functools
 import numpy as np
 import pytest
 
+from celestia_tpu import blob as jax_blob
 from celestia_tpu import da as jax_da
+from celestia_tpu import namespace as jax_ns
 from celestia_tpu import proof as jax_proof
+from celestia_tpu import square as jax_square
+from celestia_tpu.shares import to_bytes as jax_to_bytes
 from celestia_tpu.ops import extend_tpu
 from celestia_tpu_torch import da, proof
+from celestia_tpu_torch import square as square_pkg
+from celestia_tpu_torch import namespace as ns_pkg
 from celestia_tpu_torch.ops import extend
+from celestia_tpu_torch.ops.nmt_host import merkle_root, nmt_root
+from celestia_tpu_torch.shares import to_bytes
+from celestia_tpu_torch.shares.splitters import Range
 from tests.test_torch_extend import square
 
 KS = [1, 2, 4, 8, 16]
@@ -145,7 +156,27 @@ ERRORS = {
     "verify_leftover": lambda m: _leftover(m),
     "verify_wrong_root": lambda m: m.nmt_prove_range(_leaves(), 1, 2).verify_inclusion(
         b"\x00" * 90, [_leaves()[1][:29]], [_leaves()[1][29:]]),
+    "merkle_wrong_leaf": lambda m: m.merkle_proofs([b"a", b"b", b"c"])[1][1].verify(
+        m.merkle_proofs([b"a", b"b", b"c"])[0], b"c"),
+    "merkle_wrong_root": lambda m: m.merkle_proofs([b"a", b"b"])[1][0].verify(b"\x00" * 32, b"a"),
+    "merkle_bad_index": lambda m: m._hash_from_aunts(3, 3, b"", []),
+    "absence_present": lambda m: m.nmt_prove_absence(_ns_leaves(2, 4, 8), _ns(4)),
+    "absence_outside": lambda m: m.nmt_prove_absence(_ns_leaves(2, 4, 8), _ns(9)),
+    "absence_required": lambda m: m.verify_namespace_absent(
+        nmt_root(_ns_leaves(5, 6, 7, 8)), _ns(6), None),
+    "absence_not_above": lambda m: m.nmt_prove_absence(_ns_leaves(2, 4, 8, 9), _ns(5)).verify(
+        nmt_root(_ns_leaves(2, 4, 8, 9)), _ns(9)),
+    "absence_wrong_tree": lambda m: m.nmt_prove_absence(_ns_leaves(2, 4, 8, 9), _ns(5)).verify(
+        nmt_root(_ns_leaves(2, 5, 8, 9)), _ns(5)),
 }
+
+
+def _ns(b: int) -> bytes:
+    return bytes(28) + bytes([b])
+
+
+def _ns_leaves(*bs: int) -> list[bytes]:
+    return [_ns(b) + b"\x07" * 16 for b in bs]
 
 
 def _leftover(m):
@@ -162,3 +193,91 @@ def test_value_errors_equal_jax(case):
     with pytest.raises(ValueError) as ours:
         ERRORS[case](proof)
     assert str(ours.value) == str(theirs.value)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 5, 8, 13])
+def test_merkle_proofs_equal_jax(n):
+    rng = np.random.default_rng(n)
+    items = [rng.integers(0, 256, 32, dtype=np.uint8).tobytes() for _ in range(n)]
+    root, proofs = proof.merkle_proofs(items)
+    j_root, j_proofs = jax_proof.merkle_proofs(items)
+    assert root == j_root
+    assert [(p.total, p.index, p.leaf_hash, p.aunts) for p in proofs] == [
+        (p.total, p.index, p.leaf_hash, p.aunts) for p in j_proofs]
+    if n:
+        assert root == merkle_root(items)
+    for i, p in enumerate(proofs):
+        p.verify(root, items[i])
+
+
+@pytest.mark.parametrize("missing", [3, 5, 6, 7])
+def test_absence_proofs_equal_jax(missing):
+    leaves = _ns_leaves(2, 4, 4, 8, 9)
+    root = nmt_root(leaves)
+    got = proof.nmt_prove_absence(leaves, _ns(missing))
+    assert got.to_json() == jax_proof.nmt_prove_absence(leaves, _ns(missing)).to_json()
+    proof.verify_namespace_absent(root, _ns(missing), got)
+    back = proof.NmtAbsenceProof.from_json(got.to_json())
+    assert back == got
+    for outside in (1, 200):
+        proof.verify_namespace_absent(root, _ns(outside), None)
+
+
+def _blob_tx(rng, sizes) -> bytes:
+    blobs = [jax_blob.new_blob(jax_ns.new_v0(rng.integers(0, 256, 5, dtype=np.uint8).tobytes()),
+                               rng.integers(0, 256, s, dtype=np.uint8).tobytes(), 0)
+             for s in sizes]
+    return jax_blob.marshal_blob_tx(rng.integers(0, 256, 64, dtype=np.uint8).tobytes(), blobs)
+
+
+def _share_proof_doc(p) -> tuple:
+    return (p.data, [nodes_of(sp) for sp in p.share_proofs], p.namespace.bytes,
+            p.row_proof.row_roots, p.row_proof.start_row, p.row_proof.end_row,
+            [(m.total, m.index, m.leaf_hash, m.aunts) for m in p.row_proof.proofs])
+
+
+def _txs(seed: int) -> list[bytes]:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, 300, dtype=np.uint8).tobytes(),
+            rng.integers(0, 256, 500, dtype=np.uint8).tobytes(),
+            _blob_tx(rng, [2000]), _blob_tx(rng, [30_000, 10])]
+
+
+@functools.lru_cache(maxsize=None)
+def _constructed(seed: int):
+    txs = _txs(seed)
+    sq = square_pkg.construct(txs, 1, 64)
+    dah = da.new_data_availability_header(da.extend_shares(to_bytes(sq), "cpu"))
+    return txs, sq, dah
+
+
+@pytest.mark.parametrize("tx_index", range(4))
+def test_tx_inclusion_proofs_equal_jax(tx_index):
+    txs, _sq, dah = _constructed(21)
+    got = proof.new_tx_inclusion_proof(txs, tx_index, 1, device="cpu")
+    assert _share_proof_doc(got) == _share_proof_doc(
+        jax_proof.new_tx_inclusion_proof(txs, tx_index, 1))
+    got.validate(dah.hash())
+    with pytest.raises(ValueError):
+        got.validate(b"\x00" * 32)
+    got.data[0] = b"\x00" * 512
+    with pytest.raises(ValueError):
+        got.validate(dah.hash())
+
+
+def test_multirow_share_proof_equal_jax():
+    txs, sq, dah = _constructed(21)
+    r = square_pkg.blob_share_range(txs, 3, 0, 1)
+    namespace = ns_pkg.from_bytes(sq[r.start].data[:29])
+    eds = da.extend_shares(to_bytes(sq), "cpu")
+    got = proof.new_share_inclusion_proof(sq, namespace, r, device="cpu")
+    given = proof.new_share_inclusion_proof(sq, namespace, Range(r.start, r.end), eds=eds,
+                                            dah=dah)
+    j_sq = jax_square.construct(txs, 1, 64)
+    want = jax_proof.new_share_inclusion_proof(
+        j_sq, jax_ns.from_bytes(namespace.bytes), jax_square.blob_share_range(txs, 3, 0, 1))
+    assert _share_proof_doc(got) == _share_proof_doc(given) == _share_proof_doc(want)
+    assert got.row_proof.end_row > got.row_proof.start_row
+    got.validate(dah.hash())
+    assert dah.hash() == jax_da.new_data_availability_header(
+        jax_da.extend_shares(jax_to_bytes(j_sq))).hash()
