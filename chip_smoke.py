@@ -139,10 +139,14 @@ prints no result; it also exits non-zero when no CUDA device is present):
    provers come from one K2 and one tree launch, its proofs the host's.
 6c. The proposer's path from transactions (``proposal``): the square
    assembly kernel against its plain version byte for byte at every power
-   of two k from 1 to 128 on six input families (one blob; many blobs of
+   of two k from 1 to 128 on seven input families (one blob; many blobs of
    random share counts and odd lengths; host cells over blob cells; cells
    no blob or host row covers; no blob; blobs running past the arena's
-   end), with its registers and spills. Then bench.py config 8b's traffic
+   end; the arena's alignments: every shift between a share's arena bytes
+   and its cell on first and later shares, last shares ending at every
+   residue mod 16, and an arena of 7 mod 16 bytes with a blob on its last
+   byte), 56 cases, with its registers and spills (none allowed). Then
+   bench.py config 8b's traffic
    (60 blobs of 120,000 random bytes, seed 11, each in its own v0
    namespace, a fixed inner tx of a signed PFB's length): the port's
    square.build_ex to a k = 128 square, the blobs staged by put_many into
@@ -174,7 +178,9 @@ prints no result; it also exits non-zero when no CUDA device is present):
    rs.decode_program and the plan's data (``decode_sweep_work``), and
    its plain version (median of 3); the assembly at config 8b's square
    beside its bound (every cell written, every blob byte and host row read
-   once) and its plain version (median of 3); and K6 with the layout's levers undone
+   once), its copy floor (the device time of one device-to-device copy_
+   of the square's 8 MiB: the same bytes moved, not the same function) and
+   its plain version (median of 3); and K6 with the layout's levers undone
    one at a time (``xor_levers``: the rows' or the nodes' conflict-free
    order shuffled, 8 groups instead of 4); end to end (host clock, H2D and D2H included) at k = 64 and
    128, 20 calls of roots_device and extend_roots_device_resident per route
@@ -327,8 +333,9 @@ PROPOSAL_SEED = 11
 PFB_INNER_BYTES = 337
 # the assembly kernel's input families (kernel against plain, phase 6c)
 ASSEMBLY_FAMILIES = ("one_blob", "many_blobs", "host_over_blob", "uncovered", "no_blobs",
-                     "arena_edge")
+                     "arena_edge", "misaligned")
 FIRST_SPARSE, CONT_SPARSE = 478, 482  # data bytes of a blob's first and later shares
+FIRST_PREFIX, CONT_PREFIX = 34, 30  # the bytes before them: namespace, info[, length]
 
 
 def serving_crowd(seed: int, heights, width: int, n: int) -> list[tuple[int, int, int]]:
@@ -386,34 +393,39 @@ def assembly_case(k: int, seed: int, family: str) -> dict[str, np.ndarray]:
     ``host_over_blob``, a quarter of all cells host cells, blob cells among
     them; ``uncovered``, no host cell, cell 0 before every blob and each
     blob over half its gap (the rest blob 0's namespace and zeros); ``arena_edge``, blobs that run past the
-    arena's end (their indexes clamped)."""
+    arena's end (their indexes clamped); ``misaligned``, the arena's
+    alignments (``misaligned_blobs``)."""
     if family not in ASSEMBLY_FAMILIES:
         raise ValueError(f"unknown assembly family {family!r}")
     r = np.random.default_rng(seed)
     s = k * k
     n_arena = max(8192, s * 256)
-    if family == "no_blobs":
-        starts: list[int] = []
-    elif family == "one_blob":
-        starts = [int(r.integers(0, max(1, s // 4)))]
-    elif family == "uncovered" and s > 1:  # cell 0 and each blob's tail uncovered
-        starts = sorted(int(x) + 1 for x in r.choice(
-            s - 1, size=min(max(1, s // 4), int(r.integers(2, 65))), replace=False))
+    if family == "misaligned":
+        n_arena += 7  # not a multiple of 16: the arena's last vector is partial
+        starts, nsh, lens, offs = misaligned_blobs(r, s, n_arena)
     else:
-        starts = sorted(int(x) for x in r.choice(s, size=min(s, int(r.integers(2, 65))),
-                                                 replace=False))
-    nsh, lens, offs = [], [], []
-    for st, en in zip(starts, starts[1:] + [s]):
-        gap = en - st
-        n = max(1, gap // 2) if family == "uncovered" else int(r.integers(1, gap + 1))
-        full = FIRST_SPARSE + (n - 1) * CONT_SPARSE
-        lo = full - CONT_SPARSE + 1 if n > 1 and r.random() < 0.8 else 1
-        ln = int(r.integers(lo, full + 1))
-        off = (n_arena - ln // 2 if family == "arena_edge"
-               else int(r.integers(0, max(1, n_arena - ln))))
-        nsh.append(n)
-        lens.append(ln)
-        offs.append(off)
+        if family == "no_blobs":
+            starts: list[int] = []
+        elif family == "one_blob":
+            starts = [int(r.integers(0, max(1, s // 4)))]
+        elif family == "uncovered" and s > 1:  # cell 0 and each blob's tail uncovered
+            starts = sorted(int(x) + 1 for x in r.choice(
+                s - 1, size=min(max(1, s // 4), int(r.integers(2, 65))), replace=False))
+        else:
+            starts = sorted(int(x) for x in r.choice(s, size=min(s, int(r.integers(2, 65))),
+                                                     replace=False))
+        nsh, lens, offs = [], [], []
+        for st, en in zip(starts, starts[1:] + [s]):
+            gap = en - st
+            n = max(1, gap // 2) if family == "uncovered" else int(r.integers(1, gap + 1))
+            full = FIRST_SPARSE + (n - 1) * CONT_SPARSE
+            lo = full - CONT_SPARSE + 1 if n > 1 and r.random() < 0.8 else 1
+            ln = int(r.integers(lo, full + 1))
+            off = (n_arena - ln // 2 if family == "arena_edge"
+                   else int(r.integers(0, max(1, n_arena - ln))))
+            nsh.append(n)
+            lens.append(ln)
+            offs.append(off)
     covered = np.zeros(s, bool)
     for st, n in zip(starts, nsh):
         covered[st: st + n] = True
@@ -437,6 +449,50 @@ def assembly_case(k: int, seed: int, family: str) -> dict[str, np.ndarray]:
         "blob_len": np.asarray(lens, np.int32),
         "ns_table": r.integers(0, 256, (len(starts), 29), dtype=np.uint8),
     }
+
+
+def misaligned_blobs(r: np.random.Generator, s: int, n_arena: int):
+    """(starts, shares, lengths, offsets) of the ``misaligned`` family over
+    s cells: one one-share blob that ends on the arena's last byte, then 16
+    blobs whose offsets take every residue mod 16 (so a first share's shift
+    takes all 16 values) and whose last shares end at every residue mod 16
+    of the cell, one of them a full share; the first even- and odd-offset
+    blobs have 9 shares (their later shares' shifts, off + 2 (j - 1) mod 16,
+    take the other 8 values each), the rest 1 to 3, at least two of them
+    one share. A blob whose shares do not fit after those before it is left
+    out; every blob fits from s = 64 (k = 8) on. They lie in the square in
+    a random order, with random gaps."""
+    res, tails = r.permutation(16), r.permutation(16)
+    long_ = {int(np.flatnonzero(res % 2 == 0)[0]), int(np.flatnonzero(res % 2 == 1)[0])}
+    short = [i for i in range(16) if i not in long_]
+    one = set(short[:2])
+    blobs = []  # (shares, length, offset)
+    end_len = int(r.integers(1, FIRST_SPARSE + 1))
+    blobs.append((1, end_len, n_arena - end_len))
+    for i in range(16):
+        n = 9 if i in long_ else 1 if i in one else int(r.integers(1, 4))
+        cap, prefix = (FIRST_SPARSE, FIRST_PREFIX) if n == 1 else (CONT_SPARSE, CONT_PREFIX)
+        if tails[i] == 0:
+            last = cap  # ends at the cell's last byte
+        else:
+            last = int((tails[i] - prefix) % 16) + 16 * int(r.integers(0, cap // 16 - 2))
+            last = last or 16
+        ln = (0 if n == 1 else FIRST_SPARSE + (n - 2) * CONT_SPARSE) + last
+        off = 16 * int(r.integers(0, (n_arena - ln - res[i]) // 16 + 1)) + int(res[i])
+        blobs.append((n, ln, off))
+    kept, used = [], 0
+    for b in blobs:
+        if used + b[0] <= s:
+            kept.append(b)
+            used += b[0]
+    kept = [kept[i] for i in r.permutation(len(kept))]
+    gaps = r.multinomial(s - used, np.ones(len(kept) + 1) / (len(kept) + 1))
+    starts, at = [], 0
+    for (n, _ln, _off), g in zip(kept, gaps):
+        at += int(g)
+        starts.append(at)
+        at += n
+    return (starts, [b[0] for b in kept], [b[1] for b in kept], [b[2] for b in kept])
 
 
 def assembly_bytes(k: int, blob_len, host_rows: int) -> int:
@@ -1917,6 +1973,9 @@ def main(argv: list[str]) -> int:
     asm_ptxas = [r for name, r in ptxas_report(_cuda.build_log()).items()
                  if "assemble_square_kernel" in name]
     check(len(asm_ptxas) == 1, "no ptxas report of the assembly kernel")
+    check(asm_ptxas[0].get("spill_store_bytes", 0) == 0
+          and asm_ptxas[0].get("spill_load_bytes", 0) == 0,
+          f"the assembly kernel spills: {asm_ptxas[0]}")
     emit(phase="kernel_vs_plain", kernel="assemble_square", k=asm_k,
          families=list(ASSEMBLY_FAMILIES), cases=cases, tolerance=0,
          max_abs_err=max_err["assemble_square"], **asm_ptxas[0])
@@ -2199,6 +2258,11 @@ def main(argv: list[str]) -> int:
     check(torch.equal(torch.cat(row_views), ragged_cuda.ragged_gather(*g_case)),
           "torch.cat of the row views differs from the ragged gather")
     library_calls = {"ragged_gather": lambda: torch.cat(row_views)}
+    # the assembly's copy floor: one device-to-device copy_ of as many bytes
+    # as the square (the same bytes moved, not the same function)
+    copy_src = torch.empty(pk * pk * SHARE_SIZE, dtype=torch.uint8, device=dev)
+    copy_dst = torch.empty_like(copy_src)
+    library_calls["assemble_copy_floor"] = lambda: copy_dst.copy_(copy_src)
     library_event_ms = {name: cuda_ms(fn, inner=10) for name, fn in library_calls.items()}
     for kk, (_swept, plain_sq, plan, _p) in repair_timed.items():
         plain_ms[f"decode_sweep_{kk}"] = cuda_ms(
@@ -2513,7 +2577,9 @@ def main(argv: list[str]) -> int:
          launch_range_ms=[min(per_launch["assemble_square"]),
                           max(per_launch["assemble_square"])],
          event_ms=event_ms["assemble_square"], plain_ms=plain_ms["assemble_square"],
-         bound_ms=a_bound[0], bound_by=a_bound[1])
+         bound_ms=a_bound[0], bound_by=a_bound[1],
+         copy_floor_ms=library_ms["assemble_copy_floor"],
+         copy_floor_event_ms=library_event_ms["assemble_copy_floor"])
     results["assemble_square"] = (dev_ms["assemble_square"], event_ms["assemble_square"],
                                   plain_ms["assemble_square"], a_bound)
 

@@ -5,8 +5,10 @@ package, byte for byte.
 - The plain version equals the JAX graph ``extend_tpu._assemble_square``
   on every input family of chip_smoke.py (one blob, many blobs of odd
   lengths, host cells over blob cells, cells nothing covers, no blob, blobs
-  past the arena's end) at k = 1..16, and a numpy emulation of the CUDA
-  kernel's tile windows (csrc/assemble_square.cu) equals the plain version.
+  past the arena's end, every shift between a share's arena bytes and its
+  cell) at k = 1..16, and a numpy emulation of the CUDA kernel
+  (csrc/assemble_square.cu: its narrowed windows, realigned word loads,
+  masks and byte path) equals the plain version.
 - ``assembled_roots`` on the CPU equals the JAX ``assembled_roots`` and the
   port's ``roots_device(device="cpu")`` of the host-built square, for
   squares built from blob txs: one and many blobs, multi-share and odd
@@ -92,55 +94,130 @@ def jax_assemble(case: dict, k: int) -> np.ndarray:
     return np.asarray(out)
 
 
+WARPS, CELLS = 4, 2  # csrc/assemble_square.cu: kWarps, kCells
+TILE, WIN = WARPS * CELLS, 64  # kTile, kWin
+NARROW_TO = WIN - TILE - 1  # kNarrowTo
+LANES = np.arange(32)
+
+
+def narrow(a: np.ndarray, v: int, strict: bool) -> int:
+    """The kernel's ``narrow``: each step the 32 lanes test the last entry
+    of 32 equal segments and the ballot's popcount keeps one segment."""
+    lo, hi = 0, len(a)
+    while hi - lo > NARROW_TO:
+        w = (hi - lo + 31) >> 5
+        q = lo + (LANES + 1) * w - 1
+        x = a[np.minimum(q, len(a) - 1)]
+        c = int(((q < hi) & ((x < v) if strict else (x <= v))).sum())
+        hi = min(lo + (c + 1) * w - 1, hi)
+        lo += c * w
+    return lo
+
+
+def window(a: np.ndarray, wb: int, below: int, above: int) -> np.ndarray:
+    """Entries wb .. wb + 63 of a, padded as the kernel pads them."""
+    i = wb + np.arange(WIN)
+    return np.where(i < 0, below, np.where(i < len(a), a[np.clip(i, 0, len(a) - 1)], above))
+
+
+def funnel(lo: np.ndarray, hi: np.ndarray, s: int) -> np.ndarray:
+    """__funnelshift_r on uint32 words held as int64."""
+    return ((hi << 32 | lo) >> s) & 0xFFFFFFFF
+
+
+def realign(x: np.ndarray, y: np.ndarray, r: int) -> np.ndarray:
+    """The kernel's ``realign``, one case a value of r / 4: (32, 4) words
+    of x ‖ y shifted by r bytes."""
+    xy = np.concatenate([x, y], axis=1)  # (32, 8)
+    q, s = r >> 2, 8 * (r & 3)
+    return np.stack([funnel(xy[:, q + i], xy[:, q + i + 1], s) for i in range(4)], axis=1)
+
+
+def lane_mask(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """The kernel's ``lane_mask``: (32,) lanes' bytes [lo, hi) of their 16
+    as a 16-bit mask, each nibble spread to a word's bytes by a multiply."""
+    lo, hi = np.clip(lo, 0, 16), np.clip(hi, 0, 16)
+    m = ((1 << hi) - 1) & ~((1 << lo) - 1)
+    nib = (m[:, None] >> (4 * np.arange(4))) & 15
+    return (((nib * 0x00204081) & 0x01010101) * 0xFF) & 0xFFFFFFFF
+
+
+def words(b: np.ndarray) -> np.ndarray:
+    """(..., 16) bytes -> (..., 4) little-endian words as int64."""
+    return b.astype(np.int64).reshape(*b.shape[:-1], 4, 4) @ (1 << (8 * np.arange(4)))
+
+
 def emulate_kernel(case: dict, k: int) -> np.ndarray:
-    """csrc/assemble_square.cu in numpy: tiles of 32 cells, each finding its
-    blob window and host window by binary search, then a search per cell in
-    the windows (what the block keeps in shared memory)."""
-    s, tile = k * k, 32
+    """csrc/assemble_square.cu in numpy (its arena 16-byte aligned): per
+    tile of 8 cells the blob and host windows the ballot-narrowed searches
+    leave; per cell, its window lookups and then, per lane, the aligned
+    vector it loads (lane 0: V_32), the neighbour's, the funnel shift by
+    r, the tail mask and the prefix merged into lanes 0-2; the byte path,
+    with its clamping, whenever a vector would leave the arena. Asserts
+    that no vector load leaves it."""
+    s = k * k
     starts = case["blob_start"].astype(np.int64)
     nsh, off, ln = (case[f].astype(np.int64) for f in META[1:])
     pos, rows = case["host_pos"].astype(np.int64), case["host_row"].astype(np.int64)
     arena, host, ns = case["arena"], case["host_shares"], case["ns_table"]
-    nb = len(starts)
-    out = np.zeros((s, 512), np.uint8)
-    for c0 in range(0, s, tile):
-        c1 = min(c0 + tile, s)
-        b_lo = b_n = 0
+    n_arena, nb = len(arena), len(starts)
+    vecs = np.zeros((n_arena + 15) // 16 * 16, np.uint8)
+    vecs[:n_arena] = arena
+    vecs = words(vecs.reshape(-1, 16))  # (vectors, 4)
+    out = np.zeros((s, 32, 4), np.int64)
+    for c0 in range(0, s, TILE):
         if nb:
-            b_lo = max(int(np.searchsorted(starts, c0, "right")) - 1, 0)
-            b_hi = max(int(np.searchsorted(starts, c1 - 1, "right")) - 1, 0)
-            b_n = min(b_hi - b_lo + 1, tile)
-        h_lo = int(np.searchsorted(pos, c0, "left"))
-        h_n = min(int(np.searchsorted(pos, c1, "left")) - h_lo, tile)
-        s_start = starts[b_lo: b_lo + b_n]
-        s_hpos, s_hrow = pos[h_lo: h_lo + h_n], rows[h_lo: h_lo + h_n]
-        for c in range(c0, c1):
-            h = int(np.searchsorted(s_hpos, c, "left"))
-            if h < h_n and s_hpos[h] == c:
-                out[c] = host[min(max(int(s_hrow[h]), 0), len(host) - 1)]
+            bwb = narrow(starts, c0, strict=False) - 1
+            w_start = window(starts, bwb, -(1 << 31), (1 << 31) - 1)
+            w_nsh, w_off, w_len = (window(a, bwb, 0, 0) for a in (nsh, off, ln))
+        if len(pos):
+            hwb = narrow(pos, c0, strict=True) - 1
+            w_hpos, w_hrow = window(pos, hwb, -1, -1), window(rows, hwb, 0, 0)
+        for c in range(c0, min(c0 + TILE, s)):
+            if len(pos) and (w_hpos == c).any():
+                h = int(np.flatnonzero(w_hpos == c)[0])
+                out[c] = words(host[min(max(int(w_hrow[h]), 0), len(host) - 1)].reshape(32, 16))
                 continue
             first, data_start, data_len, cb, blen = False, 0, 0, 0, 0
             if nb:
-                b = b_lo + max(int(np.searchsorted(s_start, c, "right")) - 1, 0)
-                j = c - int(starts[b])
-                if 0 <= j < nsh[b]:
+                cnt = int((w_start <= c).sum())
+                slot = min(max(max(bwb + cnt - 1, 0) - bwb, 0), WIN - 1)
+                j = c - int(w_start[slot])
+                if 0 <= j < w_nsh[slot]:
                     first = j == 0
                     doff = 0 if first else 478 + (j - 1) * 482
-                    data_start = int(off[b]) + doff
-                    data_len = min(478 if first else 482, int(ln[b]) - doff)
-                    cb, blen = b, int(ln[b]) & 0xFFFFFFFF
-            cell = np.zeros(512, np.uint8)
-            if nb:
-                cell[:29] = ns[cb]
-            cell[29] = 1 if first else 0
-            prefix = 34 if first else 30
-            if first:
-                cell[30:34] = np.frombuffer(blen.to_bytes(4, "big"), np.uint8)
+                    data_start = int(w_off[slot]) + doff
+                    data_len = min(478 if first else 482, int(w_len[slot]) - doff)
+                    cb, blen = bwb + slot, int(w_len[slot]) & 0xFFFFFFFF
+            pre = 34 if first else 30
+            end = pre + max(data_len, 0)
+            d = np.zeros((32, 4), np.int64)
             if data_len > 0:
-                idx = np.clip(data_start + np.arange(data_len), 0, len(arena) - 1)
-                cell[prefix: prefix + data_len] = arena[idx]
-            out[c] = cell
-    return out.reshape(k, k, 512)
+                v_lo, v_hi = data_start >> 4, (data_start + data_len + 15) >> 4
+                if v_lo >= 0 and v_hi * 16 <= n_arena:  # the word path
+                    a_cell = data_start - pre
+                    r = a_cell & 15
+                    vm = (a_cell >> 4) + np.where(LANES == 0, 32, LANES)
+                    need = (vm >= v_lo) & (vm < v_hi)
+                    assert (vm[need] >= 0).all() and (vm[need] * 16 + 16 <= n_arena).all()
+                    x = np.where(need[:, None], vecs[np.where(need, vm, 0)], 0)
+                    d = realign(x, np.roll(x, -1, axis=0), r)
+                else:  # the byte path
+                    p = np.arange(512) - pre
+                    idx = np.clip(data_start + p, 0, n_arena - 1)
+                    d = words(np.where((p >= 0) & (p < data_len), arena[idx], 0)
+                              .astype(np.uint8).reshape(32, 16))
+            d &= lane_mask(pre - 16 * LANES, end - 16 * LANES)
+            prefix = np.zeros(48, np.uint8)  # the warp's shared-memory prefix
+            if nb:
+                prefix[:29] = ns[cb]
+            prefix[29] = 1 if first else 0
+            if first:
+                prefix[30:34] = np.frombuffer(blen.to_bytes(4, "big"), np.uint8)
+            d[:3] |= words(prefix.reshape(3, 16))
+            out[c] = d
+    cells = out.astype("<u4").view(np.uint8)
+    return cells.reshape(k, k, 512)
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -150,6 +227,28 @@ def test_plain_equals_jax_graph_and_kernel_emulation(k, family):
     got = assemble.assemble_square_reference(*tensors(case), k).numpy()
     assert np.array_equal(got, jax_assemble(case, k))
     assert np.array_equal(got, emulate_kernel(case, k))
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_narrowed_window_holds_every_cell_of_a_tile(strict):
+    """The kernel's window (64 entries from one before the narrowed range)
+    holds, for every cell of a tile, the entry that cell names,
+    over strictly ascending arrays of up to k² entries: blob starts
+    (count <= c, strict=False) and host positions (count < c)."""
+    rng = np.random.default_rng(17)
+    arrays = [np.sort(rng.choice(s, size=n, replace=False)).astype(np.int64) for s, n in (
+        (16384, 16384), (16384, 8192), (16384, 1537), (16384, 1444), (4096, 60), (256, 48),
+        (64, 47), (16384, 1))]
+    # dense runs, where every tile holds 16 entries: the narrowed range's
+    # end meets a full tile for some c0
+    arrays += [np.arange(n, dtype=np.int64) + 3 for n in (1537, 1600, 3000)]
+    for a in arrays:
+        s = int(a[-1]) + 2
+        for c0 in range(0, s, TILE):
+            wb = narrow(a, c0, strict) - 1
+            for c in range(c0, c0 + TILE):
+                count = int(np.searchsorted(a, c, "left" if strict else "right"))
+                assert wb <= count - 1 and count < wb + WIN, (len(a), c0, c)
 
 
 def test_cell_covered_by_nothing_is_blob0_namespace_then_zeros():

@@ -420,6 +420,37 @@ def test_assembly_case_is_an_input_assembled_roots_accepts(k, family):
         assert n == 1
 
 
+def test_misaligned_case_covers_every_shift_whatever_the_seed():
+    """The ``misaligned`` family from k = 8 on: the shift r between a share's
+    arena bytes and its aligned cell takes all 16 values on first shares
+    and on later shares, the last shares end at every residue mod 16 of
+    the cell (one at its last byte), one-share blobs are among them, and
+    the arena's size is not a multiple of 16, with a blob ending on its
+    last byte."""
+    import numpy as np
+
+    def shift(off: int, j: int) -> int:
+        """r of share j: the arena index its cell's byte 0 would have, mod 16
+        (the data from off + doff lands at cell byte 34 or 30)."""
+        return (off + (478 + (j - 1) * 482 - 30 if j else -34)) % 16
+
+    for k in (8, 16, 128):
+        for seed in (0, 1, 2, 3, 4, 12345):
+            case = chip_smoke.assembly_case(k, seed, "misaligned")
+            off, n, ln = (case[f].astype(int) for f in ("blob_off", "blob_nshares", "blob_len"))
+            firsts = {shift(o, 0) for o in off}
+            laters = {shift(o, j) for o, m in zip(off, n) for j in range(1, m)}
+            assert firsts == laters == set(range(16)), (k, seed)
+            last = np.where(n == 1, ln, ln - 478 - (n - 2) * 482)
+            ends = np.where(n == 1, 34, 30) + last
+            assert set(ends % 16) == set(range(16)) and (ends == 512).any(), (k, seed)
+            assert (n == 1).sum() >= 2
+            n_arena = len(case["arena"])
+            assert n_arena % 16 and (off + ln == n_arena).any(), (k, seed)
+    # a 4 KiB-aligned slot: 14 on the first share, 2 (j - 1) mod 16 after
+    assert [shift(4096, j) for j in range(4)] == [14, 0, 2, 4]
+
+
 def test_assembly_case_rejects_an_unknown_family():
     with pytest.raises(ValueError):
         chip_smoke.assembly_case(4, 0, "no_such_family")
