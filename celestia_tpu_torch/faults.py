@@ -10,6 +10,12 @@ Named sites a test or a drill can arm without touching the code path:
     transfer.chunk         one chunk of a chunked H2D/D2H (ops/transfers.py)
     cache.demote           a page's host copy on demotion (node/eds_cache.py)
     cache.faultin          a page's host copy before its upload (node/eds_cache.py)
+    store.write            a put, before its file lands        (store/__init__.py)
+    store.read             a page record's bytes, before its CRC check
+    store.fsync            the data fsync of a put or probe
+    store.rename           the rename of a put's temp file
+    store.dirsync          the store directory's fsync
+    store.unlink           a temp file's or an evicted height's unlink
 
 Fault kinds, as in the JAX package:
 

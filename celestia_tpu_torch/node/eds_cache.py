@@ -1,5 +1,6 @@
 """Pin-guarded EDS caches: the whole-square LRU and the paged device cache
-(port of the JAX package's node/eds_cache.py, its device and host tiers).
+(port of the JAX package's node/eds_cache.py, its device, host and disk
+tiers).
 
 ``ResidentEdsCache`` is the pin-guarded whole-square LRU: readers borrow
 entries through ``pinned(height)``, and eviction skips pinned entries
@@ -20,8 +21,18 @@ each leg; the stored checksum must catch it.
 Each page is a buffer of its own, copied out of the square when it is put
 (a torch slice would share the whole square's storage: demoting it would
 free nothing). A fault-in returns only after its chunked upload has landed.
-The durable third tier of the JAX package (a ``BlockStore`` under the host
-copies) is not part of this port yet.
+
+The third tier is a ``BlockStore`` (``celestia_tpu_torch.store``) under the
+host copies. Past ``host_byte_budget`` the coldest host copies of pages
+whose height the store holds are dropped (spilled); a later fault-in reads
+that one page record back from disk (the record's CRC checked by the
+store), then checks it against the page's stamped CRC as every fault-in
+does. ``load_from_store(height)`` adopts a persisted height with every page
+on disk and the store's own ``rows_per_page``: the restart path. A page
+record that fails its CRC raises ``IntegrityError`` at ``store.read``, with
+the page's height, so a cross-height group heals only that height. The
+fault-in records ``crc`` and ``h2d`` stages (and the store ``disk`` and
+``crc``), the ragged gather a ``gather`` stage, in the active stage sink.
 """
 
 from __future__ import annotations
@@ -34,7 +45,7 @@ import threading
 import numpy as np
 import torch
 
-from celestia_tpu_torch import da, faults, integrity
+from celestia_tpu_torch import da, faults, integrity, tracing
 from celestia_tpu_torch import device as device_mod
 from celestia_tpu_torch.ops import ragged, transfers
 from celestia_tpu_torch.telemetry import metrics
@@ -342,6 +353,8 @@ class PagedEdsCache:
     page is never demoted, so a burst that pins everything overshoots
     instead of deadlocking.
 
+    ``store``: a ``BlockStore`` below the host tier (None: two tiers). Host
+    copies of store-persisted pages spill to disk past ``host_byte_budget``.
     ``device``: where pages live and fault in (None means CUDA, as for
     every entry of the port)."""
 
@@ -352,16 +365,18 @@ class PagedEdsCache:
 
     def __init__(self, rows_per_page: int | None = None,
                  device_byte_budget: int | None = None,
-                 max_heights: int | None = None, device=None):
+                 max_heights: int | None = None, store=None,
+                 host_byte_budget: int | None = None, device=None):
         self.device = device_mod.resolve(device)
         self.rows_per_page = int(rows_per_page or self.DEFAULT_ROWS_PER_PAGE)
         self.device_byte_budget = int(
             device_byte_budget if device_byte_budget is not None
             else self.DEFAULT_DEVICE_BYTE_BUDGET)
         self.max_heights = int(max_heights or self.DEFAULT_MAX_HEIGHTS)
-        # reported in stats() as the JAX package reports it; with no store
-        # below the host tier nothing spills against it
-        self.host_byte_budget = self.DEFAULT_HOST_BYTE_BUDGET
+        self.store = store
+        self.host_byte_budget = int(
+            host_byte_budget if host_byte_budget is not None
+            else self.DEFAULT_HOST_BYTE_BUDGET)
         self._entries: collections.OrderedDict[int, object] = collections.OrderedDict()
         self._height_pins: collections.Counter[int] = collections.Counter()
         self._pages: list[_Page] = []  # every tracked page, all heights
@@ -433,6 +448,42 @@ class PagedEdsCache:
             pages.append(page)
         return PagedEds(self, height, pages, getattr(value, "original_width", width // 2))
 
+    def load_from_store(self, height: int) -> PagedEds:
+        """Adopt a persisted height from the attached BlockStore without
+        touching the device: every page starts on disk (no device buffer,
+        no host copy, the CRC of its store record) and faults in on first
+        read, and the PagedEds keeps the store's ``rows_per_page``. The
+        restart path: a re-indexed node serves its history page by page
+        instead of extending the square again. KeyError when the store
+        does not hold the height."""
+        if self.store is None:
+            raise RuntimeError("no BlockStore attached")
+        entry = self.store.entry(height)
+        if entry is None:
+            raise KeyError(f"height {height} not in store")
+        crcs = self.store.page_crcs(height)
+        width = 2 * entry.k
+        pages: list[_Page] = []
+        for index in range(entry.page_count):
+            lo = index * entry.rows_per_page
+            hi = min(lo + entry.rows_per_page, width)
+            page = _Page(height, index, lo, hi, (hi - lo) * width * entry.share_size)
+            page.crc = crcs[index]
+            page.last_touch = next(self._tick)
+            pages.append(page)
+        paged = PagedEds(self, height, pages, entry.k, rows_per_page=entry.rows_per_page)
+        with self._cond:
+            if height in self._entries:
+                self._drop_pages_locked(height)
+            self._entries[height] = paged
+            self._entries.move_to_end(height)
+            self._pages.extend(pages)
+            self.stats_counters["heights_from_store"] += 1
+            self._evict_heights_locked()
+            self._publish_locked()
+        metrics.incr_counter("eds_cache_height_store_load_total")
+        return paged
+
     def _drop_pages_locked(self, height: int) -> None:
         self._pages = [p for p in self._pages if p.height != height]
 
@@ -501,7 +552,8 @@ class PagedEdsCache:
                     pinned.append(page)
                     dev_of[id(page)] = dev
                 descs.append((dev, i - page.row_lo, paged.width))
-            arrs = ragged.gather_rows(descs)
+            with tracing.stage("gather"):
+                arrs = ragged.gather_rows(descs)
         finally:
             for page in pinned:
                 self._unpin(page)
@@ -580,15 +632,34 @@ class PagedEdsCache:
         """Upload a demoted page, integrity-checked: the host copy must
         still match the CRC32C stamped at demotion (bit rot or an armed
         ``cache.faultin`` bitflip both raise IntegrityError, counted and
-        recorded as an SDC event, with the site and the height)."""
+        recorded as an SDC event, with the site and the height). A page
+        with no host copy (spilled, or adopted by ``load_from_store``) is
+        read back from the store first: ``read_page`` checks the record's
+        CRC, and the check below holds it to the page's stamped CRC, so a
+        rotted record never reaches the device."""
         host = page.host
         if host is None:
-            raise RuntimeError(
-                f"page (height={page.height} page={page.index}) has no host copy")
+            if self.store is None:
+                raise RuntimeError(
+                    f"page (height={page.height} page={page.index}) has no host copy "
+                    f"and no BlockStore is attached")
+            try:
+                host, crc = self.store.read_page(page.height, page.index)
+            except integrity.IntegrityError as err:
+                # the height lets a cross-height group heal only this member
+                err.height = page.height
+                raise
+            if page.crc is None:
+                page.crc = crc  # busy-fenced: only this reader writes it
+            with self._cond:
+                self.stats_counters["page_store_loads"] += 1
+            metrics.incr_counter("eds_cache_page_store_load_total")
         flip = faults.fire("cache.faultin", height=page.height, page=page.index)
         if flip is not None:
             host = flip(host)
-        if integrity.crc32c(host) != page.crc:
+        with tracing.stage("crc"):
+            bad = integrity.crc32c(host) != page.crc
+        if bad:
             integrity.record_sdc("cache.faultin")
             # the fault-in runs outside the condition (the transfer must not
             # serialize readers); the shared counter goes back under it
@@ -615,11 +686,12 @@ class PagedEdsCache:
         fit the budget. Each demotion fetches outside the lock with
         ``busy`` fencing the page, stamps the host copy's CRC32C at the
         device source, then swaps device for host under the lock; a reader
-        mid-read holds a pin, so its buffer is never the victim."""
+        mid-read holds a pin, so its buffer is never the victim. Then host
+        copies spill to the store past their own budget."""
         while True:
             with self._cond:
                 if self._device_bytes_locked() <= self.device_byte_budget:
-                    return
+                    break
                 victim = None
                 for p in self._pages:
                     if p.dev is None or p.pins > 0 or p.busy:
@@ -627,7 +699,7 @@ class PagedEdsCache:
                     if victim is None or p.last_touch < victim.last_touch:
                         victim = p
                 if victim is None:
-                    return  # everything pinned or busy: soft overshoot
+                    break  # everything pinned or busy: soft overshoot
                 victim.busy = True
                 dev = victim.dev
             try:
@@ -646,12 +718,42 @@ class PagedEdsCache:
                 metrics.incr_counter("eds_cache_page_demote_total")
                 self._publish_locked()
                 self._cond.notify_all()
+        self._spill_to_budget()
+
+    def _spill_to_budget(self) -> None:
+        """The third tier's spill: drop host copies of STORE-PERSISTED pages
+        until the host bytes fit ``host_byte_budget``. The page keeps its
+        CRC: a later fault-in reads the record back from the store and
+        checks it against that CRC. Pages of a height the store does not
+        hold never spill (their host copy is the only copy)."""
+        if self.store is None:
+            return
+        while True:
+            with self._cond:
+                host_bytes = sum(p.nbytes for p in self._pages
+                                 if p.host is not None and p.dev is None)
+                if host_bytes <= self.host_byte_budget:
+                    return
+                victim = None
+                for p in self._pages:
+                    if p.host is None or p.dev is not None or p.pins > 0 or p.busy:
+                        continue
+                    if p.height not in self.store:
+                        continue
+                    if victim is None or p.last_touch < victim.last_touch:
+                        victim = p
+                if victim is None:
+                    return
+                victim.host = None
+                self.stats_counters["page_spills"] += 1
+            metrics.incr_counter("eds_cache_page_spill_total")
 
     def _demote(self, page: _Page, dev: torch.Tensor):
         host = transfers.device_get_chunked(dev, site="cache.demote")
         # checksum the pristine device source: the fault site models damage
         # on the way down, which the fault-in check must catch
-        crc = integrity.crc32c(host)
+        with tracing.stage("crc"):
+            crc = integrity.crc32c(host)
         flip = faults.fire("cache.demote", height=page.height, page=page.index)
         if flip is not None:
             host = flip(host)
@@ -676,8 +778,7 @@ class PagedEdsCache:
         metrics.set_gauge("eds_cache_device_bytes", float(self._device_bytes_locked()))
 
     def stats(self) -> dict:
-        """The /status surface: residency, budget and flow counters (the
-        store counters stay 0: no store sits below the host tier)."""
+        """The /status surface: residency, budget and flow counters."""
         with self._cond:
             resident = sum(1 for p in self._pages if p.dev is not None)
             on_host = sum(1 for p in self._pages if p.host is not None and p.dev is None)

@@ -12,22 +12,33 @@ geometry (``PagedEdsCache.pages_batch``).
 Squares enter through ``node._eds_cache.put(height, eds)``, the call the
 JAX node's ExtendBlock retention makes; an embedder that wants whole
 squares resident assigns a ``ResidentEdsCache`` to ``node._eds_cache``.
-The App, mempool, block production and the durable store come with later
-slices of the port.
+
+A node with a ``home`` keeps the durable tier: a ``BlockStore`` under
+``home/store``, re-indexed when the node starts and put below the paged
+cache. ``_persist_block_eds(height, eds)`` writes a square's pages, its
+served DAH and (for a square with a device buffer) its row levels from
+``extend.eds_row_levels_device``, fetching the square once. A restarted
+node serves a persisted height from disk: ``block_eds`` adopts it page by
+page (``PagedEdsCache.load_from_store``), its provers come from the stored
+levels with no hashing, and ``block_dah`` answers the stored DAH byte for
+byte. The App, mempool and block production, which call the persist, come
+with a later slice of the port.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
+import pathlib
 
-from celestia_tpu_torch import da, integrity, tracing
+from celestia_tpu_torch import da, faults, integrity, tracing
 from celestia_tpu_torch import device as device_mod
+from celestia_tpu_torch.log import logger
 from celestia_tpu_torch.node import eds_cache
-from celestia_tpu_torch.ops import extend, ragged
+from celestia_tpu_torch.ops import extend, ragged, transfers
 from celestia_tpu_torch.proof import NmtRowProver, das_sample_docs
+from celestia_tpu_torch.store import BlockStore
 
-log = logging.getLogger(__name__)
+log = logger("node")
 
 
 class Node:
@@ -36,17 +47,34 @@ class Node:
     ``app``: an object whose ``published_eds`` (height -> square) takes
     precedence over the cache, as a MaliciousApp's published squares do in
     the JAX package; None for none. ``device``: where the cache's pages and
-    the provers' row levels live (None means CUDA)."""
+    the provers' row levels live (None means CUDA). ``home``: the node's
+    directory; with one, the node opens (and re-indexes) the BlockStore
+    under ``home/store`` and hands it to its paged cache."""
 
     _PROVER_CACHE_HEIGHTS = 4
 
-    def __init__(self, app=None, device=None):
+    def __init__(self, app=None, device=None, home=None):
         self.app = app
         self.device = device_mod.resolve(device)
         # blocks are immutable: /dah answers come from a per-height memo
         self._dah_cache: dict[int, object] = {}
-        self.store = None  # the durable tier is not ported yet
-        self._eds_cache = eds_cache.PagedEdsCache(device=self.device)
+        self.home = pathlib.Path(home) if home else None
+        # the durable third tier: persisted squares (pages, DAH, row levels)
+        # in a CRC-guarded BlockStore, re-indexed at start, so a restarted
+        # node serves its history from disk. A disk that cannot hold the
+        # store leaves the node without one, as in the JAX package.
+        self.store = None
+        if self.home:
+            try:
+                self.store = BlockStore(self.home / "store")
+                self.store.reindex()
+            except OSError as e:
+                log.info("block store unavailable", error=str(e))
+                self.store = None
+        # heights whose store copy failed its CRC on a read: refused until
+        # they are persisted again
+        self._store_refused: set[int] = set()
+        self._eds_cache = eds_cache.PagedEdsCache(store=self.store, device=self.device)
         # per-height NMT row-prover memo for the batched sample path: a
         # square with a device buffer seeds every row's subtree memo from
         # one device call (``extend.eds_row_levels_device``); other squares
@@ -57,11 +85,24 @@ class Node:
     def block_eds(self, height: int):
         """The (2k, 2k, 512) extended square of a block: a published
         square first, then the serving cache (an ``ExtendedDataSquare``,
-        a ``PagedEds`` or a host array); None when neither holds it."""
+        a ``PagedEds`` or a host array), then the store, whose height is
+        adopted page by page with every page on disk (the restart path).
+        None when none holds it, when the store load fails, or when the
+        height's store copy was refused."""
         published = getattr(self.app, "published_eds", None)
         if published and height in published:
             return published[height]
-        return self._eds_cache.get(height)
+        cached = self._eds_cache.get(height)
+        if cached is not None:
+            return cached
+        if (self.store is not None and height in self.store
+                and height not in self._store_refused
+                and hasattr(self._eds_cache, "load_from_store")):
+            try:
+                return self._eds_cache.load_from_store(height)
+            except (KeyError, OSError) as e:
+                log.info("store load failed", height=height, error=str(e))
+        return None
 
     @contextlib.contextmanager
     def _borrow_eds(self, height: int):
@@ -115,17 +156,28 @@ class Node:
         the block is unknown.
 
         A page whose fault-in checksum fails (IntegrityError) heals once:
-        the height is invalidated and the batch answered again."""
+        the height is invalidated and the batch answered again. A page
+        record whose store CRC fails also refuses the height's store copy,
+        so the height then answers None."""
         try:
             return self._sample_batch(height, coords)
-        except integrity.IntegrityError:
+        except integrity.IntegrityError as err:
             if not hasattr(self._eds_cache, "invalidate"):
                 raise
-            log.info("eds page corrupt; invalidating height %d", height)
-            self._eds_cache.invalidate(height)
-            # provers seeded from the same square go with it
-            self._prover_cache.pop(height, None)
+            self._heal(height, err)
             return self._sample_batch(height, coords)
+
+    def _heal(self, height: int, err: integrity.IntegrityError) -> None:
+        """Drop a height whose page failed its checksum: the cache entry and
+        the provers seeded from the same square. A ``store.read`` failure
+        means the store's copy is damaged: it is refused until the height
+        is persisted again."""
+        log.info("eds page corrupt; invalidating height", height=height,
+                 site=getattr(err, "site", None))
+        if getattr(err, "site", None) == "store.read":
+            self._store_refused.add(height)
+        self._eds_cache.invalidate(height)
+        self._prover_cache.pop(height, None)
 
     def sample_batch_ragged(self, payloads) -> list:
         """Answer a micro-batch of DAS samples ACROSS heights, each payload
@@ -137,7 +189,8 @@ class Node:
 
         The heal is per height: a poisoned fault-in invalidates only the
         height it names (``err.height``) and the group is answered again; a
-        second corruption of a healed height raises."""
+        second corruption of a healed height raises. A height whose store
+        record failed its CRC answers None."""
         healed: set[int] = set()
         while True:
             try:
@@ -151,9 +204,7 @@ class Node:
                 if any(h in healed for h in targets):
                     raise
                 for h in targets:
-                    log.info("eds page corrupt; invalidating height %d", h)
-                    self._eds_cache.invalidate(h)
-                    self._prover_cache.pop(h, None)
+                    self._heal(h, err)
                     healed.add(h)
 
     def _sample_batch_ragged(self, payloads) -> list:
@@ -218,10 +269,12 @@ class Node:
         The first touch of a height whose square has a device buffer (or is
         a raw host array while the node's device is a card) runs ONE
         ``eds_row_levels_device`` call over all rows (K2 on the EDS, then
-        the tree kernel with the row levels) and keeps the levels; each
+        the tree kernel with the row levels) and keeps the levels; a height
+        the store holds (a PagedEds has no single device buffer) reads its
+        persisted levels instead, with no kernel and no hashing. Each
         referenced row then gets its prover through
-        ``NmtRowProver.from_node_levels``, with no host hashing. Other
-        squares (a PagedEds has no single device buffer) get a dict that
+        ``NmtRowProver.from_node_levels``. Other squares, and a height whose
+        stored levels are absent or unreadable, get a dict that
         ``das_sample_docs`` fills with host-built provers, which persist
         across batches of the height. A failure of the device call raises."""
         entry = self._prover_cache.get(height)
@@ -233,6 +286,12 @@ class Node:
             levels = None
             if arr is not None:
                 levels = extend.eds_row_levels_device(arr, self.device)
+            elif self.store is not None and height in self.store:
+                try:
+                    levels = self.store.read_levels(height)
+                except (integrity.IntegrityError, KeyError, OSError) as e:
+                    log.info("stored row levels unreadable; host provers",
+                             height=height, error=str(e))
             while len(self._prover_cache) >= self._PROVER_CACHE_HEIGHTS:
                 self._prover_cache.pop(next(iter(self._prover_cache)))
             entry = (levels, {})
@@ -270,12 +329,21 @@ class Node:
 
     def block_dah(self, height: int):
         """The DataAvailabilityHeader a block's data hash commits to (the
-        row and column NMT roots), memoized per height. A paged square is
+        row and column NMT roots), memoized per height. A height the store
+        holds answers its stored DAH, byte for byte what the node served
+        before a restart, with no square read. Otherwise a paged square is
         materialized on the host once and its roots computed on the node's
         device (``extend.eds_roots_device``)."""
         dah = self._dah_cache.get(height)
         if dah is not None:
             return dah
+        if self.store is not None and height in self.store:
+            try:
+                dah = da.DataAvailabilityHeader.from_json(self.store.read_dah(height))
+                self._dah_cache[height] = dah
+                return dah
+            except (integrity.IntegrityError, KeyError, OSError, ValueError) as e:
+                log.info("stored DAH unreadable; recomputing", height=height, error=str(e))
         # the roots read the whole square: the borrow keeps it pinned
         with self._borrow_eds(height) as eds:
             if eds is None:
@@ -285,3 +353,41 @@ class Node:
             dah = da.new_data_availability_header(eds)
         self._dah_cache[height] = dah
         return dah
+
+    def _persist_block_eds(self, height: int, eds) -> None:
+        """Durable retention of a block's square: its pages, its served DAH
+        and, for a square with a device buffer, its row levels from one
+        ``extend.eds_row_levels_device`` call, written to the BlockStore in
+        the cache's page geometry, so a restart serves the height from disk
+        with the same DAH bytes and provers. The device square is fetched
+        once, at transfer site ``store.persist``. A failure of the device
+        levels raises; a disk failure (or the read-only skip) is logged and
+        leaves the height to the cache tiers. The persist records
+        ``levels``, ``d2h``, ``crc`` and ``write`` stages in the active
+        stage sink."""
+        if self.store is None:
+            return
+        dah = self._dah_cache.get(height)
+        if dah is None:
+            # the roots a device square carries: no square read, no kernel
+            square = (eds if hasattr(eds, "original_width")
+                      else da.ExtendedDataSquare(eds, eds.shape[0] // 2, self.device))
+            dah = self._dah_cache[height] = da.new_data_availability_header(square)
+        levels = None
+        arr = getattr(eds, "device_data", None)
+        if arr is not None:
+            with tracing.stage("levels"):
+                levels = extend.eds_row_levels_device(arr, self.device)
+            data = transfers.device_get_chunked(arr, site="store.persist")
+        else:
+            data = getattr(eds, "data", eds)
+        width = int(getattr(eds, "original_width", data.shape[0] // 2))
+        rpp = getattr(self._eds_cache, "rows_per_page", None) or 8
+        try:
+            entry = self.store.put_eds(height, data, width, dah_doc=dah.to_json(),
+                                       levels=levels, rows_per_page=rpp)
+        except (OSError, faults.FaultError) as e:
+            log.info("eds persistence failed", height=height, error=str(e))
+            return
+        if entry is not None:
+            self._store_refused.discard(height)

@@ -158,6 +158,29 @@ prints no result; it also exits non-zero when no CUDA device is present):
    cell; host ms of the blob content keys and of the proposal's metadata,
    and the medians of 20 of assembled_proposal_dah and of roots_device on
    the same square, in turns.
+6d. The durable store tier (``store``), in a fresh temporary directory
+   removed at the end: a node with a home (``Node(home=...)``) holding
+   phase 6b's four k = 128 heights persists each through
+   _persist_block_eds with the counts from 0 (K2 once and nmt_tree once,
+   the row levels; the square fetched once at store.persist), each entry
+   with its levels, its stored DAH equal to block_dah's bytes and to the
+   extend's roots; ms per height split into fetch (d2h), levels, CRC and
+   write (with the fsyncs), and the file size. The same node's crowd gives
+   phase 6b's documents. Then a fresh node over the same home (a deep
+   re-index of 4 heights, its ms) serves the crowd from disk: ragged_gather
+   once and nothing else (every height's provers from the stored levels),
+   the documents and DAH bytes equal to those before the restart, pages read
+   off disk, ragged_gather equal to its plain version on the store-loaded
+   pages; cold and warm ms per sample beside phase 6b's, the cold crowd's
+   stage split (disk, crc, h2d, gather, d2h, device, prove), read_page, CRC
+   and store fault-in ms a page. The same at device and host budgets of 8
+   pages: pages spill and come off disk again, the documents unchanged.
+   The drills: a store.read bitflip raises IntegrityError (counted as
+   store_read_corrupt_total and sdc_detected_total) and, in a crowd,
+   refuses the one height it struck (None; the others as before); a
+   truncated and a garbage file are quarantined by the next re-index; and
+   ``python -m celestia_tpu_torch.cli store verify`` exits 1 on the damaged
+   store and 0 once it is clean.
 7. Timing, after warm-up: each kernel at its main-path shapes (K2 at
    k = 64 and 128, on Q0 and on the EDS), as its own device time per launch
    (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
@@ -211,11 +234,14 @@ import contextlib
 import hashlib
 import json
 import os
+import pathlib
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2071,6 +2097,239 @@ def main(argv: list[str]) -> int:
          **{f"{e}_ms": statistics.median(v) for e, v in p_e2e.items()},
          **{f"{e}_q1_q3_ms": statistics.quantiles(v, n=4)[::2] for e, v in p_e2e.items()},
          samples=E2E_REPS, assembly_bytes=asm_bytes, dah=p_dah.hash().hex())
+
+    # ---- phase 6d: the durable store tier. A node with a home persists the
+    # four heights of phase 6b (bench.py's square at k = 128, seeds 42-45) to
+    # its BlockStore, restarts, and serves the 256-sample crowd from disk
+    from celestia_tpu_torch.store import BlockStore
+
+    t_phase = time.perf_counter()
+    home = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-store-"))
+    try:
+        # (a) persist: each height's square put as retention puts it, then
+        # _persist_block_eds: one K2 and one tree launch (the row levels),
+        # one fetch of the square at store.persist, the DAH from the roots
+        # the square carries
+        snode = Node(device=dev, home=home)
+        check(snode.store is not None and len(snode.store) == 0 and snode._eds_cache.store is snode.store,
+              "a node with a home opened no empty store below its cache")
+        eds_bytes = 2 * sk * width * SHARE_SIZE
+        persist, pre_dah = [], {}
+        for h in heights:
+            with pinned("fused-dense"):
+                eds = da.extend_shares(bench_square(sk, 41 + h).reshape(-1, SHARE_SIZE), dev)
+            cols = eds.col_roots()
+            snode._eds_cache.put(h, eds)
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            fetched = metrics.get_counter("transfer_bytes", site="store.persist", direction="d2h")
+            sink = tracing.push_stage_sink()
+            try:
+                t = time.perf_counter()
+                snode._persist_block_eds(h, eds)
+                ms = (time.perf_counter() - t) * 1e3
+            finally:
+                tracing.pop_stage_sink()
+            counts = dict(_cuda.LAUNCHES)
+            emit(phase="main_path", entry="Node._persist_block_eds", k=sk, height=h,
+                 launches=counts)
+            check(counts["leaf_digests2d"] == 1 and counts["nmt_tree"] == 1
+                  and sum(counts.values()) == 2,
+                  f"persisting height {h} launched {counts}: K2 once and nmt_tree once")
+            fetched = metrics.get_counter("transfer_bytes", site="store.persist",
+                                          direction="d2h") - fetched
+            check(fetched == eds_bytes, f"persisting height {h} fetched {fetched} B, not the "
+                  f"square's {eds_bytes} once")
+            entry = snode.store.entry(h)
+            check(entry is not None and entry.levels_len > 0 and entry.k == sk
+                  and entry.rows_per_page == 8 and entry.page_count == width // 8,
+                  f"height {h}'s store entry: {entry}")
+            stored = snode.store.read_dah(h)
+            pre_dah[h] = json.dumps(snode.block_dah(h).to_json(), sort_keys=True)
+            check(json.dumps(stored, sort_keys=True) == pre_dah[h],
+                  f"height {h}: the stored DAH differs from block_dah's bytes")
+            check(stored == {"row_roots": [r.hex() for r in host_rows[h]],
+                             "column_roots": [c.hex() for c in cols]},
+                  f"height {h}: the stored DAH differs from the extend's roots")
+            persist.append({"height": h, "ms": ms,
+                            **{f"{n}_ms": v * 1e3 for n, v in sink.data.items()},
+                            "file_bytes": entry.path.stat().st_size})
+            del eds
+        emit(phase="store", part="persist", k=sk, heights=len(heights), rows_per_page=8,
+             square_bytes=eds_bytes, per_height=persist,
+             ms_per_height=statistics.median(p["ms"] for p in persist), stats=snode.store.stats())
+        # before the restart: the same crowd as phase 6b, the same documents
+        check(snode.sample_batch_ragged(crowd0) == docs,
+              "the persisting node's crowd differs from phase 6b's documents")
+        check(all(snode._prover_cache[h][0] is not None for h in heights),
+              "the persisting node's provers did not come from the stored levels")
+        del snode
+
+        # (b) restart: a fresh node over the same home re-indexes (deep: every
+        # page's CRC) and serves the crowd from disk. Its provers come from
+        # the stored levels: ragged_gather once and no K2 or tree launch
+        t = time.perf_counter()
+        rnode = Node(device=dev, home=home)
+        reindex_ms = (time.perf_counter() - t) * 1e3
+        check(rnode.store.heights() == list(heights)
+              and rnode.store.stats()["reindex_skipped"] == {},
+              f"the restart re-indexed {rnode.store.stats()}")
+        rc = rnode._eds_cache
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        sink = tracing.push_stage_sink()
+        try:
+            t = time.perf_counter()
+            cold = rnode.sample_batch_ragged(crowd0)
+            cold_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            tracing.pop_stage_sink()
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        emit(phase="main_path", entry="Node.sample_batch_ragged", cache="store_restart",
+             samples=len(crowd0), launches=counts)
+        check(counts["ragged_gather"] == 1 and sum(counts.values()) == 1,
+              f"the restart crowd launched {counts}: ragged_gather once, nothing else")
+        check(cold == docs, "the restarted node's documents differ from the pre-restart crowd's")
+        st = rc.stats()
+        check(st["heights_from_store"] == len(heights) and st["page_store_loads"] > 0
+              and st["page_corrupt"] == 0, f"the restart crowd read no page off disk: {st}")
+        check(all(rnode._prover_cache[h][0] is not None for h in heights),
+              "the restarted node's provers did not come from the stored levels")
+        g_case = gather_case(lambda h: [p.dev for p in rc.get(h).pages], crowd0, 8)
+        same("ragged_gather", ragged_cuda.ragged_gather(*g_case),
+             ragged_cuda.gather_rows_reference(*g_case),
+             "ragged_gather on the store-loaded pages")
+        check(all(json.dumps(rnode.block_dah(h).to_json(), sort_keys=True) == pre_dah[h]
+                  for h in heights), "the restarted node's DAH bytes differ from the pre-restart ones")
+        warm_ms = crowd_ms(rnode, range(SEED + 10, SEED + 15))
+        page = rc.get(1).pages[0]
+        read_ms = leg_ms(lambda: rnode.store.read_page(1, 0))
+        page_host = rnode.store.read_page(1, 0)[0]
+        page_crc_ms = leg_ms(lambda: integrity.crc32c(page_host))
+        check(page.host is None, "a page of the default budget kept a host copy")
+        store_faultin_ms = leg_ms(lambda: rc._fault_in(page))  # read, both CRCs, upload
+        emit(phase="store", part="restart", k=sk, heights=len(heights), reindex_ms=reindex_ms,
+             samples=SERVING_SAMPLES, cold_ms=cold_ms, cold_ms_per_sample=cold_ms / len(crowd0),
+             cold_stages={n: v * 1e3 for n, v in sink.data.items()},
+             warm_ms_per_sample=statistics.median(warm_ms), warm_ms_per_sample_all=warm_ms,
+             read_page_ms=read_ms, crc32c_ms_per_page=page_crc_ms,
+             store_faultin_ms_per_page=store_faultin_ms, page_mib=page_bytes / 2**20,
+             stats=rc.stats(), store=rnode.store.stats())
+        emit(phase="store", part="vs_paged", k=sk, samples=SERVING_SAMPLES,
+             restart_cold_ms_per_sample=cold_ms / len(crowd0),
+             restart_warm_ms_per_sample=statistics.median(warm_ms),
+             paged_full_width_ms_per_sample=statistics.median(full_ms),
+             paged_tight_ms_per_sample=statistics.median(tight_ms))
+
+        # (c) the restart at a host budget of 8 pages (and a device budget of
+        # 8, so pages demote to the host at all): host copies spill and pages
+        # come off disk again, the documents unchanged
+        tnode = Node(device=dev, home=home)
+        tnode._eds_cache = tsc = PagedEdsCache(
+            device_byte_budget=SERVING_TIGHT_PAGES * page_bytes,
+            host_byte_budget=SERVING_TIGHT_PAGES * page_bytes, store=tnode.store, device=dev)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        sink = tracing.push_stage_sink()
+        try:
+            t = time.perf_counter()
+            tight_cold = tnode.sample_batch_ragged(crowd0)
+            tight_cold_ms = (time.perf_counter() - t) * 1e3
+        finally:
+            tracing.pop_stage_sink()
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        emit(phase="main_path", entry="Node.sample_batch_ragged", cache="store_tight",
+             samples=len(crowd0), launches=counts)
+        check(counts["ragged_gather"] == 1 and sum(counts.values()) == 1,
+              f"the tight restart crowd launched {counts}: ragged_gather once, nothing else")
+        check(tight_cold == docs, "the tight budget changed the restarted node's documents")
+        # a second crowd reads spilled pages back off disk: its documents
+        # are the default-budget node's for the same crowd
+        again = serving_crowd(SEED + 10, heights, width, SERVING_SAMPLES)
+        t = time.perf_counter()
+        tight_again = tnode.sample_batch_ragged(again)
+        tight_again_ms = (time.perf_counter() - t) * 1e3
+        check(tight_again == rnode.sample_batch_ragged(again),
+              "the spilled pages read back changed the documents")
+        st = tsc.stats()
+        check(st["page_spills"] > 0 and st["page_store_loads"] > len(g_case[0])
+              and st["page_corrupt"] == 0 and st["host_bytes"] <= tsc.host_byte_budget,
+              f"the tight restart did not spill and read back: {st}")
+        emit(phase="store", part="tight_budget", k=sk, budget_pages=SERVING_TIGHT_PAGES,
+             host_budget_pages=SERVING_TIGHT_PAGES, samples=SERVING_SAMPLES,
+             cold_ms_per_sample=tight_cold_ms / len(crowd0),
+             cold_stages={n: v * 1e3 for n, v in sink.data.items()},
+             ms_per_sample=tight_again_ms / len(again), stats=tsc.stats())
+
+        # (d) the drills. A store.read bitflip raises IntegrityError at the
+        # store and at the node refuses the one height it struck: that height
+        # answers None, the others as before
+        dnode = Node(device=dev, home=home)
+        sdc0 = metrics.get_counter("sdc_detected_total", site="store.read")
+        corrupt0 = metrics.get_counter("store_read_corrupt_total")
+        with faults.inject(faults.rule("store.read", "bitflip", times=1), seed=SEED):
+            with contextlib.suppress(integrity.IntegrityError):
+                dnode.store.read_page(1, 0)
+                fail("a store.read bitflip did not raise IntegrityError")
+        check(metrics.get_counter("sdc_detected_total", site="store.read") == sdc0 + 1
+              and metrics.get_counter("store_read_corrupt_total") == corrupt0 + 1,
+              "the store.read bitflip was not counted")
+        with faults.inject(faults.rule("store.read", "bitflip", times=1), seed=SEED):
+            drilled = dnode.sample_batch_ragged(crowd0)
+        poisoned = sorted(dnode._store_refused)
+        check(len(poisoned) == 1 and poisoned[0] not in dnode._eds_cache,
+              f"the store.read drill refused {poisoned}")
+        check(all(d is None if h in poisoned else d == w
+                  for (h, _i, _j), d, w in zip(crowd0, drilled, docs)),
+              "the drill's other heights were not answered as before")
+        check(metrics.get_counter("sdc_detected_total", site="store.read") == sdc0 + 2
+              and metrics.get_counter("store_read_corrupt_total") == corrupt0 + 2,
+              "the node's store.read drill was not counted")
+        emit(phase="integrity_drill", site="store.read", entry="Node.sample_batch_ragged",
+             refused=poisoned, answered=sum(d is not None for d in drilled), samples=len(crowd0))
+        # a truncated file and a garbage file: quarantined by the next re-index
+        last = rnode.store.entry(heights[-1])
+        with open(last.path, "r+b") as f:
+            f.truncate(last.page_offset(last.page_count // 2))
+        (home / "store" / "99.ctps").write_bytes(b"not a store file")
+        skipped0 = {r: metrics.get_counter("store_reindex_skipped_total", reason=r)
+                    for r in ("truncated", "bad_header")}
+        qnode = Node(device=dev, home=home)
+        report = qnode.store.stats()
+        check(qnode.store.heights() == list(heights[:-1])
+              and report["reindex_skipped"] == {"truncated": 1, "bad_header": 1}
+              and all(metrics.get_counter("store_reindex_skipped_total", reason=r) == v + 1
+                      for r, v in skipped0.items()),
+              f"the damaged store re-indexed as {report}")
+        check(qnode.sample_batch(heights[-1], [(0, 0)]) == [None],
+              "the quarantined height answered")
+        # the port's store CLI: verify exits 1 on the damaged store and 0 on
+        # a clean copy of its sound heights (the two runs side by side)
+        clean = home / "clean"
+        (clean / "store").mkdir(parents=True)
+        for h in heights[:-1]:
+            shutil.copy(rnode.store.entry(h).path, clean / "store")
+        t = time.perf_counter()
+        runs = [subprocess.Popen(
+            [sys.executable, "-m", "celestia_tpu_torch.cli", "store", "verify", "--home", str(d)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for d in (home, clean)]
+        (rc_bad, doc_bad), (rc_ok, doc_ok) = [
+            (r.returncode, json.loads(out) if out.strip() else None)
+            for r, (out, _err) in ((r, r.communicate(timeout=300)) for r in runs)]
+        cli_ms = (time.perf_counter() - t) * 1e3
+        check(rc_bad == 1 and doc_bad is not None
+              and doc_bad["skipped_files"] == {"truncated": 1, "bad_header": 1},
+              f"store verify on the damaged store: exit {rc_bad}, {doc_bad}")
+        check(rc_ok == 0 and doc_ok is not None and doc_ok["heights"] == len(heights) - 1
+              and doc_ok["skipped_files"] == {}, f"store verify on the clean store: exit {rc_ok}, {doc_ok}")
+        emit(phase="integrity_drill", site="store.reindex", entry="Node(home=...)",
+             skipped=report["reindex_skipped"], cli_verify_damaged=rc_bad, cli_verify_clean=rc_ok,
+             cli_ms=cli_ms, phase_seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
 
     # ---- phase 7: timing
     def bound(ops_s: float, nbytes: float) -> tuple[float, str]:

@@ -304,7 +304,12 @@ def _serving_source() -> str:
 
 def _proposal_source() -> str:
     src = (REPO / "chip_smoke.py").read_text()
-    return src[src.index("    # ---- phase 6c"):src.index("    # ---- phase 7: timing")]
+    return src[src.index("    # ---- phase 6c"):src.index("    # ---- phase 6d")]
+
+
+def _store_source() -> str:
+    src = (REPO / "chip_smoke.py").read_text()
+    return src[src.index("    # ---- phase 6d"):src.index("    # ---- phase 7: timing")]
 
 
 def test_kernel_sources_name_every_kernel_of_the_port():
@@ -360,6 +365,29 @@ def test_serving_phase_catches_no_failure():
                  'entry="Node.sample_batch_ragged"', 'entry="Node._row_provers"'):
         assert name in src, name
     assert src.count("check(") >= 15
+
+
+def test_store_phase_catches_no_failure():
+    """Every check of the store phase raises: no except clause in it (a
+    finally only removes its directory), and each part reports under its
+    name: the persist's launches, the restart crowd's, the store lines,
+    the kernel against its plain version on store-loaded pages and both
+    drills."""
+    import ast
+    import textwrap
+
+    src = _store_source()
+    tree = ast.parse(textwrap.dedent(src))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    for name in ('entry="Node._persist_block_eds"', 'cache="store_restart"',
+                 'cache="store_tight"', 'part="persist"', 'part="restart"',
+                 'part="vs_paged"', 'part="tight_budget"',
+                 '"ragged_gather on the store-loaded pages"',
+                 'phase="integrity_drill", site="store.read"',
+                 'phase="integrity_drill", site="store.reindex"',
+                 '"celestia_tpu_torch.cli", "store"', "shutil.rmtree(home"):
+        assert name in src, name
+    assert src.count("check(") >= 20
 
 
 def test_serving_crowd_is_seeded_and_uniform():

@@ -371,3 +371,179 @@ def test_resident_device_bytes_equal_jax():
     for cache in caches:
         cache.put(4, "evicts 1")
     assert jax_cache.device_bytes() == port_cache.device_bytes() == 0
+
+
+# ---------------------------------------------------------------------- #
+# the third tier: a BlockStore below the host copies
+
+
+class StorePair(Pair):
+    """The JAX cache over a JAX BlockStore and the port's over the port's,
+    in two directories holding byte-identical files."""
+
+    def __init__(self, tmp_path, **kw):
+        from celestia_tpu.store import BlockStore as JaxBlockStore
+        from celestia_tpu_torch.store import BlockStore
+
+        self.jax_store = JaxBlockStore(tmp_path / "jax")
+        self.port_store = BlockStore(tmp_path / "port")
+        self.jax = jax_eds_cache.PagedEdsCache(store=self.jax_store, **kw)
+        self.port = eds_cache.PagedEdsCache(store=self.port_store, device="cpu", **kw)
+        self.hosts: dict[int, np.ndarray] = {}
+
+    def persist(self, height: int, k: int, rows_per_page: int, host=None) -> None:
+        """The same square into both stores (a chain_shares square unless
+        ``host`` is given)."""
+        host = self.hosts.setdefault(height, host_eds(k, height)) if host is None else host
+        dah = jax_da.new_data_availability_header(jax_da.ExtendedDataSquare(host, k)).to_json()
+        for s in (self.jax_store, self.port_store):
+            s.put_eds(height, host, k, dah_doc=dah, rows_per_page=rows_per_page)
+        assert ((self.jax_store.root / f"{height}.ctps").read_bytes()
+                == (self.port_store.root / f"{height}.ctps").read_bytes())
+
+    def assert_same_state(self) -> None:
+        super().assert_same_state()
+        ours, theirs = self.port_store.stats(), self.jax_store.stats()
+        ours.pop("root"), theirs.pop("root")
+        assert ours == theirs
+
+
+STORE_COUNTERS = ("eds_cache_height_store_load_total", "eds_cache_page_store_load_total",
+                  "eds_cache_page_spill_total")
+
+
+def store_counter_moves(fn) -> None:
+    """fn() moves each store counter of the cache as much in the port's
+    registry as in the JAX package's."""
+    before = [(jax_metrics.get_counter(n), metrics.get_counter(n)) for n in STORE_COUNTERS]
+    fn()
+    for n, (j0, p0) in zip(STORE_COUNTERS, before):
+        assert metrics.get_counter(n) - p0 == jax_metrics.get_counter(n) - j0, n
+
+
+def test_load_from_store_faults_pages_in_like_jax(tmp_path):
+    pair = StorePair(tmp_path, rows_per_page=2)
+
+    def run():
+        pair.persist(1, 4, 2)
+        theirs, ours = pair.both(lambda c: c.load_from_store(1))
+        assert ours.rows_per_page == 2 and ours.original_width == 4
+        st = pair.port.stats()
+        assert st["pages_on_disk"] == st["pages"] == 4 and st["heights_from_store"] == 1
+        oracle = jax_da.ExtendedDataSquare(pair.hosts[1], 4)
+        for i in range(8):
+            theirs, ours = pair.both(lambda c: c.get(1).row(i))
+            assert ours == theirs == oracle.row(i)
+        pair.assert_same_state()
+        assert pair.port.stats()["page_store_loads"] == 4
+        assert pair.port_store.stats()["page_reads"] == 4
+
+    store_counter_moves(run)
+
+
+def test_host_budget_spills_then_refaults_like_jax(tmp_path):
+    page = 2 * 8 * 512
+    pair = StorePair(tmp_path, rows_per_page=2, device_byte_budget=page, host_byte_budget=page)
+
+    def run():
+        pair.persist(1, 4, 2)
+        pair.put(1, 4)  # the device square: pages demote, then spill to disk
+        oracle = jax_da.ExtendedDataSquare(pair.hosts[1], 4)
+        for _ in range(2):  # the second pass faults the spilled pages back in
+            for i in range(8):
+                theirs, ours = pair.both(lambda c: c.get(1).row(i))
+                assert ours == theirs == oracle.row(i)
+        st = pair.port.stats()
+        assert st["page_spills"] > 0 and st["page_store_loads"] > 0 and st["page_corrupt"] == 0
+        assert st["host_bytes"] <= st["host_byte_budget"]
+        pair.assert_same_state()
+
+    store_counter_moves(run)
+
+
+def test_unpersisted_pages_never_spill(tmp_path):
+    page = 2 * 8 * 512
+    pair = StorePair(tmp_path, rows_per_page=2, device_byte_budget=page, host_byte_budget=0)
+    pair.put(1, 4)  # not in either store: its host copies are the only copies
+    for i in range(8):
+        pair.both(lambda c: c.get(1).row(i))
+    st = pair.port.stats()
+    assert st["page_spills"] == 0 and st["host_bytes"] > st["host_byte_budget"]
+    pair.assert_same_state()
+
+
+def test_disk_rot_refused_through_cache_like_jax(tmp_path):
+    pair = StorePair(tmp_path, rows_per_page=2)
+    pair.persist(1, 4, 2)
+    for s in (pair.jax_store, pair.port_store):
+        e = s.entry(1)
+        with open(e.path, "r+b") as f:
+            f.seek(e.page_offset(0) + 16)
+            f.write(b"\x00\xff")
+    pair.both(lambda c: c.load_from_store(1))
+    with pytest.raises(JaxIntegrityError) as theirs:
+        pair.jax.get(1).row(0)
+    with pytest.raises(IntegrityError) as ours:
+        pair.port.get(1).row(0)
+    assert ours.value.site == theirs.value.site == "store.read"
+    assert ours.value.height == 1  # the port names the height (a ragged group heals only it)
+    pair.assert_same_state()
+
+
+def test_stamped_crc_checked_after_the_record_crc(tmp_path):
+    """A spilled page read back from a store whose record is sound but is
+    not the page that was stamped (the height re-put with other bytes) is
+    refused at cache.faultin, as the JAX cache refuses it."""
+    page = 2 * 8 * 512
+    pair = StorePair(tmp_path, rows_per_page=2, device_byte_budget=page, host_byte_budget=0)
+    pair.persist(1, 4, 2)
+    pair.put(1, 4)
+    pair.both(lambda c: c.get(1).row(7))  # the other pages demote and spill
+    assert pair.port.stats()["page_spills"] > 0
+    other = host_eds(4, 9)
+    pair.persist(1, 4, 2, host=other)
+    errors = []
+    for err_type, cache in ((JaxIntegrityError, pair.jax), (IntegrityError, pair.port)):
+        with pytest.raises(err_type) as exc:
+            cache.get(1).row(0)
+        errors.append(exc.value)
+    theirs, ours = errors
+    assert ours.site == theirs.site == "cache.faultin"
+    assert ours.height == theirs.height == 1 and str(ours) == str(theirs)
+
+
+def test_load_from_store_keeps_the_stores_geometry(tmp_path):
+    """A height stored with 2-row pages in a cache of 4-row pages keeps its
+    geometry; a group over it and a height put in the cache spans both
+    geometries and equals the JAX cache's answer."""
+    pair = StorePair(tmp_path, rows_per_page=4)
+    pair.persist(1, 4, 2)
+    pair.put(2, 8)
+    pair.both(lambda c: c.load_from_store(1))
+    assert pair.port.get(1).rows_per_page == 2 and pair.port.get(2).rows_per_page == 4
+
+    def wants(cache):
+        return [(cache.get(1), i) for i in (0, 7, 3)] + [(cache.get(2), i) for i in (15, 0, 9)]
+
+    theirs, ours = pair.both(lambda c: c.pages_batch(wants(c)))
+    assert ours == theirs == (
+        [[pair.hosts[1][i, j].tobytes() for j in range(8)] for i in (0, 7, 3)]
+        + [[pair.hosts[2][i, j].tobytes() for j in range(16)] for i in (15, 0, 9)])
+    pair.assert_same_state()
+
+
+def test_load_from_store_refusals_equal_jax(tmp_path):
+    bare_jax = jax_eds_cache.PagedEdsCache()
+    bare = eds_cache.PagedEdsCache(device="cpu")
+    for cache in (bare_jax, bare):
+        with pytest.raises(RuntimeError, match="no BlockStore attached"):
+            cache.load_from_store(1)
+    pair = StorePair(tmp_path)
+    for cache in (pair.jax, pair.port):
+        with pytest.raises(KeyError):
+            cache.load_from_store(5)
+    assert pair.port.stats()["heights_from_store"] == 0
+    bare.put(1, da.ExtendedDataSquare.from_device(torch.from_numpy(host_eds(2, 1).copy()), 2))
+    bare._pages[0].dev = None  # no host copy either, and no store to read
+    with pytest.raises(RuntimeError, match="no BlockStore is attached"):
+        bare.get(1).row(0)

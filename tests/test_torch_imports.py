@@ -19,6 +19,7 @@ from celestia_tpu_torch.node import Node, eds_cache
 from celestia_tpu_torch.ops import blob_pool, extend, ragged, repair, transfers
 from celestia_tpu_torch.shares import tail_padding_share
 from celestia_tpu_torch.shares.splitters import Range
+from celestia_tpu_torch.store import BlockStore
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "celestia_tpu_torch"
@@ -56,7 +57,8 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
                  "node.node", "node.eds_cache", "appconsts", "blob", "shares",
                  "shares.info_byte", "shares.splitters", "shares.parse", "inclusion",
                  "inclusion.cache", "square", "ops.blob_pool", "ops.assemble",
-                 "ops.assemble_cuda", "app.proposal"):
+                 "ops.assemble_cuda", "app.proposal", "log", "store", "store.powercut",
+                 "cli"):
         assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
@@ -120,7 +122,10 @@ ENTRIES = {
     "da.repair.repair": lambda: da_repair.repair(EDS, PRESENT),
     "repair_eds": lambda: da_repair.repair_eds(da.ExtendedDataSquare(EDS, 1), PRESENT),
     "Node": lambda: Node(),
+    # the device is resolved before the home is touched: no directory is made
+    "Node(home=...)": lambda: Node(home=REPO / "_no_such_home"),
     "PagedEdsCache": lambda: eds_cache.PagedEdsCache(),
+    "PagedEdsCache(store=...)": lambda: eds_cache.PagedEdsCache(store=BlockStore.__new__(BlockStore)),
     "ResidentEdsCache.block_dah": _resident_dah,
     "gather_rows": _gather_cuda_page,
     "DeviceBlobArena": lambda: blob_pool.DeviceBlobArena(8192),
@@ -144,3 +149,17 @@ def test_resolve_gives_the_cpu_only_when_asked():
     assert device.resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         device.resolve("meta")
+
+
+def test_the_store_cli_and_the_explorer_import_no_jax():
+    """The operator's command and the powercut explorer stand alone too."""
+    script = (
+        "import json, sys\n"
+        "import celestia_tpu_torch.cli, celestia_tpu_torch.store.powercut\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'celestia_tpu'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+

@@ -15,6 +15,7 @@ host-built ones, and a failure there raises.
 
 import functools
 import gc
+import json
 
 import jax
 import numpy as np
@@ -23,6 +24,7 @@ import torch
 
 from celestia_tpu import da as jax_da
 from celestia_tpu import faults as jax_faults
+from celestia_tpu.integrity import IntegrityError as JaxIntegrityError
 from celestia_tpu.node import eds_cache as jax_eds_cache
 from celestia_tpu.node import node as jax_node
 from celestia_tpu.testutil.chaosnet import RpcChaosNode, chain_shares
@@ -273,3 +275,230 @@ def test_gauges_follow_the_nodes_cache():
     assert metrics.get_gauge("eds_cache_pages_resident") == st["pages_resident"]
     assert metrics.get_gauge("eds_cache_device_bytes") == st["device_bytes"]
     assert metrics.get_gauge("eds_cache_pin_count") == 0
+
+
+# ---------------------------------------------------------------------- #
+# the durable tier: a node with a home persists, restarts and serves from
+# disk, against the JAX Node doing the same in a home of its own
+
+
+STORE_KS = ((1, 2), (2, 8), (3, 16))
+
+
+def jax_square(k: int, height: int):
+    return jax_da.ExtendedDataSquare.from_device(jax.device_put(port_eds(k, height)), k)
+
+
+def port_square(k: int, height: int):
+    return da.ExtendedDataSquare.from_device(torch.from_numpy(port_eds(k, height).copy()), k)
+
+
+def persisted_pair(tmp_path, heights=STORE_KS, rows_per_page=None):
+    """A port node and a JAX node, each with its own home, each persisting
+    the same squares as retention and _persist_block_eds do; the store files
+    are byte-identical."""
+    ours = Node(device="cpu", home=tmp_path / "port")
+    theirs = jax_node.Node(_App(), home=str(tmp_path / "jax"))
+    if rows_per_page is not None:
+        ours._eds_cache = eds_cache.PagedEdsCache(rows_per_page=rows_per_page, store=ours.store,
+                                                  device="cpu")
+        theirs._eds_cache = jax_eds_cache.PagedEdsCache(rows_per_page=rows_per_page,
+                                                        store=theirs.store)
+    for h, k in heights:
+        sq = port_square(k, h)
+        ours._eds_cache.put(h, sq)
+        ours._persist_block_eds(h, sq)
+        jsq = jax_square(k, h)
+        theirs._eds_cache.put(h, jsq)
+        theirs._persist_block_eds(h, jsq)
+    for h, _k in heights:
+        assert ((tmp_path / "port" / "store" / f"{h}.ctps").read_bytes()
+                == (tmp_path / "jax" / "store" / f"{h}.ctps").read_bytes()), h
+    return ours, theirs
+
+
+def restarted(tmp_path, which: str) -> tuple:
+    return (Node(device="cpu", home=tmp_path / which),
+            jax_node.Node(_App(), home=str(tmp_path / which)))
+
+
+def test_restarted_node_serves_as_before_and_as_jax(tmp_path):
+    ours, theirs = persisted_pair(tmp_path)
+    widths = {h: 2 * k for h, k in STORE_KS}
+    payloads = payloads_for(widths)
+    before = ours.sample_batch_ragged(payloads)
+    assert before == theirs.sample_batch_ragged(payloads)
+    dahs = {h: json.dumps(ours.block_dah(h).to_json(), sort_keys=True) for h in widths}
+    ours, _ = restarted(tmp_path, "port")
+    _, theirs = restarted(tmp_path, "jax")
+    assert ours.store.heights() == sorted(widths)
+    after = ours.sample_batch_ragged(payloads)
+    assert after == before == theirs.sample_batch_ragged(payloads)
+    for h in widths:  # provers from the stored levels, with no hashing
+        assert ours._prover_cache[h][0] is not None
+        assert theirs._prover_cache[h][0] is not None
+        assert json.dumps(ours.block_dah(h).to_json(), sort_keys=True) == dahs[h]
+        assert ours.block_dah(h).hash() == theirs.block_dah(h).hash()
+    st = ours._eds_cache.stats()
+    assert st["heights_from_store"] == 3 and st["page_store_loads"] > 0
+    assert st == theirs._eds_cache.stats()
+    for h, _k in STORE_KS:
+        coords = [(i, j) for hh, i, j in payloads if hh == h]
+        assert ours.sample_batch(h, coords) == theirs.sample_batch(h, coords)
+
+
+@pytest.mark.parametrize("reader", ["port", "jax"])
+def test_each_node_restarts_over_the_others_home(tmp_path, reader):
+    ours, _theirs = persisted_pair(tmp_path)
+    payloads = payloads_for({h: 2 * k for h, k in STORE_KS})
+    want = ours.sample_batch_ragged(payloads)
+    home = tmp_path / ("jax" if reader == "port" else "port")
+    node = (Node(device="cpu", home=home) if reader == "port"
+            else jax_node.Node(_App(), home=str(home)))
+    assert node.sample_batch_ragged(payloads) == want
+
+
+def test_block_dah_after_restart_reads_no_page(tmp_path):
+    ours, theirs = persisted_pair(tmp_path)
+    served = {h: json.dumps(theirs.block_dah(h).to_json(), sort_keys=True) for h, _k in STORE_KS}
+    node, _ = restarted(tmp_path, "port")
+    for h, _k in STORE_KS:
+        assert json.dumps(node.block_dah(h).to_json(), sort_keys=True) == served[h]
+    assert node._eds_cache.stats()["pages"] == 0  # no square was read
+
+
+def test_persist_fetches_the_square_once_and_records_its_stages(tmp_path):
+    from celestia_tpu_torch import tracing
+
+    node = Node(device="cpu", home=tmp_path)
+    sq = port_square(8, 1)
+    node._eds_cache.put(1, sq)
+    before = metrics.get_counter("transfer_bytes", site="store.persist", direction="d2h")
+    sink = tracing.push_stage_sink()
+    try:
+        node._persist_block_eds(1, sq)
+    finally:
+        tracing.pop_stage_sink()
+    moved = metrics.get_counter("transfer_bytes", site="store.persist", direction="d2h") - before
+    assert moved == 16 * 16 * 512
+    assert {"levels", "d2h", "crc", "write"} <= set(sink.data)
+    entry = node.store.entry(1)
+    assert entry.levels_len > 0 and entry.rows_per_page == node._eds_cache.rows_per_page
+    # a host square persists without levels, and fetches nothing
+    node._persist_block_eds(2, port_eds(2, 2))
+    assert node.store.entry(2).levels_len == 0
+    assert metrics.get_counter("transfer_bytes", site="store.persist",
+                               direction="d2h") - before == moved
+
+
+def test_device_level_failure_raises_at_persist(tmp_path, monkeypatch):
+    node = Node(device="cpu", home=tmp_path)
+    sq = port_square(2, 1)
+    node._eds_cache.put(1, sq)
+
+    def broken(*_a, **_k):
+        raise RuntimeError("the card failed")
+
+    monkeypatch.setattr(extend, "eds_row_levels_device", broken)
+    with pytest.raises(RuntimeError, match="the card failed"):
+        node._persist_block_eds(1, sq)
+    assert 1 not in node.store
+
+
+@pytest.mark.parametrize("kind", ["enospc", "short_write", "fsync_fail"])
+def test_disk_failure_at_persist_leaves_serving_to_the_cache(tmp_path, kind):
+    ours = Node(device="cpu", home=tmp_path / "port")
+    theirs = jax_node.Node(_App(), home=str(tmp_path / "jax"))
+    site = "store.fsync" if kind == "fsync_fail" else "store.write"
+    for flt, node, sq in ((faults, ours, port_square(2, 1)),
+                          (jax_faults, theirs, jax_square(2, 1))):
+        node._eds_cache.put(1, sq)
+        with flt.inject(flt.rule(site, kind), seed=5):
+            node._persist_block_eds(1, sq)  # logged, not raised
+        assert 1 not in node.store
+        assert node.store.read_only == (kind == "enospc")
+    assert ours.sample_batch(1, [(0, 1)]) == theirs.sample_batch(1, [(0, 1)])
+    assert ours.sample_batch(1, [(0, 1)])[0] is not None
+
+
+@pytest.mark.parametrize("times", [1, None])
+def test_store_read_drill_refuses_the_struck_height(tmp_path, times):
+    """A page record failing its CRC refuses that height's store copy: the
+    height answers None and the others as before. The JAX node heals every
+    height of the group and reads them again: a one-shot flip answers all,
+    a lasting one raises (a difference of record)."""
+    ours, theirs = persisted_pair(tmp_path)
+    payloads = payloads_for({h: 2 * k for h, k in STORE_KS})
+    want = ours.sample_batch_ragged(payloads)
+    node, jnode = restarted(tmp_path, "port")[0], restarted(tmp_path, "jax")[1]
+    sdc = metrics.get_counter("sdc_detected_total", site="store.read")
+    with faults.inject(faults.rule("store.read", "bitflip", times=times), seed=5):
+        got = node.sample_batch_ragged(payloads)
+    refused = sorted(node._store_refused)
+    assert len(refused) == (1 if times == 1 else 3)
+    for (h, _i, _j), d, w in zip(payloads, got, want):
+        assert d == (None if h in refused else w)
+    assert all(h not in node._eds_cache for h in refused)
+    assert metrics.get_counter("sdc_detected_total", site="store.read") - sdc == len(refused)
+    with jax_faults.inject(jax_faults.rule("store.read", "bitflip", times=times), seed=5):
+        if times == 1:
+            assert jnode.sample_batch_ragged(payloads) == want
+        else:
+            with pytest.raises(JaxIntegrityError):
+                jnode.sample_batch_ragged(payloads)
+    # persisting the height again lifts the refusal
+    h = refused[0]
+    k = dict(STORE_KS)[h]
+    node._persist_block_eds(h, port_square(k, h))
+    assert h not in node._store_refused
+    node._eds_cache.invalidate(h)
+    still = set(refused) - {h}
+    assert node.sample_batch_ragged(payloads) == [
+        None if hh in still else w for (hh, _i, _j), w in zip(payloads, want)]
+
+
+def test_sample_batch_refuses_a_rotten_store_copy(tmp_path):
+    persisted_pair(tmp_path, heights=STORE_KS[:1])
+    node, _ = restarted(tmp_path, "port")
+    e = node.store.entry(1)
+    with open(e.path, "r+b") as f:
+        f.seek(e.page_offset(0) + 20)
+        f.write(b"\x00\x00\x00")
+    assert node.sample_batch(1, [(0, 0), (3, 3)]) == [None, None]
+    assert node._store_refused == {1} and node.block_eds(1) is None
+
+
+def test_failed_store_load_answers_none_like_jax(tmp_path):
+    persisted_pair(tmp_path, heights=STORE_KS[:2])
+    node, jnode = restarted(tmp_path, "port")[0], restarted(tmp_path, "jax")[1]
+    for which in ("port", "jax"):  # the file vanishes after the re-index
+        (tmp_path / which / "store" / "2.ctps").unlink()
+    assert node.block_eds(2) is None and jnode.block_eds(2) is None
+    assert node.sample_batch(2, [(0, 0)]) == jnode.sample_batch(2, [(0, 0)]) == [None]
+    assert node.sample_batch(1, [(0, 0)]) == jnode.sample_batch(1, [(0, 0)])
+
+
+def test_restart_mixes_page_geometries_like_jax(tmp_path):
+    """Heights stored with 2-row pages keep them in a restarted node's
+    8-row cache; a crowd over them and a height put after the restart spans
+    both geometries."""
+    persisted_pair(tmp_path, heights=STORE_KS[:2], rows_per_page=2)
+    node, jnode = restarted(tmp_path, "port")[0], restarted(tmp_path, "jax")[1]
+    node._eds_cache.put(3, port_square(16, 3))
+    jnode._eds_cache.put(3, jax_square(16, 3))
+    payloads = payloads_for({1: 4, 2: 16, 3: 32})
+    got = node.sample_batch_ragged(payloads)
+    assert got == jnode.sample_batch_ragged(payloads)
+    assert node._eds_cache.get(1).rows_per_page == 2 and node._eds_cache.get(3).rows_per_page == 8
+    assert sum(isinstance(d, dict) for d in got) == 15
+
+
+def test_store_needs_a_home(tmp_path):
+    node = Node(device="cpu")
+    assert node.home is None and node.store is None and node._eds_cache.store is None
+    node._persist_block_eds(1, port_square(2, 1))  # nothing to persist to
+    blocked = tmp_path / "file"
+    blocked.write_bytes(b"not a directory")
+    ours = Node(device="cpu", home=blocked)  # the store cannot be opened
+    theirs = jax_node.Node(_App(), home=None)
+    assert ours.store is None and theirs.store is None
