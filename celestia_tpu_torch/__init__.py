@@ -46,6 +46,12 @@ find; nothing here imports jax or celestia_tpu):
 - ``faults``             — seeded fault injection at the device boundaries
 - ``tracing``            — spans, the flight recorder, stage sinks, fenced profiling
 - ``integrity``          — CRC-32C, the GF(256) syndrome through K4, the audit engine
+- ``bech32``, ``crypto`` — addresses, secp256k1 keys and signatures on Python integers
+  (RFC 6979 nonces, a pure-Python RIPEMD-160; no ``cryptography`` wheel)
+- ``smt``, ``state``, ``tx`` — the app hash's sparse Merkle tree, the branching state
+  store, the tx wire format and the message registry
+- ``app.context``, ``app.errors``, ``app.ante`` and ``x.*`` — the ante chain and the
+  keepers of a chain of sends and PFBs (host Python, copies of the JAX package's)
 
 The CUDA kernels live in ``csrc/`` and are built with nvcc at first use
 (``ops._cuda``).

@@ -362,6 +362,19 @@ ASSEMBLY_FAMILIES = ("one_blob", "many_blobs", "host_over_blob", "uncovered", "n
                      "arena_edge", "misaligned")
 FIRST_SPARSE, CONT_SPARSE = 478, 482  # data bytes of a blob's first and later shares
 FIRST_PREFIX, CONT_PREFIX = 34, 30  # the bytes before them: namespace, info[, length]
+# the chain phase (6e): bench.py config 8b's block signed as bench.py:741-757
+# signs it (one key, chain "bench", account number 0, sequences 0..59,
+# Fee(amount=gas, gas_limit=gas) with gas = estimate_gas([120000])), by the
+# port's own keys; the signer's genesis balance pays every fee
+CHAIN_ID = "bench"
+CHAIN_KEY_SECRET = b"bench-arena"
+CHAIN_GENESIS_BALANCE = 10**12
+CHAIN_BLOCK_TIME = 15.0  # the first block's time, genesis at 0
+# the block's app hash after commit and its DAH hash; tests/
+# test_torch_chip_smoke.py recomputes both on the CPU with the JAX
+# package's keepers and host extend fed the port-signed txs
+CHAIN_APP_HASH = "abcd28f1bb474554d23538eb66bc325d7b7c5c400d423a5ac520ea44c7861458"
+CHAIN_DAH_HASH = "19f5dd86ca1ab4df234954841a0964f49d702ba3639fe44140c61c4cd249cfc1"
 
 
 def serving_crowd(seed: int, heights, width: int, n: int) -> list[tuple[int, int, int]]:
@@ -391,23 +404,157 @@ def gather_case(pages_of, payloads, rows_per_page: int) -> tuple[list, list[int]
     return pages, slots, rows
 
 
-def proposal_txs(seed: int = PROPOSAL_SEED, n: int = PROPOSAL_BLOBS,
-                 size: int = PROPOSAL_BLOB_BYTES) -> list[bytes]:
-    """bench.py config 8b's blob txs, each blob in its own v0 namespace and
-    its data drawn in bench.py's order; the inner tx is a fixed byte string
-    of a signed PFB's length with the tx's index in front."""
+def config_8b_blobs(seed: int = PROPOSAL_SEED, n: int = PROPOSAL_BLOBS,
+                    size: int = PROPOSAL_BLOB_BYTES) -> list:
+    """bench.py config 8b's blobs in its draw order (bench.py:741-757),
+    each in its own v0 namespace."""
     from celestia_tpu_torch import blob as blob_pkg
     from celestia_tpu_torch import namespace as ns
 
     r = np.random.default_rng(seed)
+    return [blob_pkg.new_blob(ns.new_v0(b"arena" + i.to_bytes(5, "big")),
+                              r.integers(0, 256, size, dtype=np.uint8).tobytes(), 0)
+            for i in range(n)]
+
+
+def proposal_txs(seed: int = PROPOSAL_SEED, n: int = PROPOSAL_BLOBS,
+                 size: int = PROPOSAL_BLOB_BYTES) -> list[bytes]:
+    """bench.py config 8b's blob txs with a fixed inner tx: a byte string
+    of a signed PFB's length with the tx's index in front."""
+    from celestia_tpu_torch import blob as blob_pkg
+
     filler = np.random.default_rng(seed + 1).integers(
         0, 256, PFB_INNER_BYTES - 2, dtype=np.uint8).tobytes()
-    txs = []
-    for i in range(n):
-        data = r.integers(0, 256, size, dtype=np.uint8).tobytes()
-        b = blob_pkg.new_blob(ns.new_v0(b"arena" + i.to_bytes(5, "big")), data, 0)
-        txs.append(blob_pkg.marshal_blob_tx(i.to_bytes(2, "big") + filler, [b]))
-    return txs
+    return [blob_pkg.marshal_blob_tx(i.to_bytes(2, "big") + filler, [b])
+            for i, b in enumerate(config_8b_blobs(seed, n, size))]
+
+
+def sign_chain_tx(key, msg, blob, sequence: int) -> tuple:
+    """One PFB of ``blob`` signed as bench.py signs it: (the Tx, the
+    BlobTx's bytes)."""
+    from celestia_tpu_torch import blob as blob_pkg
+    from celestia_tpu_torch.tx import Fee, sign_tx
+    from celestia_tpu_torch.x.blob.types import estimate_gas
+
+    gas = estimate_gas([len(blob.data)])
+    tx = sign_tx(key, [msg], CHAIN_ID, 0, sequence, Fee(amount=gas, gas_limit=gas))
+    return tx, blob_pkg.marshal_blob_tx(tx.marshal(), [blob])
+
+
+def chain_genesis(address: str):
+    """App.init_chain (celestia_tpu/app/app.py:238-267) with the port's
+    keepers: the blob params, the block time key, mint's genesis, and
+    ``address`` funded. Returns the committed StateStore."""
+    from celestia_tpu_torch.state import StateStore
+    from celestia_tpu_torch.x.auth import AccountKeeper
+    from celestia_tpu_torch.x.bank import BLOCK_TIME_KEY, BankKeeper
+    from celestia_tpu_torch.x.blob.keeper import BlobKeeper, Params
+    from celestia_tpu_torch.x.mint import MintKeeper
+
+    store = StateStore()
+    bank = BankKeeper(store)
+    BlobKeeper(store).set_params(Params())
+    store.set(BLOCK_TIME_KEY, repr(0.0).encode())
+    MintKeeper(store, bank).init_genesis(0.0)
+    AccountKeeper(store).get_or_create(address)
+    bank.mint(address, CHAIN_GENESIS_BALANCE)
+    store.commit()
+    return store
+
+
+def _chain_context(store, mode, block_time: float):
+    from celestia_tpu_torch.app.context import Context
+
+    return Context(store=store, chain_id=CHAIN_ID, block_height=1, block_time=block_time,
+                   app_version=1, mode=mode)
+
+
+def chain_check(check_store, raw: bytes, times: dict | None = None) -> tuple[int, str]:
+    """App.check_tx (app.py:704-746) of a BlobTx on the persistent check
+    branch: validate_blob_tx, then the ante in CHECK mode on a branch of
+    it, written back when the ante passes. Returns (code, log); ``times``
+    collects the ms of each step."""
+    from celestia_tpu_torch import blob as blob_pkg
+    from celestia_tpu_torch.app.ante import AnteHandler
+    from celestia_tpu_torch.app.context import ExecMode
+    from celestia_tpu_torch.x.blob.types import validate_blob_tx
+
+    btx, _is_blob = blob_pkg.unmarshal_blob_tx(raw)
+    try:
+        t0 = time.perf_counter()
+        tx = validate_blob_tx(btx)
+        t1 = time.perf_counter()
+        branch = check_store.branch()
+        AnteHandler()(_chain_context(branch, ExecMode.CHECK, 0.0), tx, len(btx.tx))
+        t2 = time.perf_counter()
+    except Exception as e:  # noqa: BLE001 — a refused tx is its result code, as in the App
+        return 1, str(e)
+    branch.write()
+    if times is not None:
+        times.setdefault("validate_blob_tx", []).append((t1 - t0) * 1e3)
+        times.setdefault("check_ante", []).append((t2 - t1) * 1e3)
+    return 0, ""
+
+
+def chain_deliver(store, raws: list[bytes], times: dict | None = None) -> tuple[list, bytes]:
+    """App.begin_block, deliver_tx of each tx and commit (app.py:890-976,
+    :1281-1293) with the port's keepers: mint's and distribution's begin
+    blockers on the deliver branch; per tx the ante on a branch, then
+    BlobKeeper.pay_for_blobs on another; then the deliver branch written
+    and committed. Returns the (code, log) of each tx and the app hash."""
+    import dataclasses
+
+    from celestia_tpu_torch import blob as blob_pkg
+    from celestia_tpu_torch.app.ante import AnteHandler
+    from celestia_tpu_torch.app.context import ExecMode
+    from celestia_tpu_torch.tx import decode_tx
+    from celestia_tpu_torch.x.bank import BLOCK_TIME_KEY, BankKeeper
+    from celestia_tpu_torch.x.blob.keeper import BlobKeeper
+    from celestia_tpu_torch.x.blob.types import MsgPayForBlobs
+    from celestia_tpu_torch.x.distribution import DistributionKeeper
+    from celestia_tpu_torch.x.mint import MintKeeper
+    from celestia_tpu_torch.x.staking import StakingKeeper
+
+    deliver = store.branch()
+    block_ctx = _chain_context(deliver, ExecMode.DELIVER, CHAIN_BLOCK_TIME)
+    deliver.set(BLOCK_TIME_KEY, repr(CHAIN_BLOCK_TIME).encode())
+    bank = BankKeeper(deliver)
+    MintKeeper(deliver, bank).begin_blocker(block_ctx)
+    DistributionKeeper(deliver, bank, StakingKeeper(deliver, bank)).begin_blocker(block_ctx)
+    results = []
+    for raw in raws:
+        t0 = time.perf_counter()
+        btx, is_blob = blob_pkg.unmarshal_blob_tx(raw)
+        inner = btx.tx if is_blob else raw
+        tx = decode_tx(inner)
+        ante_store = deliver.branch()
+        ctx = dataclasses.replace(block_ctx, store=ante_store, events=[])
+        try:
+            ctx = AnteHandler()(ctx, tx, len(inner))
+        except Exception as e:  # noqa: BLE001 — as in the App: the tx's result
+            results.append((1, str(e)))
+            continue
+        ante_store.write()
+        msg_store = deliver.branch()
+        msg_ctx = dataclasses.replace(ctx, store=msg_store)
+        try:
+            for msg in tx.msgs:
+                if not isinstance(msg, MsgPayForBlobs):
+                    raise ValueError(f"unroutable message type {type(msg).__name__}")
+                BlobKeeper(msg_store).pay_for_blobs(msg_ctx, msg)
+        except Exception as e:  # noqa: BLE001 — msg effects roll back, ante's stay
+            results.append((1, str(e)))
+            continue
+        msg_store.write()
+        results.append((0, ""))
+        if times is not None:
+            times.setdefault("deliver", []).append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    deliver.write()
+    app_hash = store.commit()
+    if times is not None:
+        times["commit"] = [(time.perf_counter() - t0) * 1e3]
+    return results, app_hash
 
 
 def assembly_case(k: int, seed: int, family: str) -> dict[str, np.ndarray]:
@@ -2330,6 +2477,111 @@ def main(argv: list[str]) -> int:
              cli_ms=cli_ms, phase_seconds=time.perf_counter() - t_phase)
     finally:
         shutil.rmtree(home, ignore_errors=True)
+
+    # ---- phase 6e: the chain. bench.py config 8b's block signed by the
+    # port's own keys, checked and delivered by the port's state machine on
+    # the host, then its square built, assembled and rooted on the card
+    from celestia_tpu_torch import blob as blob_pkg
+    from celestia_tpu_torch import crypto, inclusion
+    from celestia_tpu_torch.tx import sign_doc_bytes
+    from celestia_tpu_torch.x.blob.types import new_msg_pay_for_blobs
+
+    t_phase = time.perf_counter()
+    c_key = crypto.PrivateKey.from_secret(CHAIN_KEY_SECRET)
+    c_pub, c_addr = c_key.public_key(), c_key.bech32_address()
+    c_blobs = config_8b_blobs()
+    c_msgs = [new_msg_pay_for_blobs(c_addr, b) for b in c_blobs]
+    c_txs, c_raws, sign_ms = [], [], []
+    for seq, (msg, b) in enumerate(zip(c_msgs, c_blobs)):
+        t = time.perf_counter()
+        tx, raw = sign_chain_tx(c_key, msg, b, seq)
+        sign_ms.append((time.perf_counter() - t) * 1e3)
+        c_txs.append(tx)
+        c_raws.append(raw)
+    commitment_ms, verify_ms = [], []
+    for tx, b in zip(c_txs, c_blobs):
+        t = time.perf_counter()
+        inclusion.create_commitment(b)
+        commitment_ms.append((time.perf_counter() - t) * 1e3)
+        doc = sign_doc_bytes(tx.body_bytes(), tx.auth_info_bytes(), CHAIN_ID, 0)
+        t = time.perf_counter()
+        ok = crypto.verify_signature(c_pub, doc, tx.signatures[0])
+        verify_ms.append((time.perf_counter() - t) * 1e3)
+        check(ok, "a port-signed tx does not verify")
+    # genesis, then CheckTx of the 60 on one persistent check branch
+    c_store = chain_genesis(c_addr)
+    c_check = c_store.branch()
+    c_times: dict[str, list[float]] = {}
+    checked = [chain_check(c_check, raw, c_times) for raw in c_raws]
+    refused = [r for r in checked if r[0] != 0]
+    check(not refused, f"{len(refused)} of {len(c_raws)} txs refused at CheckTx: {refused[:2]}")
+    # the refusals: a 61st tx reusing sequence 59, a blob flipped after
+    # signing, and a signature with one bit flipped (directly, and as a
+    # 61st tx with the right sequence through the ante)
+    reused = chain_check(c_check, sign_chain_tx(c_key, c_msgs[0], c_blobs[0], 59)[1])
+    check(reused[0] != 0 and "account sequence mismatch" in reused[1],
+          f"a reused sequence: {reused}")
+    b0 = c_blobs[0]
+    flipped_blob = blob_pkg.new_blob(b0.namespace(), bytes([b0.data[0] ^ 1]) + b0.data[1:], 0)
+    flipped = chain_check(c_check, blob_pkg.marshal_blob_tx(c_txs[0].marshal(), [flipped_blob]))
+    check(flipped[0] != 0 and "invalid share commitment" in flipped[1],
+          f"a blob flipped after signing: {flipped}")
+    doc0 = sign_doc_bytes(c_txs[0].body_bytes(), c_txs[0].auth_info_bytes(), CHAIN_ID, 0)
+    bad_sig = bytearray(c_txs[0].signatures[0])
+    bad_sig[17] ^= 0x04
+    check(not crypto.verify_signature(c_pub, doc0, bytes(bad_sig)),
+          "a signature with a flipped bit verifies")
+    tx60, _raw60 = sign_chain_tx(c_key, c_msgs[1], c_blobs[1], 60)
+    sig60 = bytearray(tx60.signatures[0])
+    sig60[17] ^= 0x04
+    tx60.signatures = [bytes(sig60)]
+    bad_ante = chain_check(c_check, blob_pkg.marshal_blob_tx(tx60.marshal(), [c_blobs[1]]))
+    check(bad_ante[0] != 0 and "signature verification failed" in bad_ante[1],
+          f"a flipped signature through the ante: {bad_ante}")
+    # BeginBlock, DeliverTx of the 60, Commit
+    delivered, app_hash = chain_deliver(c_store, c_raws, c_times)
+    check(all(code == 0 for code, _log in delivered),
+          f"DeliverTx refused {[r for r in delivered if r[0]][:2]}")
+    check(app_hash.hex() == CHAIN_APP_HASH,
+          f"the app hash {app_hash.hex()} != the CPU-pinned {CHAIN_APP_HASH}")
+    host_s = time.perf_counter() - t_phase
+    # on the card: build the square, stage the blobs in a fresh arena,
+    # assemble and root it with the counts from 0
+    c_square, c_kept, c_builder = square_pkg.build_ex(c_raws, 1, PROPOSAL_K)
+    ck = square_pkg.square_size(len(c_square))
+    check(ck == PROPOSAL_K and len(c_kept) == len(c_raws),
+          f"the signed block's square is k = {ck} with {len(c_kept)} of {len(c_raws)} txs")
+    c_arena = DeviceBlobArena(device=dev)
+    c_arena.put_many([b.data for _s, b in c_builder.blob_layout()])
+    c_arena.ready()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    c_dah = proposal.assembled_proposal_dah(c_arena, c_square, c_builder, ck, dev)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    emit(phase="main_path", entry="assembled_proposal_dah", block="chain", k=ck,
+         launches=counts)
+    want = {"assemble_square": 1, "leaf_digests2d": 1, "encode2d_hash": 3, "nmt_tree": 1}
+    check(c_dah is not None and counts == {**dict.fromkeys(counts, 0), **want},
+          f"assembled_proposal_dah on the signed block launched {counts}: {want} expected")
+    c_arr = np.frombuffer(b"".join(to_bytes(c_square)), np.uint8).reshape(ck, ck, SHARE_SIZE)
+    c_rows, c_cols = extend.roots_device(c_arr, dev)
+    check(c_dah.row_roots == [r.tobytes() for r in c_rows]
+          and c_dah.column_roots == [c.tobytes() for c in c_cols]
+          and c_dah.hash() == host_dah(c_rows, c_cols),
+          "the signed block's assembled DAH differs from roots_device's")
+    check(c_dah.hash().hex() == CHAIN_DAH_HASH,
+          f"the signed block's DAH {c_dah.hash().hex()} != the CPU-pinned {CHAIN_DAH_HASH}")
+    med = statistics.median
+    emit(phase="chain", txs=len(c_raws), accepted=len(c_raws) - len(refused),
+         refusals={"reused_sequence": reused[1], "flipped_blob": flipped[1],
+                   "flipped_signature": bad_ante[1]},
+         sign_ms=med(sign_ms), commitment_ms=med(commitment_ms), verify_ms=med(verify_ms),
+         validate_blob_tx_ms=med(c_times["validate_blob_tx"]),
+         check_ante_ms=med(c_times["check_ante"]), deliver_ms=med(c_times["deliver"]),
+         commit_ms=c_times["commit"][0], host_seconds=host_s,
+         phase_seconds=time.perf_counter() - t_phase,
+         app_hash=app_hash.hex(), dah=c_dah.hash().hex())
 
     # ---- phase 7: timing
     def bound(ops_s: float, nbytes: float) -> tuple[float, str]:

@@ -7,6 +7,7 @@ import collections
 import importlib.util
 import pathlib
 
+import numpy as np
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -309,7 +310,12 @@ def _proposal_source() -> str:
 
 def _store_source() -> str:
     src = (REPO / "chip_smoke.py").read_text()
-    return src[src.index("    # ---- phase 6d"):src.index("    # ---- phase 7: timing")]
+    return src[src.index("    # ---- phase 6d"):src.index("    # ---- phase 6e")]
+
+
+def _chain_source() -> str:
+    src = (REPO / "chip_smoke.py").read_text()
+    return src[src.index("    # ---- phase 6e"):src.index("    # ---- phase 7: timing")]
 
 
 def test_kernel_sources_name_every_kernel_of_the_port():
@@ -500,3 +506,148 @@ def test_proposal_txs_fill_a_k128_square():
     assert kept == txs and square.square_size(len(sq)) == 128
     assert len(builder.blob_layout()) == 60
     assert chip_smoke.assembly_bytes(128, [120_000] * 60, 0) == 128 * 128 * 512 + 7_200_000
+
+
+# ---- the chain phase (6e)
+
+def _chain_block():
+    """config 8b's block as phase 6e signs it, with the port alone: the
+    key, the blobs and the 60 BlobTxs' bytes."""
+    from celestia_tpu_torch import crypto
+    from celestia_tpu_torch.x.blob.types import new_msg_pay_for_blobs
+
+    key = crypto.PrivateKey.from_secret(chip_smoke.CHAIN_KEY_SECRET)
+    blobs = chip_smoke.config_8b_blobs()
+    raws = [chip_smoke.sign_chain_tx(key, new_msg_pay_for_blobs(key.bech32_address(), b), b, i)[1]
+            for i, b in enumerate(blobs)]
+    return key, blobs, raws
+
+
+def test_chain_phase_catches_no_failure():
+    """Every check of the chain phase raises (no except clause: a refused
+    tx is a result code of chain_check, as in the App), and it reports the
+    main path's launches and the chain line with the hashes."""
+    import ast
+    import textwrap
+
+    src = _chain_source()
+    tree = ast.parse(textwrap.dedent(src))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    for name in ('entry="assembled_proposal_dah", block="chain"', 'phase="chain"',
+                 '"account sequence mismatch"', '"invalid share commitment"',
+                 '"signature verification failed"', "CHAIN_APP_HASH", "CHAIN_DAH_HASH",
+                 "extend.roots_device(c_arr, dev)"):
+        assert name in src, name
+    assert src.count("check(") >= 11
+
+
+def test_config_8b_blobs_are_bench_pys():
+    """The same namespaces and bytes as bench.py:741-757 draws them."""
+    from celestia_tpu import blob as jblob
+    from celestia_tpu import namespace as jns
+
+    rng = np.random.default_rng(11)
+    want = [jblob.new_blob(jns.new_v0(b"arena" + i.to_bytes(5, "big")),
+                           rng.integers(0, 256, 120_000, dtype=np.uint8).tobytes(), 0)
+            for i in range(60)]
+    got = chip_smoke.config_8b_blobs()
+    assert [(b.namespace().bytes, b.data) for b in got] == \
+        [(b.namespace().bytes, b.data) for b in want]
+
+
+def test_chain_constants_are_the_jax_packages_app_hash_and_dah():
+    """Phase 6e's two constants, recomputed with the JAX package: the
+    port-signed txs go through the JAX keepers as App.init_chain,
+    check_tx, begin_block, deliver_tx and commit run them
+    (celestia_tpu/app/app.py:238-267, :704-746, :890-976, :1281-1293),
+    and the square the JAX build_ex makes of them through its host
+    extend."""
+    import dataclasses
+
+    from celestia_tpu import blob as jblob
+    from celestia_tpu import da, square
+    from celestia_tpu.app.ante import AnteHandler
+    from celestia_tpu.app.context import Context, ExecMode
+    from celestia_tpu.shares import to_bytes
+    from celestia_tpu.state import StateStore
+    from celestia_tpu.tx import decode_tx
+    from celestia_tpu.x.auth import AccountKeeper
+    from celestia_tpu.x.bank import BLOCK_TIME_KEY, BankKeeper
+    from celestia_tpu.x.blob.keeper import BlobKeeper, Params
+    from celestia_tpu.x.blob.types import validate_blob_tx
+    from celestia_tpu.x.distribution import DistributionKeeper
+    from celestia_tpu.x.mint import MintKeeper
+    from celestia_tpu.x.staking import StakingKeeper
+
+    key, _blobs, raws = _chain_block()
+
+    def ctx_of(store, mode, block_time):
+        return Context(store=store, chain_id=chip_smoke.CHAIN_ID, block_height=1,
+                       block_time=block_time, app_version=1, mode=mode)
+
+    store = StateStore()
+    bank = BankKeeper(store)
+    BlobKeeper(store).set_params(Params())
+    store.set(BLOCK_TIME_KEY, repr(0.0).encode())
+    MintKeeper(store, bank).init_genesis(0.0)
+    AccountKeeper(store).get_or_create(key.bech32_address())
+    bank.mint(key.bech32_address(), chip_smoke.CHAIN_GENESIS_BALANCE)
+    store.commit()
+    check_store = store.branch()
+    for raw in raws:
+        btx, is_blob = jblob.unmarshal_blob_tx(raw)
+        assert is_blob
+        tx = validate_blob_tx(btx)
+        branch = check_store.branch()
+        AnteHandler()(ctx_of(branch, ExecMode.CHECK, 0.0), tx, len(btx.tx))
+        branch.write()
+    deliver = store.branch()
+    block_ctx = ctx_of(deliver, ExecMode.DELIVER, chip_smoke.CHAIN_BLOCK_TIME)
+    deliver.set(BLOCK_TIME_KEY, repr(chip_smoke.CHAIN_BLOCK_TIME).encode())
+    bank = BankKeeper(deliver)
+    MintKeeper(deliver, bank).begin_blocker(block_ctx)
+    DistributionKeeper(deliver, bank, StakingKeeper(deliver, bank)).begin_blocker(block_ctx)
+    for raw in raws:
+        inner = jblob.unmarshal_blob_tx(raw)[0].tx
+        tx = decode_tx(inner)
+        ante_store = deliver.branch()
+        ctx = AnteHandler()(dataclasses.replace(block_ctx, store=ante_store, events=[]),
+                            tx, len(inner))
+        ante_store.write()
+        msg_store = deliver.branch()
+        BlobKeeper(msg_store).pay_for_blobs(dataclasses.replace(ctx, store=msg_store), tx.msgs[0])
+        msg_store.write()
+    deliver.write()
+    assert store.commit().hex() == chip_smoke.CHAIN_APP_HASH
+
+    data_square, kept, _builder = square.build_ex(raws, 1, chip_smoke.PROPOSAL_K)
+    assert kept == raws and square.square_size(len(data_square)) == 128
+    eds = da.extend_shares(np.frombuffer(b"".join(to_bytes(data_square)), np.uint8)
+                           .reshape(-1, 512))
+    assert da.new_data_availability_header(eds).hash().hex() == chip_smoke.CHAIN_DAH_HASH
+
+
+def test_chain_host_path_accepts_the_block_and_refuses_the_three():
+    """chip_smoke's own host path with the port's keepers: 60 of 60
+    accepted at CheckTx and DeliverTx, the reused sequence and the flipped
+    blob refused with the JAX package's messages, the app hash pinned."""
+    from celestia_tpu_torch import blob
+    from celestia_tpu_torch.x.blob.types import new_msg_pay_for_blobs
+
+    key, blobs, raws = _chain_block()
+    store = chip_smoke.chain_genesis(key.bech32_address())
+    check_store = store.branch()
+    times = {}
+    assert [chip_smoke.chain_check(check_store, raw, times) for raw in raws] == [(0, "")] * 60
+    assert len(times["check_ante"]) == len(times["validate_blob_tx"]) == 60
+    msg0 = new_msg_pay_for_blobs(key.bech32_address(), blobs[0])
+    tx0, reused = chip_smoke.sign_chain_tx(key, msg0, blobs[0], 59)
+    assert chip_smoke.chain_check(check_store, reused) == (
+        1, "account sequence mismatch: expected 60, got 59")
+    b = blobs[0]
+    flipped = blob.marshal_blob_tx(tx0.marshal(), [blob.new_blob(
+        b.namespace(), bytes([b.data[0] ^ 1]) + b.data[1:], 0)])
+    assert chip_smoke.chain_check(check_store, flipped) == (1, "invalid share commitment")
+    results, app_hash = chip_smoke.chain_deliver(store, raws, times)
+    assert results == [(0, "")] * 60 and len(times["deliver"]) == 60
+    assert app_hash.hex() == chip_smoke.CHAIN_APP_HASH

@@ -1,6 +1,7 @@
 """The port stands alone: celestia_tpu_torch and chip_smoke.py import
-neither jax nor any module of celestia_tpu, and no entry runs on the CPU
-unless asked to."""
+neither jax nor any module of celestia_tpu nor the ``cryptography`` wheel
+(the card's machine has none), and no entry runs on the CPU unless asked
+to."""
 
 import ast
 import json
@@ -23,18 +24,26 @@ from celestia_tpu_torch.store import BlockStore
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "celestia_tpu_torch"
+# the state machine's modules: keys and signatures, the state store, txs,
+# the ante chain and the keepers
+STATE_MACHINE = ("bech32", "crypto", "crypto.ripemd160", "smt", "state", "tx",
+                 "app.context", "app.errors", "app.ante", "x", "x.auth", "x.bank", "x.blob",
+                 "x.blob.types", "x.blob.keeper", "x.feegrant", "x.vesting", "x.authz",
+                 "x.staking", "x.distribution", "x.slashing", "x.mint", "x.crisis",
+                 "x.paramfilter", "x.gov", "x.upgrade")
 
 
 def _forbidden(module: str) -> bool:
-    """jax, jaxlib and celestia_tpu with their submodules — not
-    celestia_tpu_torch, whose name starts with the same letters."""
+    """jax, jaxlib, celestia_tpu and cryptography with their submodules —
+    not celestia_tpu_torch, whose name starts with the same letters."""
     root = module.split(".")[0]
-    return root in ("jax", "jaxlib", "celestia_tpu")
+    return root in ("jax", "jaxlib", "celestia_tpu", "cryptography")
 
 
 def test_forbidden_matches_exact_package_names():
     assert _forbidden("jax") and _forbidden("jax.numpy") and _forbidden("jaxlib")
     assert _forbidden("celestia_tpu") and _forbidden("celestia_tpu.ops.rs_tpu")
+    assert _forbidden("cryptography") and _forbidden("cryptography.hazmat.primitives")
     assert not _forbidden("celestia_tpu_torch")
     assert not _forbidden("celestia_tpu_torch.ops.extend")
 
@@ -58,7 +67,7 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
                  "shares.info_byte", "shares.splitters", "shares.parse", "inclusion",
                  "inclusion.cache", "square", "ops.blob_pool", "ops.assemble",
                  "ops.assemble_cuda", "app.proposal", "log", "store", "store.powercut",
-                 "cli"):
+                 "cli", *STATE_MACHINE):
         assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
@@ -149,6 +158,36 @@ def test_resolve_gives_the_cpu_only_when_asked():
     assert device.resolve("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         device.resolve("meta")
+
+
+def test_the_state_machine_signs_and_verifies_without_cryptography():
+    """With the wheel made unimportable, the port's keys sign, verify and
+    derive addresses, and a PFB tx passes validate_blob_tx and the ante."""
+    script = (
+        "import sys\n"
+        "sys.modules['cryptography'] = None\n"
+        "from celestia_tpu_torch import blob, namespace, state, tx\n"
+        "from celestia_tpu_torch.app import ante, context\n"
+        "from celestia_tpu_torch.crypto import PrivateKey, verify_signature\n"
+        "from celestia_tpu_torch.x import auth, bank\n"
+        "from celestia_tpu_torch.x.blob import types\n"
+        "key = PrivateKey.from_secret(b'k')\n"
+        "b = blob.new_blob(namespace.new_v0(b'no-crypto'), b'data' * 100, 0)\n"
+        "msg = types.new_msg_pay_for_blobs(key.bech32_address(), b)\n"
+        "t = tx.sign_tx(key, [msg], 'c', 0, 0, tx.Fee(amount=10**5, gas_limit=10**5))\n"
+        "raw = blob.marshal_blob_tx(t.marshal(), [b])\n"
+        "decoded = types.validate_blob_tx(blob.unmarshal_blob_tx(raw)[0])\n"
+        "store = state.StateStore()\n"
+        "auth.AccountKeeper(store).get_or_create(key.bech32_address())\n"
+        "bank.BankKeeper(store).mint(key.bech32_address(), 10**6)\n"
+        "ctx = context.Context(store.branch(), 'c', 2, 0.0, 1, context.ExecMode.CHECK)\n"
+        "ante.AnteHandler()(ctx, decoded, len(t.marshal()))\n"
+        "assert not verify_signature(key.public_key(), b'x', key.sign(b'y'))\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'cryptography'))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip().splitlines()[-1] == "['cryptography']"
 
 
 def test_the_store_cli_and_the_explorer_import_no_jax():
