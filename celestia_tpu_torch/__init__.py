@@ -39,7 +39,8 @@ find; nothing here imports jax or celestia_tpu):
   place in the EDS) and its plain version
 - ``ops.repair``         — EDS repair on the card: the sweep plan, the resident repair
   verified against the DAH roots, ``repair_device``
-- ``app.calibration``    — the port's measured dense/XOR routing table
+- ``app.calibration``    — the port's measured routing tables: the App's gpu/native
+  crossover and the dense/XOR table
 - ``da``                 — ExtendedDataSquare (with sliced reads) and
   DataAvailabilityHeader; ``da.repair``, the host repair and ``repair_eds``
 - ``telemetry``          — counters and histogram timers
@@ -51,7 +52,13 @@ find; nothing here imports jax or celestia_tpu):
 - ``smt``, ``state``, ``tx`` — the app hash's sparse Merkle tree, the branching state
   store, the tx wire format and the message registry
 - ``app.context``, ``app.errors``, ``app.ante`` and ``x.*`` — the ante chain and the
-  keepers of a chain of sends and PFBs (host Python, copies of the JAX package's)
+  keepers, IBC (light client, connections, channels, transfer, tokenfilter) and
+  Blobstream included (host Python, copies of the JAX package's); ``crypto.keccak``
+- ``app.app``            — the App: CheckTx, Prepare/ProcessProposal, block execution,
+  ExtendBlock, on the ``gpu``, ``native`` or ``numpy`` backend, with the strikes,
+  sticky degrade and SDC quarantine; ``app.proposal``, its blob-arena DAH
+- ``da.fraud``           — bad-encoding fraud proofs (the quarantine's evidence oracle)
+- ``native``             — the native C++ runtime (``csrc/host/``, g++ at first use)
 
 The CUDA kernels live in ``csrc/`` and are built with nvcc at first use
 (``ops._cuda``).

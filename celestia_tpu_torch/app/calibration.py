@@ -1,9 +1,19 @@
-"""The measured dense/XOR routing table (port of the XOR part of the JAX
-package's app/calibration.py).
+"""The measured routing tables of the port (port of the JAX package's
+app/calibration.py): the App's backend crossover and the dense/XOR table.
 
-``extend._xor_active`` asks ``xor_winner(k)`` which contraction the
-extend should use when no env pin decides: the dense GF(2) product (K1/K4)
-or the compiled XOR schedule (K5/K6). Both give the same bytes, so the
+The backend crossover. ``App.resolve_extend_backend`` routes ``auto`` by
+the measured winner per k between the card (``gpu``) and the native C++
+runtime (``native``): ``measure_crossover`` times the proposal path's unit
+of work (square bytes in, the DAH's axis roots out, transfers included) on
+each available backend at a ladder of k, and ``load_default_table`` reads
+the port's own committed table, ``celestia_tpu_torch/config/crossover.json``
+(written by ``python3 chip_smoke.py --crossover-out PATH`` on the card).
+The JAX package's ``config/crossover.json`` holds TPU times and is never
+read here. With no table the App falls back to its static gate.
+
+The dense/XOR table. ``extend._xor_active`` asks ``xor_winner(k)`` which
+contraction the extend should use when no env pin decides: the dense GF(2)
+product (K1/K4) or the compiled XOR schedule (K5/K6). Both give the same bytes, so the
 choice is one of speed, and it is read from a table of times measured on
 the card: ``celestia_tpu_torch/config/xor_schedule.json``, the port's own
 file. The JAX package's ``config/xor_schedule.json`` holds TPU times and is
@@ -25,15 +35,30 @@ import dataclasses
 import json
 import math
 import pathlib
+import time
 
+import numpy as np
+
+from celestia_tpu_torch.appconsts import SHARE_SIZE
+from celestia_tpu_torch.log import logger
+
+log = logger("calibration")
+
+# every power of two to the largest square: the small squares are the
+# common block, so the table measures them rather than extrapolating to
+# them from k = 16 (the JAX package's ladder starts at 16)
+DEFAULT_KS = (1, 2, 4, 8, 16, 32, 64, 128)
+FILENAME = "crossover.json"
+CROSSOVER_TABLE_PATH = pathlib.Path(__file__).resolve().parents[1] / "config" / FILENAME
 XOR_FILENAME = "xor_schedule.json"
 XOR_TABLE_PATH = pathlib.Path(__file__).resolve().parents[1] / "config" / XOR_FILENAME
 
 
 @dataclasses.dataclass
 class CrossoverTable:
-    """Per-k times (ms) per spelling, e.g.
-    {64: {"dense": 2.1, "xor": 1.9}}, with the card they were taken on."""
+    """Per-k times (ms) per backend or spelling, e.g.
+    {64: {"gpu": 1.2, "native": 95.1}} or {64: {"dense": 2.1, "xor": 1.9}},
+    with the card they were taken on."""
 
     entries: dict[int, dict[str, float]]
     measured_at: float = 0.0
@@ -71,6 +96,11 @@ class CrossoverTable:
             power_limit=str(d.get("power_limit", "")),
         )
 
+    def save(self, path: str | pathlib.Path) -> None:
+        p = pathlib.Path(path)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(json.dumps(self.to_json(), indent=2) + "\n")
+
     @classmethod
     def load(cls, path: str | pathlib.Path) -> "CrossoverTable | None":
         """None when the file is missing or unreadable: an absent or
@@ -79,6 +109,23 @@ class CrossoverTable:
             return cls.from_json(json.loads(pathlib.Path(path).read_text()))
         except (OSError, ValueError, TypeError, AttributeError):
             return None
+
+
+_default_table: "CrossoverTable | None" = None
+_default_loaded = False
+
+
+def load_default_table() -> "CrossoverTable | None":
+    """The port's committed backend table (``CROSSOVER_TABLE_PATH``), which
+    every fresh App attaches; ``App.calibrate_crossover()`` (or assigning
+    ``App.crossover``) overrides it, and the App re-checks each
+    winner against the backends it has. Loaded once per process; None when
+    absent or corrupt."""
+    global _default_table, _default_loaded
+    if not _default_loaded:
+        _default_table = CrossoverTable.load(CROSSOVER_TABLE_PATH)
+        _default_loaded = True
+    return _default_table
 
 
 _xor_table: "CrossoverTable | None" = None
@@ -103,3 +150,50 @@ def xor_winner(k: int) -> str:
     if table is None:
         return "dense"
     return table.winner(k) or "dense"
+
+
+def _best_of(fn, repeats: int) -> float:
+    """Best-of wall ms after one untimed warmup (which absorbs the kernel
+    build and first-launch costs)."""
+    fn()
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def measure_crossover(ks: tuple[int, ...] = DEFAULT_KS, repeats: int = 2,
+                      device=None) -> CrossoverTable:
+    """Time the proposal path's unit of work (square bytes in, the DAH's
+    axis roots out, transfers included) per available backend per k:
+    ``gpu`` is ``extend.roots_device`` on ``device`` (None means CUDA; it is
+    timed only on a CUDA device) and ``native`` the C++ runtime.
+
+    Share bytes are random: the roots cost nothing more for any content.
+    The plain host path is not timed: the resolver falls back to it only
+    when neither backend is there, and timing its k = 128 extend would stall
+    a start."""
+    import torch
+
+    from celestia_tpu_torch import device as device_mod
+    from celestia_tpu_torch import native
+    from celestia_tpu_torch.ops import extend
+
+    dev = device_mod.resolve(device)
+    entries: dict[int, dict[str, float]] = {}
+    for k in ks:
+        rng = np.random.default_rng(k)
+        arr = rng.integers(0, 256, size=(k, k, SHARE_SIZE), dtype=np.uint8)
+        timings: dict[str, float] = {}
+        if dev.type == "cuda":
+            timings["gpu"] = _best_of(lambda: extend.roots_device(arr, dev), repeats)
+        if native.available():
+            timings["native"] = _best_of(lambda: native.extend_and_root_native(arr), repeats)
+        if timings:
+            entries[k] = timings
+            log.info("crossover rung", k=k, **{b: round(ms, 3) for b, ms in timings.items()})
+    # the caller adds the power limit (nvidia-smi's), which torch cannot read
+    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else ""
+    return CrossoverTable(entries, measured_at=time.time(), card=card)

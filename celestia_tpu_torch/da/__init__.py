@@ -57,12 +57,13 @@ class ExtendedDataSquare:
     _SLICE_CACHE_AXES = 8
 
     def __init__(self, squares: np.ndarray | None, original_width: int,
-                 device=None):
+                 device=None, roots: tuple[np.ndarray, np.ndarray] | None = None):
         """``device``: where the roots of host bytes are computed (None
-        means CUDA, as for every entry of the port)."""
+        means CUDA, as for every entry of the port); ``roots``: the
+        (row_roots, col_roots) when the caller already has them."""
         self._data = squares
         self._device: torch.Tensor | None = None
-        self._roots: tuple[np.ndarray, np.ndarray] | None = None
+        self._roots = roots
         self._compute_device = device
         self._slice_cache: dict[tuple[str, int], list[bytes]] = {}
         # concurrent readers share an instance: insert and evict under a lock
@@ -75,9 +76,8 @@ class ExtendedDataSquare:
                     ) -> "ExtendedDataSquare":
         """Wrap a (2k, 2k, 512) tensor without fetching it; ``roots`` are
         its (row_roots, col_roots) when the caller already has them."""
-        eds = cls(None, original_width, device_buffer.device)
+        eds = cls(None, original_width, device_buffer.device, roots)
         eds._device = device_buffer
-        eds._roots = roots
         return eds
 
     @property

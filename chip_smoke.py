@@ -3,10 +3,12 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--xor-table-out PATH] [--sass-out PATH]
+    python3 chip_smoke.py [--xor-table-out PATH] [--crossover-out PATH] [--sass-out PATH]
 
 ``--xor-table-out`` also writes the dense/XOR routing table this run measured
 (phase 7) to PATH, in the format of celestia_tpu_torch/config/xor_schedule.json;
+``--crossover-out`` writes the App's gpu/native backend table (phase 6f) to
+PATH, in the format of celestia_tpu_torch/config/crossover.json;
 ``--sass-out`` writes the SASS of K2, K3 and the tree kernel to PATH.
 
 The port has four extend routes (fused/unfused × dense/XOR); a route is
@@ -181,6 +183,40 @@ prints no result; it also exits non-zero when no CUDA device is present):
    truncated and a garbage file are quarantined by the next re-index; and
    ``python -m celestia_tpu_torch.cli store verify`` exits 1 on the damaged
    store and 0 once it is clean.
+6e. The chain (``chain``): bench.py config 8b's 60 PFBs signed by the
+   port's keys, CheckTx, DeliverTx and commit through the port's keepers
+   by hand (``chain_check``, ``chain_deliver``), the three refusals, and
+   the block's square assembled and rooted on the card; the app hash and
+   DAH equal CHAIN_APP_HASH and CHAIN_DAH_HASH.
+6f. The App (``app``): the same block through the port's own entry
+   points. App A, the proposer, with a blob arena, and App B, a replica,
+   both on the card with the default ``auto`` backend, from one genesis
+   (6e's account, one validator bonded from a second key, the governance
+   square size raised to k = 128). Height 1 is empty (A proposes, B
+   accepts, both commit, equal app hashes). CheckTx of the 60 on both, the
+   blobs staged in A's arena at admission. Height 2 on the card, with the
+   launch counts from 0 before each entry: A.prepare_proposal keeps the
+   60 at k = 128 and launches assemble_square 1, K2 1, K1 3, nmt_tree 1
+   (arena_stats assembled 1, fallback 0); B.process_proposal accepts,
+   launching K2 1, K1 3, nmt_tree 1; both deliver and commit to
+   APP_HASH_2; the proposal's DAH is CHAIN_DAH_HASH; A.extend_block gives
+   a device-resident EDS with the same DAH. After each call the
+   ``extend.block`` span says backend "gpu" and no strike, fallback,
+   quarantine or ProcessProposal panic was counted. Height 3: a transfer
+   channel opened on both, then a MsgRegisterEVMAddress, a MsgTransfer
+   (escrow and a packet commitment) and a MsgSend through both Apps to
+   APP_HASH_3, and the Blobstream valset EndBlock wrote carries the
+   registered EVM address. The drill, on separate replicas over a k = 32
+   proposal of the block's first two PFBs (on the card): one armed
+   device.extend error (not the device's unavailability) is no degrade:
+   ProcessProposal panics and votes no, with no strike; one armed
+   unavailable device.extend is one strike and one counted fallback with the DAH
+   unchanged; three in a row disable the device path (sticky); under
+   audit_level "full" a device.extend.output bitflip quarantines, with
+   ``last_sdc["befp_provable"]`` True. The ``app`` line times PrepareProposal
+   (split into filter_txs, build_square and the DAH), ProcessProposal,
+   DeliverTx a tx, commit and ExtendBlock; the ``crossover`` line is
+   ``calibration.measure_crossover`` (gpu against native at k = 1-128).
 7. Timing, after warm-up: each kernel at its main-path shapes (K2 at
    k = 64 and 128, on Q0 and on the EDS), as its own device time per launch
    (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
@@ -221,7 +257,8 @@ prints no result; it also exits non-zero when no CUDA device is present):
    10 calls of extend_and_root_device at k = 64 and 128.
 
 Every measurement is one JSON line carrying the card's name and power limit.
-Then come the ``kernels`` line (the eleven kernels; the ragged gather timed
+The ``phase_seconds`` line gives each phase's wall seconds (from its first
+line to the next phase's; "1" includes the build). Then come the ``kernels`` line (the eleven kernels; the ragged gather timed
 at the full-width crowd's bucket, its library time the device time of
 torch.cat of the bucket's row views; the assembly at config 8b's square), the card as nvidia-smi reports it, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -375,6 +412,23 @@ CHAIN_BLOCK_TIME = 15.0  # the first block's time, genesis at 0
 # package's keepers and host extend fed the port-signed txs
 CHAIN_APP_HASH = "abcd28f1bb474554d23538eb66bc325d7b7c5c400d423a5ac520ea44c7861458"
 CHAIN_DAH_HASH = "19f5dd86ca1ab4df234954841a0964f49d702ba3639fe44140c61c4cd249cfc1"
+# the App phase (6f): 6e's signer, and one genesis validator bonding from a
+# second key; block times 15, 30 and 45 s after a genesis at 0
+APP_VALIDATOR_SECRET = b"bench-validator"
+APP_VALIDATOR_BALANCE = 10**9
+APP_VALIDATOR_BOND = 10**8
+APP_BLOCK_TIMES = (15.0, 30.0, 45.0)
+# height 3: the validator's EVM address, and what the signer sends over the
+# transfer channel (escrowed) and to the validator
+APP_EVM_ADDRESS = "0x" + "c0ffee" * 6 + "beef"
+APP_CHANNEL = "channel-0"
+APP_TRANSFER = 1_000_000
+APP_SEND = 2_500
+APP_FEE, APP_GAS = 2_000, 200_000
+# the app hashes after heights 2 and 3; tests/test_torch_chip_smoke.py
+# recomputes both with the JAX package's App on the CPU
+APP_HASH_2 = "3ba138f385c54c9d9db00aa4423c428e1eee713924d133e8f706ea3fec1c0e23"
+APP_HASH_3 = "b98f5bf1ec1b5e7b5517d064a2d80731036a2d6436023108e3b8690d56831db9"
 
 
 def serving_crowd(seed: int, heights, width: int, n: int) -> list[tuple[int, int, int]]:
@@ -555,6 +609,328 @@ def chain_deliver(store, raws: list[bytes], times: dict | None = None) -> tuple[
     if times is not None:
         times["commit"] = [(time.perf_counter() - t0) * 1e3]
     return results, app_hash
+
+
+def app_genesis(app, signer: str, validator: str) -> None:
+    """Phase 6f's genesis on an App (the port's, or the JAX package's in
+    the tests): 6e's signer and balance, one validator bonding from a
+    second account (the staking hook reaches x/blobstream), and the
+    governance square size raised from its default of 64 to k = 128, the
+    app version's upper bound, which config 8b's block needs."""
+    app.init_chain({signer: CHAIN_GENESIS_BALANCE, validator: APP_VALIDATOR_BALANCE},
+                   genesis_time=0.0, genesis_validators={validator: APP_VALIDATOR_BOND})
+    params = app.blob.get_params()
+    params.gov_max_square_size = PROPOSAL_K
+    app.blob.set_params(params)
+    app.store.commit_hash_refresh()
+
+
+def app_block(app, txs: list[bytes], block_time: float, times: dict | None = None):
+    """BeginBlock, DeliverTx of each tx, EndBlock and Commit: (the tx
+    results, the app hash). ``times`` collects the ms of each tx and of the
+    commit."""
+    app.begin_block(block_time)
+    results = []
+    for raw in txs:
+        t0 = time.perf_counter()
+        results.append(app.deliver_tx(raw))
+        if times is not None:
+            times.setdefault("deliver", []).append((time.perf_counter() - t0) * 1e3)
+    app.end_block()
+    t0 = time.perf_counter()
+    app_hash = app.commit()
+    if times is not None:
+        times["commit"] = (time.perf_counter() - t0) * 1e3
+    return results, app_hash
+
+
+def open_transfer_channel(app) -> None:
+    """The transfer channel's OPEN end as celestia_tpu/testutil/ibc.py:18-25
+    opens it (the post-handshake state), on one chain's App."""
+    from celestia_tpu_torch.x.transfer import PORT_ID_TRANSFER
+
+    app.ibc.open_channel(PORT_ID_TRANSFER, APP_CHANNEL, PORT_ID_TRANSFER, APP_CHANNEL)
+    app.store.commit_hash_refresh()
+
+
+def app_height3_txs(signer_key, validator_key) -> list[bytes]:
+    """Height 3's txs, signed by the port's keys: the validator registers
+    its EVM address (account 1, sequence 0); the signer (account 0, after
+    the 60 PFBs) sends APP_TRANSFER over the transfer channel and APP_SEND
+    to the validator."""
+    from celestia_tpu_torch.tx import Fee, sign_tx
+    from celestia_tpu_torch.x.bank import MsgSend
+    from celestia_tpu_torch.x.blobstream import MsgRegisterEVMAddress
+    from celestia_tpu_torch.x.transfer import PORT_ID_TRANSFER, MsgTransfer
+
+    s, v = signer_key.bech32_address(), validator_key.bech32_address()
+    fee = Fee(amount=APP_FEE, gas_limit=APP_GAS)
+    return [
+        sign_tx(validator_key, [MsgRegisterEVMAddress(v, APP_EVM_ADDRESS)], CHAIN_ID, 1, 0,
+                fee).marshal(),
+        sign_tx(signer_key, [MsgTransfer(PORT_ID_TRANSFER, APP_CHANNEL, "utia", APP_TRANSFER,
+                                         s, s)], CHAIN_ID, 0, PROPOSAL_BLOBS, fee).marshal(),
+        sign_tx(signer_key, [MsgSend(s, v, APP_SEND)], CHAIN_ID, 0, PROPOSAL_BLOBS + 1,
+                fee).marshal(),
+    ]
+
+
+# the counters of the App's degrade, quarantine and refusal paths; phase 6f
+# fails if any moves outside its drill
+DEGRADE_COUNTERS = ("extend_gpu_fallback_total", "extend_gpu_disabled_total",
+                    "sdc_quarantine_total", "process_proposal_panics")
+CROSSOVER_REPEATS = 3  # best of, after one warm-up call, per backend and k
+DRILL_TXS = 2  # the PFBs of the drill's proposal: k = 32
+# what one k = 128 call of each App entry launches on the fused dense route
+APP_LAUNCHES = {
+    "prepare_proposal": {"assemble_square": 1, "leaf_digests2d": 1, "encode2d_hash": 3,
+                         "nmt_tree": 1},
+    "process_proposal": {"leaf_digests2d": 1, "encode2d_hash": 3, "nmt_tree": 1},
+    "extend_block": {"leaf_digests2d": 1, "encode2d_hash": 3, "nmt_tree": 1},
+}
+
+
+def degrade_counts(metrics) -> dict[str, float]:
+    """Each of DEGRADE_COUNTERS summed over its labels."""
+    return {name: sum(v for key, v in metrics.counters.items() if key.split("{")[0] == name)
+            for name in DEGRADE_COUNTERS}
+
+
+def app_phase(dev, emit, signer_key, raws: list[bytes], crossover_out=None) -> None:
+    """Phase 6f: config 8b's signed block through the port's App on the card
+    (see the module docstring). Every check raises; nothing is caught."""
+    import torch
+
+    from celestia_tpu_torch import blob as blob_pkg
+    from celestia_tpu_torch import crypto, da, faults, integrity, tracing
+    from celestia_tpu_torch.app import calibration
+    from celestia_tpu_torch.app.app import App
+    from celestia_tpu_torch.ops import _cuda
+    from celestia_tpu_torch.telemetry import metrics
+    from celestia_tpu_torch.x.transfer import PORT_ID_TRANSFER, escrow_address
+
+    t_phase = time.perf_counter()
+    v_key = crypto.PrivateKey.from_secret(APP_VALIDATOR_SECRET)
+    s_addr, v_addr = signer_key.bech32_address(), v_key.bech32_address()
+    base = degrade_counts(metrics)
+
+    def clean(app, what: str) -> None:
+        now = degrade_counts(metrics)
+        check(now == base and app._gpu_strikes == 0 and not app._gpu_disabled
+              and not app.sdc_quarantined,
+              f"{what}: a degrade outside the drill (counters {now} from {base}, strikes "
+              f"{app._gpu_strikes}, disabled {app._gpu_disabled}, quarantined "
+              f"{app.sdc_quarantined})")
+
+    def on_card(app, entry: str, call):
+        """One App entry with the launch counts from 0 and its spans
+        recorded: (its result, wall ms, {span name: ms})."""
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        with tracing.record() as rec:
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_cuda.LAUNCHES)
+        want = {**dict.fromkeys(counts, 0), **APP_LAUNCHES[entry]}
+        check(counts == want, f"App.{entry} launched {counts}: {APP_LAUNCHES[entry]} expected")
+        blocks = [sp for sp in rec.spans if sp.name == "extend.block"]
+        check(len(blocks) == 1 and blocks[0].attrs.get("backend") == "gpu"
+              and not blocks[0].attrs.get("degraded"),
+              f"App.{entry}'s extend.block spans: {[sp.attrs for sp in blocks]}")
+        clean(app, f"App.{entry}")
+        return out, ms, {sp.name: sp.duration * 1e3 for sp in rec.spans}
+
+    def replica(**kw):
+        app = App(chain_id=CHAIN_ID, device=dev, **kw)
+        app_genesis(app, s_addr, v_addr)
+        app_block(app, [], APP_BLOCK_TIMES[0])
+        return app
+
+    # height 1, empty by design: A proposes, B accepts, both commit
+    a_app = App(chain_id=CHAIN_ID, device=dev)
+    a_app.enable_blob_pool()
+    b_app = App(chain_id=CHAIN_ID, device=dev)
+    for app in (a_app, b_app):
+        check(app.extend_backend == "auto" and app.device.type == "cuda",
+              f"an App on {app.device} with backend {app.extend_backend}")
+        app_genesis(app, s_addr, v_addr)
+    p1 = a_app.prepare_proposal([])
+    check(p1.txs == [] and p1.square_size == 1 and b_app.process_proposal(p1),
+          f"the empty height 1: {p1}")
+    h1 = [app_block(app, [], APP_BLOCK_TIMES[0])[1] for app in (a_app, b_app)]
+    check(h1[0] == h1[1], f"height 1's app hashes differ: {h1[0].hex()} {h1[1].hex()}")
+    clean(a_app, "height 1")
+    clean(b_app, "height 1")
+    # CheckTx of the 60 on both; A stages each tx's blobs at admission
+    check_ms = []
+    for app in (a_app, b_app):
+        for raw in raws:
+            t0 = time.perf_counter()
+            res = app.check_tx(raw)
+            if app is a_app:
+                app.blob_pool.put_many([b.data for b in blob_pkg.unmarshal_blob_tx(raw)[0].blobs])
+                check_ms.append((time.perf_counter() - t0) * 1e3)
+            check(res.code == 0, f"CheckTx refused a signed PFB: {res.log}")
+    a_app.blob_pool.ready()
+
+    # height 2 on the card. The arena's counts are read as the difference
+    # this proposal made: height 1's empty square counts a fallback when
+    # the crossover table routes k = 1 to the card (no blob to assemble)
+    stats0 = dict(a_app.arena_stats)
+    p2, prepare_ms, prepare_spans = on_card(a_app, "prepare_proposal",
+                                            lambda: a_app.prepare_proposal(raws))
+    check(p2.square_size == PROPOSAL_K and p2.txs == raws,
+          f"PrepareProposal: k = {p2.square_size}, {len(p2.txs)} of {len(raws)} txs")
+    arena = {name: n - stats0[name] for name, n in a_app.arena_stats.items()}
+    check(arena == {"assembled": 1, "fallback": 0},
+          f"the proposer's arena: {a_app.arena_stats} from {stats0}")
+    check(p2.hash.hex() == CHAIN_DAH_HASH,
+          f"the proposal's DAH {p2.hash.hex()} != phase 6e's {CHAIN_DAH_HASH}")
+    accepted, process_ms, _spans = on_card(b_app, "process_proposal",
+                                           lambda: b_app.process_proposal(p2))
+    check(accepted is True, "the replica's ProcessProposal refused the proposer's block")
+    # more samples of both entries, on the same state (neither commits); the
+    # fastest PrepareProposal is reported with its own split
+    for _ in range(2):
+        _p, ms, spans = on_card(a_app, "prepare_proposal", lambda: a_app.prepare_proposal(raws))
+        if ms < prepare_ms:
+            prepare_ms, prepare_spans = ms, spans
+        process_ms = min(process_ms, on_card(b_app, "process_proposal",
+                                             lambda: b_app.process_proposal(p2))[1])
+    times: dict = {}
+    results, h2 = {}, {}
+    for app in (a_app, b_app):
+        res, h2[id(app)] = app_block(app, p2.txs, APP_BLOCK_TIMES[1],
+                                     times if app is a_app else None)
+        results[id(app)] = [(r.code, r.log) for r in res]
+        check(all(r.code == 0 for r in res),
+              f"DeliverTx refused {[(r.code, r.log) for r in res if r.code][:2]}")
+    check(results[id(a_app)] == results[id(b_app)] and h2[id(a_app)] == h2[id(b_app)],
+          "the proposer and the replica differ after height 2")
+    check(h2[id(a_app)].hex() == APP_HASH_2,
+          f"height 2's app hash {h2[id(a_app)].hex()} != the CPU-pinned {APP_HASH_2}")
+    eds, extend_ms, _spans = on_card(a_app, "extend_block", lambda: a_app.extend_block(p2.txs))
+    check(eds.device_data is not None and eds.device_data.device.type == "cuda",
+          "ExtendBlock's EDS is not resident on the card")
+    check(da.new_data_availability_header(eds).hash() == p2.hash,
+          "ExtendBlock's DAH differs from the proposal's")
+    for _ in range(2):
+        extend_ms = min(extend_ms, on_card(a_app, "extend_block",
+                                           lambda: a_app.extend_block(p2.txs))[1])
+
+    # height 3: the new modules
+    t3 = app_height3_txs(signer_key, v_key)
+    for app in (a_app, b_app):
+        open_transfer_channel(app)
+        refused = [r.log for r in map(app.check_tx, t3) if r.code]
+        check(not refused, f"CheckTx refused height 3's txs: {refused}")
+    p3 = a_app.prepare_proposal(t3)
+    check(p3.txs == t3 and b_app.process_proposal(p3), f"height 3's proposal: {p3}")
+    h3 = []
+    for app in (a_app, b_app):
+        res, app_hash = app_block(app, p3.txs, APP_BLOCK_TIMES[2])
+        check(all(r.code == 0 for r in res), f"height 3 refused {[r.log for r in res if r.code]}")
+        h3.append(app_hash)
+        clean(app, "height 3")
+    check(h3[0] == h3[1] and h3[0].hex() == APP_HASH_3,
+          f"height 3's app hashes {[h.hex() for h in h3]}: the CPU-pinned {APP_HASH_3}")
+    valset = a_app.blobstream.latest_valset()
+    check(valset is not None and valset["height"] == 3
+          and [m["evm_address"] for m in valset["members"]] == [APP_EVM_ADDRESS],
+          f"the Blobstream valset after height 3: {valset}")
+    packets = a_app.ibc.pending_packets(PORT_ID_TRANSFER, APP_CHANNEL)
+    escrowed = a_app.bank.get_balance(escrow_address(PORT_ID_TRANSFER, APP_CHANNEL))
+    check(len(packets) == 1 and escrowed == APP_TRANSFER,
+          f"the transfer: {len(packets)} packets, {escrowed} escrowed")
+
+    # the drill, on replicas of height 1, over a proposal of the block's
+    # first DRILL_TXS PFBs: a square the measured table routes to the card
+    # (k = 32), at a tenth of a k = 128 ProcessProposal's host time. First
+    # a fault that is not the device's unavailability (as a kernel that
+    # fails to launch would raise): it is no degrade, so ProcessProposal
+    # panics and votes no, with no strike and no fallback
+    t_drill = time.perf_counter()
+    d_app = replica()
+    p_drill = d_app.prepare_proposal(raws[:DRILL_TXS])
+    check(p_drill.txs == raws[:DRILL_TXS]
+          and d_app.resolve_extend_backend(p_drill.square_size) == "gpu",
+          f"the drill's proposal: k = {p_drill.square_size}, {len(p_drill.txs)} txs, backend "
+          f"{d_app.resolve_extend_backend(p_drill.square_size)}")
+    clean(d_app, "the drill's proposal")
+    counters0 = degrade_counts(metrics)
+    with faults.inject(faults.rule("device.extend", "error", times=1), seed=SEED):
+        ok = d_app.process_proposal(p_drill)
+    moved = {name: n - counters0[name] for name, n in degrade_counts(metrics).items()}
+    check(ok is False and d_app._gpu_strikes == 0 and not d_app._gpu_disabled
+          and moved == {**dict.fromkeys(DEGRADE_COUNTERS, 0), "process_proposal_panics": 1},
+          f"a device.extend error: accepted {ok}, strikes {d_app._gpu_strikes}, "
+          f"counters moved {moved}")
+    # then one armed device.extend unavailability, then three
+    counters0 = degrade_counts(metrics)
+    with faults.inject(faults.rule("device.extend", "unavailable", times=1), seed=SEED):
+        with tracing.record() as rec:
+            ok = d_app.process_proposal(p_drill)
+    fallbacks = degrade_counts(metrics)["extend_gpu_fallback_total"] \
+        - counters0["extend_gpu_fallback_total"]
+    span = [sp for sp in rec.spans if sp.name == "extend.block"][0]
+    check(ok and d_app._gpu_strikes == 1 and not d_app._gpu_disabled and fallbacks == 1
+          and span.attrs.get("degraded") and span.attrs.get("backend") == "native",
+          f"one device.extend fault: accepted {ok}, strikes {d_app._gpu_strikes}, "
+          f"fallbacks {fallbacks}, span {span.attrs}")
+    check(d_app.process_proposal(p_drill) and d_app._gpu_strikes == 0,
+          "a clean call after one strike did not reset the strikes")
+    with faults.inject(faults.rule("device.extend", "unavailable", times=3), seed=SEED):
+        oks = [d_app.process_proposal(p_drill) for _ in range(3)]
+    with tracing.record() as rec:
+        ok_after = d_app.process_proposal(p_drill)
+    span = [sp for sp in rec.spans if sp.name == "extend.block"][0]
+    disabled = degrade_counts(metrics)["extend_gpu_disabled_total"] \
+        - counters0["extend_gpu_disabled_total"]
+    check(all(oks) and ok_after and d_app._gpu_disabled and d_app._gpu_strikes == 3
+          and disabled >= 1 and span.attrs.get("backend") == "native",
+          f"three device.extend faults: accepted {oks + [ok_after]}, disabled "
+          f"{d_app._gpu_disabled}, strikes {d_app._gpu_strikes}, span {span.attrs}")
+    # the quarantine: an audited replica, its device result bit-flipped
+    q_app = replica(audit_level="full")
+    with faults.inject(faults.rule("device.extend.output", "bitflip", times=1), seed=SEED):
+        ok = q_app.process_proposal(p_drill)
+    integrity.configure("off")
+    check(ok and q_app.sdc_quarantined and q_app._gpu_disabled
+          and q_app.last_sdc["befp_provable"] is True,
+          f"the quarantine: accepted {ok}, last_sdc {q_app.last_sdc}")
+    drill = {"error_panics": moved["process_proposal_panics"],
+             "strike_fallbacks": fallbacks, "disabled_counted": disabled,
+             "quarantine": q_app.last_sdc}
+    base = degrade_counts(metrics)  # the drill's own counts, excluded below
+
+    t_crossover = time.perf_counter()
+    crossover = calibration.measure_crossover(calibration.DEFAULT_KS, CROSSOVER_REPEATS, dev)
+    _smi, card_name, power_limit = card()
+    crossover.card, crossover.power_limit = card_name, power_limit
+    check(all(crossover.entries[k].keys() == {"gpu", "native"} for k in calibration.DEFAULT_KS),
+          f"the crossover measured {crossover.entries}")
+    emit(phase="crossover", ks=list(calibration.DEFAULT_KS), repeats=CROSSOVER_REPEATS,
+         entries={str(k): v for k, v in crossover.entries.items()},
+         winners={str(k): crossover.winner(k) for k in calibration.DEFAULT_KS})
+    if crossover_out:
+        crossover.save(crossover_out)
+    clean(a_app, "the crossover")
+    med = statistics.median
+    emit(phase="app", k=PROPOSAL_K, txs=len(raws),
+         launches={e: APP_LAUNCHES[e] for e in APP_LAUNCHES},
+         check_tx_ms=med(check_ms), prepare_proposal_ms=prepare_ms,
+         prepare_split_ms={"filter_txs": prepare_spans["app.filter_txs"],
+                           "build_square": prepare_spans["app.build_square"],
+                           "dah": prepare_spans["extend.block"]},
+         process_proposal_ms=process_ms, deliver_tx_ms=med(times["deliver"]),
+         commit_ms=times["commit"], extend_block_ms=extend_ms,
+         arena_height_2=arena, arena_stats=a_app.arena_stats, app_hash_2=h2[id(a_app)].hex(),
+         app_hash_3=h3[0].hex(), dah=p2.hash.hex(), valset_nonce=valset["nonce"],
+         drill=drill, phase_seconds=time.perf_counter() - t_phase,
+         split_seconds={"blocks": t_drill - t_phase, "drill": t_crossover - t_drill,
+                        "crossover": time.perf_counter() - t_crossover})
 
 
 def assembly_case(k: int, seed: int, family: str) -> dict[str, np.ndarray]:
@@ -977,6 +1353,8 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--xor-table-out", default=None,
                     help="also write the measured dense/XOR routing table here")
+    ap.add_argument("--crossover-out", default=None,
+                    help="also write the App's measured gpu/native backend table here")
     ap.add_argument("--sass-out", default=None,
                     help="also write the SASS of K2, K3 and the tree kernel "
                          "(cuobjdump -sass) here")
@@ -1007,6 +1385,12 @@ def main(argv: list[str]) -> int:
     def emit(**kw) -> None:
         print(json.dumps({**kw, **tag}), flush=True)
 
+    # wall seconds per phase, from its first line to the next phase's
+    phase_marks: list[tuple[str, float]] = []
+
+    def phase_start(name: str) -> None:
+        phase_marks.append((name, time.perf_counter()))
+
     def as_i64(t: torch.Tensor) -> torch.Tensor:
         if t.dtype == torch.uint32:
             return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
@@ -1023,6 +1407,7 @@ def main(argv: list[str]) -> int:
     def dev_bytes(shape) -> torch.Tensor:
         return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to(dev)
 
+    phase_start("1")
     # ---- phase 1: environment and build
     emit(phase="environment", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device_count=torch.cuda.device_count(),
@@ -1099,6 +1484,7 @@ def main(argv: list[str]) -> int:
              reads_per_32_lanes=lay.reads, padded_reads_per_32_lanes=lay.padded_reads,
              padding=lay.padded_reads / lay.reads - 1)
 
+    phase_start("2")
     # ---- phase 2: each kernel against its plain version on the card
     for nb in range(1, sha256.padded_length(600) // 64 + 1):
         lengths = [n for n in range(601) if sha256.padded_length(n) == 64 * nb]
@@ -1254,6 +1640,7 @@ def main(argv: list[str]) -> int:
              max_abs_err=max_err["nmt_tree"])
     torch.cuda.synchronize()
 
+    phase_start("3")
     # ---- phase 3: the reference DAH hashes through the port's main path
     def oracle_square(count: int) -> np.ndarray:
         ns1 = ns.new_v0(b"\x01" * ns.NAMESPACE_VERSION_ZERO_ID_SIZE)
@@ -1286,6 +1673,7 @@ def main(argv: list[str]) -> int:
                   f"{label} device DAH on {rname} differs from the host DAH")
             emit(phase="oracle", route=rname, name=label, k=k, dah=got)
 
+    phase_start("4")
     # ---- phase 4: realistic squares, the main path, kernel route vs plain route
     def realistic(k: int, pad_tail: int) -> np.ndarray:
         flat = rng.integers(0, 256, size=(k * k, SHARE_SIZE), dtype=np.uint8)
@@ -1410,6 +1798,7 @@ def main(argv: list[str]) -> int:
         emit(phase="route_vs_plain", square=label, k=k, routes=list(ROUTES),
              dah=got[3].tobytes().hex(), host_oracle=(k == 64))
 
+    phase_start("5")
     # ---- phase 5: the block path around the kernels (roots-only core,
     # batched roots, staging, integrity, sliced reads)
     def wall_ms(fn, reps: int = REPS) -> float:
@@ -1630,6 +2019,7 @@ def main(argv: list[str]) -> int:
          full_fetch_ms=wall_ms(lambda: transfers.device_get_chunked(eds_main, site="smoke.t"),
                                reps=3))
 
+    phase_start("6")
     # ---- phase 6: EDS repair, the repair-after-extend path of a catching-up
     # node (BASELINE config 4): bench.py's square and masks at k = 128 and 64
     from celestia_tpu_torch.ops import repair, repair_cuda
@@ -1816,6 +2206,7 @@ def main(argv: list[str]) -> int:
             emit(phase="integrity_drill", k=kk, level="full", site="device.repair.output",
                  mismatches=repair_drill)
 
+    phase_start("6b")
     # ---- phase 6b: serving reads, DAS samples off the paged device EDS cache
     from celestia_tpu_torch import proof, tracing
     from celestia_tpu_torch.node import Node
@@ -2115,6 +2506,7 @@ def main(argv: list[str]) -> int:
             times.append((time.perf_counter() - t) * 1e3)
         return statistics.median(times)
 
+    phase_start("6c")
     # ---- phase 6c: the proposer's path from transactions (bench.py config 8b):
     # square construction, the blobs staged in the arena, the square
     # assembled on the card from it, the roots-only core, the DAH
@@ -2245,6 +2637,7 @@ def main(argv: list[str]) -> int:
          **{f"{e}_q1_q3_ms": statistics.quantiles(v, n=4)[::2] for e, v in p_e2e.items()},
          samples=E2E_REPS, assembly_bytes=asm_bytes, dah=p_dah.hash().hex())
 
+    phase_start("6d")
     # ---- phase 6d: the durable store tier. A node with a home persists the
     # four heights of phase 6b (bench.py's square at k = 128, seeds 42-45) to
     # its BlockStore, restarts, and serves the 256-sample crowd from disk
@@ -2478,6 +2871,7 @@ def main(argv: list[str]) -> int:
     finally:
         shutil.rmtree(home, ignore_errors=True)
 
+    phase_start("6e")
     # ---- phase 6e: the chain. bench.py config 8b's block signed by the
     # port's own keys, checked and delivered by the port's state machine on
     # the host, then its square built, assembled and rooted on the card
@@ -2583,6 +2977,13 @@ def main(argv: list[str]) -> int:
          phase_seconds=time.perf_counter() - t_phase,
          app_hash=app_hash.hex(), dah=c_dah.hash().hex())
 
+    phase_start("6f")
+    # ---- phase 6f: the App. The same block through the port's App on the
+    # card: proposer, replica, commit, ExtendBlock, the IBC and Blobstream
+    # modules, and the degrade drill
+    app_phase(dev, emit, c_key, c_raws, args.crossover_out)
+
+    phase_start("7")
     # ---- phase 7: timing
     def bound(ops_s: float, nbytes: float) -> tuple[float, str]:
         t_bytes = nbytes / HBM_BYTES_PER_S
@@ -3105,6 +3506,10 @@ def main(argv: list[str]) -> int:
             "ms": t_d, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms.get(kname),
         })
+    phase_start("end")
+    emit(phase="phase_seconds", seconds={
+        name: t1 - t0 for (name, t0), (_next, t1) in zip(phase_marks, phase_marks[1:])},
+        total=phase_marks[-1][1] - phase_marks[0][1])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -651,3 +651,114 @@ def test_chain_host_path_accepts_the_block_and_refuses_the_three():
     results, app_hash = chip_smoke.chain_deliver(store, raws, times)
     assert results == [(0, "")] * 60 and len(times["deliver"]) == 60
     assert app_hash.hex() == chip_smoke.CHAIN_APP_HASH
+
+
+def test_app_phase_catches_no_failure():
+    """Phase 6f holds no except clause: a refusal, a degrade or a wrong
+    hash raises. It checks the launches, spans and counters after every
+    App entry, both pinned app hashes and the DAH, the valset, the
+    transfer, and the drill's strike, sticky disable and quarantine; and
+    main runs it."""
+    import ast
+    import inspect
+    import textwrap
+
+    src = inspect.getsource(chip_smoke.app_phase)
+    tree = ast.parse(textwrap.dedent(src))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    for name in ("APP_HASH_2", "APP_HASH_3", "CHAIN_DAH_HASH", "APP_LAUNCHES[entry]",
+                 'arena == {"assembled": 1, "fallback": 0}', "stats0[name]",
+                 'attrs.get("backend") == "gpu"', "degrade_counts(metrics)",
+                 "accepted is True", "eds.device_data is not None", "latest_valset()",
+                 "escrow_address", '"device.extend", "error", times=1',
+                 '"process_proposal_panics": 1', '"device.extend", "unavailable", times=1',
+                 '"device.extend", "unavailable", times=3', "d_app._gpu_disabled",
+                 '"device.extend.output", "bitflip"', 'last_sdc["befp_provable"] is True',
+                 'integrity.configure("off")', 'phase="app"', 'phase="crossover"',
+                 "crossover.save(crossover_out)"):
+        assert name in src, name
+    assert src.count("check(") >= 20
+    main = inspect.getsource(chip_smoke.main)
+    assert "app_phase(dev, emit, c_key, c_raws, args.crossover_out)" in main
+    assert main.index("app_phase(") < main.index("# ---- phase 7")
+
+
+def test_every_phase_is_timed():
+    """Each ``# ---- phase`` of main starts its wall clock on the line
+    before, in order, and the phase_seconds line comes before the kernels
+    line."""
+    import inspect
+    import re
+
+    main = inspect.getsource(chip_smoke.main)
+    phases = re.findall(r"^    # ---- phase (\w+):", main, re.M)
+    marks = re.findall(r'^    phase_start\("(\w+)"\)\n    # ---- phase (\w+):', main, re.M)
+    assert len(phases) >= 12 and [m[0] for m in marks] == [m[1] for m in marks] == phases
+    assert main.index('phase="phase_seconds"') < main.index('{"kernels": kernels}')
+
+
+def test_app_launches_are_phase_4s_route_and_6cs_assembly():
+    """ProcessProposal and ExtendBlock launch the fused dense route's set
+    (K2 1, K1 3, the tree 1); PrepareProposal adds the one assembly."""
+    want = chip_smoke.APP_LAUNCHES
+    assert want["process_proposal"] == want["extend_block"] == {
+        "leaf_digests2d": 1, "encode2d_hash": 3, "nmt_tree": 1}
+    assert want["prepare_proposal"] == {**want["process_proposal"], "assemble_square": 1}
+
+
+def test_app_constants_are_the_jax_apps():
+    """Phase 6f's pinned hashes, recomputed with the JAX package's App on
+    the CPU (native backend) fed the port-signed txs through the same
+    helpers: the empty height 1, config 8b's 60 PFBs at height 2 (its
+    proposal's DAH is phase 6e's CHAIN_DAH_HASH: the same square), and
+    height 3's three txs over the transfer channel."""
+    from celestia_tpu.app.app import App
+    from celestia_tpu.x.transfer import escrow_address
+    from celestia_tpu_torch import crypto
+
+    key, _blobs, raws = _chain_block()
+    v_key = crypto.PrivateKey.from_secret(chip_smoke.APP_VALIDATOR_SECRET)
+    app = App(chain_id=chip_smoke.CHAIN_ID, extend_backend="native")
+    chip_smoke.app_genesis(app, key.bech32_address(), v_key.bech32_address())
+    p1 = app.prepare_proposal([])
+    assert p1.txs == [] and app.process_proposal(p1)
+    chip_smoke.app_block(app, [], chip_smoke.APP_BLOCK_TIMES[0])
+    assert [app.check_tx(raw).code for raw in raws] == [0] * 60
+    p2 = app.prepare_proposal(raws)
+    assert p2.txs == raws and p2.square_size == chip_smoke.PROPOSAL_K
+    assert p2.hash.hex() == chip_smoke.CHAIN_DAH_HASH and app.process_proposal(p2)
+    results, h2 = chip_smoke.app_block(app, p2.txs, chip_smoke.APP_BLOCK_TIMES[1])
+    assert [r.code for r in results] == [0] * 60
+    assert h2.hex() == chip_smoke.APP_HASH_2
+    chip_smoke.open_transfer_channel(app)
+    t3 = chip_smoke.app_height3_txs(key, v_key)
+    assert [app.check_tx(t).code for t in t3] == [0, 0, 0]
+    p3 = app.prepare_proposal(t3)
+    assert p3.txs == t3 and app.process_proposal(p3)
+    results, h3 = chip_smoke.app_block(app, p3.txs, chip_smoke.APP_BLOCK_TIMES[2])
+    assert [r.code for r in results] == [0, 0, 0]
+    assert h3.hex() == chip_smoke.APP_HASH_3
+    valset = app.blobstream.latest_valset()
+    assert valset["height"] == 3
+    assert [m["evm_address"] for m in valset["members"]] == [chip_smoke.APP_EVM_ADDRESS]
+    assert app.bank.get_balance(escrow_address("transfer", chip_smoke.APP_CHANNEL)) == \
+        chip_smoke.APP_TRANSFER
+
+
+def test_the_drills_proposal_is_a_square_the_table_sends_to_the_card():
+    """Phase 6f's drill proposes the block's first DRILL_TXS PFBs on a
+    replica of height 1: a k = 32 square that the port's App accepts and
+    that the committed crossover table routes to the card."""
+    from celestia_tpu_torch import crypto
+    from celestia_tpu_torch.app import calibration
+    from celestia_tpu_torch.app.app import App
+
+    key, _blobs, raws = _chain_block()
+    v_key = crypto.PrivateKey.from_secret(chip_smoke.APP_VALIDATOR_SECRET)
+    app = App(chain_id=chip_smoke.CHAIN_ID, extend_backend="native", device="cpu")
+    chip_smoke.app_genesis(app, key.bech32_address(), v_key.bech32_address())
+    chip_smoke.app_block(app, [], chip_smoke.APP_BLOCK_TIMES[0])
+    p = app.prepare_proposal(raws[:chip_smoke.DRILL_TXS])
+    assert p.txs == raws[:chip_smoke.DRILL_TXS] and p.square_size == 32
+    assert app.process_proposal(p)
+    assert calibration.load_default_table().winner(p.square_size) == "gpu"

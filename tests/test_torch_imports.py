@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from celestia_tpu_torch import da, device, proof
-from celestia_tpu_torch.app import proposal
+from celestia_tpu_torch.app import calibration, proposal
+from celestia_tpu_torch.app.app import App
 from celestia_tpu_torch.da import repair as da_repair
 from celestia_tpu_torch.node import Node, eds_cache
 from celestia_tpu_torch.ops import blob_pool, extend, ragged, repair, transfers
@@ -31,6 +32,11 @@ STATE_MACHINE = ("bech32", "crypto", "crypto.ripemd160", "smt", "state", "tx",
                  "x.blob.types", "x.blob.keeper", "x.feegrant", "x.vesting", "x.authz",
                  "x.staking", "x.distribution", "x.slashing", "x.mint", "x.crisis",
                  "x.paramfilter", "x.gov", "x.upgrade")
+# the IBC and Blobstream modules, the fraud proofs, the native runtime and
+# the App
+APP_STACK = ("crypto.keccak", "x.blobstream_abi", "x.blobstream", "x.lightclient",
+             "x.connection", "x.ibc", "x.transfer", "x.tokenfilter", "da.fraud", "native",
+             "app", "app.calibration", "app.app")
 
 
 def _forbidden(module: str) -> bool:
@@ -67,7 +73,7 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
                  "shares.info_byte", "shares.splitters", "shares.parse", "inclusion",
                  "inclusion.cache", "square", "ops.blob_pool", "ops.assemble",
                  "ops.assemble_cuda", "app.proposal", "log", "store", "store.powercut",
-                 "cli", *STATE_MACHINE):
+                 "cli", *STATE_MACHINE, *APP_STACK):
         assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
@@ -143,6 +149,9 @@ ENTRIES = {
     "new_share_inclusion_proof": lambda: proof.new_share_inclusion_proof(
         [tail_padding_share()], tail_padding_share().namespace(), Range(0, 1)),
     "new_tx_inclusion_proof": lambda: proof.new_tx_inclusion_proof([b"\x01" * 40], 0, 1),
+    "App": lambda: App(),
+    "App(extend_backend=...)": lambda: App(extend_backend="native"),
+    "measure_crossover": lambda: calibration.measure_crossover((1,)),
 }
 
 

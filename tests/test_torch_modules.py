@@ -4,8 +4,9 @@ One class, ``Chain``, runs over either package's modules, passed in as a
 namespace. It mirrors the JAX App's init_chain, check_tx, begin_block,
 deliver_tx, _route_msg (for the Msgs the port has), end_block without
 Blobstream, and commit (celestia_tpu/app/app.py:238-267, :704-746,
-:890-1115, :1237-1293). The JAX App itself is not the reference here: its
-EndBlock writes Blobstream state, which the port does not have yet.
+:890-1115, :1237-1293), keeper by keeper, so a difference shows at the
+keeper that made it. The Apps themselves, Blobstream and IBC included, are
+held against each other in test_torch_app.py and test_torch_ibc.py.
 
 A script of blocks goes through a JAX chain and a port chain side by side,
 its txs signed in turns by either package. After every tx the results
@@ -550,24 +551,52 @@ def test_a_broken_invariant_is_reported_alike():
 
 
 def test_the_ibc_param_change_raises_in_the_port_until_its_client_keeper_is_ported():
-    """The paramfilter's ibc branch imports the light client keeper, which
-    the IBC slice brings: until then the port raises ModuleNotFoundError
-    where the JAX package reaches its client keeper (and refuses the
-    unknown client)."""
+    """The paramfilter's ibc branch (RecoverClient) reaches each package's
+    02-client keeper: a change naming an unknown client is refused with the
+    same message, and the recovery of a frozen subject client from an
+    active substitute leaves the same store on both sides."""
     import json
 
-    change = [("ibc", "RecoverClient", json.dumps(
-        {"subject_client_id": "07-tendermint-0", "substitute_client_id": "07-tendermint-1"}))]
-    for m, error in ((JAX, ValueError), (PORT, ModuleNotFoundError)):
+    from celestia_tpu.x import lightclient as jlc
+    from celestia_tpu_torch.x import lightclient as plc
+
+    val = PORT.crypto.PrivateKey.from_secret(b"modules-recovery-validator")
+    pub = val.public_key().hex()
+
+    def recover(subject: str, substitute: str):
+        return [("ibc", "RecoverClient", json.dumps(
+            {"subject_client_id": subject, "substitute_client_id": substitute}))]
+
+    dumps, refusals = [], []
+    for m, lc in ((JAX, jlc), (PORT, plc)):
         store = m.state.StateStore()
         target = SimpleNamespace(blob=m.blobkeeper.BlobKeeper(store), store=store)
-        with pytest.raises(error) as exc:
-            m.paramfilter.apply_param_changes(
-                target, [m.paramfilter.ParamChange(*c) for c in change])
-        if m is PORT:
-            assert exc.value.name == "celestia_tpu_torch.x.lightclient"
-        else:
-            assert "07-tendermint-0" in str(exc.value)
+        with pytest.raises(ValueError) as exc:
+            m.paramfilter.apply_param_changes(target, [
+                m.paramfilter.ParamChange(*c)
+                for c in recover("07-tendermint-0", "07-tendermint-1")])
+        refusals.append(str(exc.value))
+
+        def header(height: int, app_hash: bytes):
+            return lc.Header("chain-b", height, 10.0 * height, app_hash,
+                             [lc.ValidatorInfo(pub, 10)])
+
+        def signed(h):
+            return lc.SignedHeader(h, [(pub, val.sign(h.sign_bytes()).hex())])
+
+        keeper = lc.ClientKeeper(store)
+        subject = keeper.create_client(header(1, b"\x01" * 32)).client_id
+        keeper.submit_misbehaviour(subject, signed(header(2, b"\x02" * 32)),
+                                   signed(header(2, b"\x03" * 32)))
+        substitute = keeper.create_client(header(3, b"\x04" * 32)).client_id
+        assert keeper.get_client(subject).frozen
+        m.paramfilter.apply_param_changes(target, [
+            m.paramfilter.ParamChange(*c) for c in recover(subject, substitute)])
+        client = keeper.get_client(subject)
+        assert not client.frozen and client.latest_height == 3
+        dumps.append(_dump(store))
+    assert refusals[0] == refusals[1] and "07-tendermint-0" in refusals[0]
+    assert dumps[0] == dumps[1]
 
 
 @pytest.mark.parametrize("change, message", [

@@ -2,7 +2,8 @@
 port registers, built and marshalled by the JAX package, decodes in the
 port and marshals back to the same bytes, alone and inside a signed tx;
 fees with a granter; IndexWrapper-wrapped txs; and the registry's type
-URLs, which are the JAX registry's less the IBC and Blobstream messages."""
+URLs, which are the JAX registry's, the IBC and Blobstream messages
+included."""
 
 import importlib
 
@@ -15,6 +16,11 @@ from celestia_tpu import tx as jtx
 from celestia_tpu.crypto import PrivateKey as JKey
 from celestia_tpu.x import authz as jauthz
 from celestia_tpu.x import bank as jbank
+from celestia_tpu.x import blobstream as jblobstream
+from celestia_tpu.x import connection as jconn
+from celestia_tpu.x import ibc as jibc
+from celestia_tpu.x import lightclient as jlc
+from celestia_tpu.x import transfer as jtransfer
 from celestia_tpu.x import distribution as jdist
 from celestia_tpu.x import feegrant as jfeegrant
 from celestia_tpu.x import gov as jgov
@@ -30,34 +36,37 @@ from celestia_tpu_torch.crypto import PrivateKey as PKey
 
 # the modules that register the port's Msg types
 PORT_MSG_MODULES = ("x.bank", "x.blob", "x.feegrant", "x.vesting", "x.authz", "x.staking",
-                    "x.distribution", "x.slashing", "x.gov", "x.upgrade")
+                    "x.distribution", "x.slashing", "x.gov", "x.upgrade", "x.blobstream",
+                    "x.lightclient", "x.connection", "x.ibc", "x.transfer")
 for _name in PORT_MSG_MODULES:
     importlib.import_module(f"celestia_tpu_torch.{_name}")
-
-# the JAX registry's URLs that the IBC and Blobstream modules bring, which
-# the port has not ported yet
-IBC_AND_BLOBSTREAM_URLS = frozenset({
-    "/celestia.qgb.v1.MsgRegisterEVMAddress",
-    "/ibc.applications.transfer.v1.MsgTransfer",
-    "/ibc.core.channel.v1.MsgAcknowledgement",
-    "/ibc.core.channel.v1.MsgChannelOpenAck",
-    "/ibc.core.channel.v1.MsgChannelOpenConfirm",
-    "/ibc.core.channel.v1.MsgChannelOpenInit",
-    "/ibc.core.channel.v1.MsgChannelOpenTry",
-    "/ibc.core.channel.v1.MsgRecvPacket",
-    "/ibc.core.channel.v1.MsgTimeout",
-    "/ibc.core.client.v1.MsgCreateClient",
-    "/ibc.core.client.v1.MsgSubmitMisbehaviour",
-    "/ibc.core.client.v1.MsgUpdateClient",
-    "/ibc.core.connection.v1.MsgConnectionOpenAck",
-    "/ibc.core.connection.v1.MsgConnectionOpenConfirm",
-    "/ibc.core.connection.v1.MsgConnectionOpenInit",
-    "/ibc.core.connection.v1.MsgConnectionOpenTry",
-})
 
 ALICE = JKey.from_secret(b"tx-alice").bech32_address()
 BOB = JKey.from_secret(b"tx-bob").bech32_address()
 BLOB = jblob.new_blob(jns.new_v0(b"tx-test"), bytes(range(256)) * 7, 0)
+
+
+def _ibc_fixtures():
+    """A JAX SMT proof, a packet, an ack and two signed light-client
+    headers for the IBC samples."""
+    from celestia_tpu.state import StateStore
+
+    store = StateStore()
+    store.set(b"ibc/commitment/x", b"\x42" * 32)
+    store.commit()
+    _value, _root, proof = store.query_with_proof(b"ibc/commitment/x")
+    packet = jibc.Packet(3, "transfer", "channel-0", "transfer", "channel-1",
+                         jtransfer.FungibleTokenPacketData("utia", 77, ALICE, BOB).marshal(),
+                         timeout_timestamp=90.5)
+    val = JKey.from_secret(b"tx-validator")
+    headers = [jlc.Header("chain-b", h, 15.0 * h, bytes([h]) * 32,
+                          [jlc.ValidatorInfo(val.public_key().hex(), 10)]) for h in (4, 5)]
+    signed = [jlc.SignedHeader(h, [(val.public_key().hex(), val.sign(h.sign_bytes()).hex())])
+              for h in headers]
+    return proof, packet, jibc.Acknowledgement(False, error="denied"), headers, signed
+
+
+PROOF, PACKET, ACK, HEADERS, SIGNED = _ibc_fixtures()
 
 # one JAX-built instance of every Msg type the port registers
 SAMPLES = {
@@ -84,14 +93,44 @@ SAMPLES = {
         ALICE, BOB, [(60.0, 10), (120.5, 20)]),
     jvesting.URL_MSG_CREATE_VESTING_ACCOUNT: jvesting.MsgCreateVestingAccount(
         ALICE, BOB, 5_000, 86_400.0, True),
+    jblobstream.URL_MSG_REGISTER_EVM_ADDRESS: jblobstream.MsgRegisterEVMAddress(
+        ALICE, "0x" + "ab" * 20),
+    jtransfer.URL_MSG_TRANSFER: jtransfer.MsgTransfer(
+        "transfer", "channel-0", "utia", 1_000, ALICE, BOB, 120.25, "a memo"),
+    jibc.URL_MSG_RECV_PACKET: jibc.MsgRecvPacket(PACKET, BOB, PROOF, 7),
+    jibc.URL_MSG_ACKNOWLEDGEMENT: jibc.MsgAcknowledgement(PACKET, ACK, ALICE, PROOF, 8),
+    jibc.URL_MSG_TIMEOUT: jibc.MsgTimeout(PACKET, ALICE, PROOF, 9),
+    jibc.URL_MSG_CHANNEL_OPEN_INIT: jibc.MsgChannelOpenInit(
+        "transfer", "connection-0", "transfer", ALICE),
+    jibc.URL_MSG_CHANNEL_OPEN_TRY: jibc.MsgChannelOpenTry(
+        "transfer", "connection-1", "transfer", "channel-0", PROOF, 4, BOB),
+    jibc.URL_MSG_CHANNEL_OPEN_ACK: jibc.MsgChannelOpenAck(
+        "transfer", "channel-0", "channel-1", PROOF, 5, ALICE),
+    jibc.URL_MSG_CHANNEL_OPEN_CONFIRM: jibc.MsgChannelOpenConfirm(
+        "transfer", "channel-1", PROOF, 6, BOB),
+    jconn.URL_MSG_CONNECTION_OPEN_INIT: jconn.MsgConnectionOpenInit(
+        "07-tendermint-0", "07-tendermint-1", ALICE),
+    jconn.URL_MSG_CONNECTION_OPEN_TRY: jconn.MsgConnectionOpenTry(
+        "07-tendermint-1", "07-tendermint-0", "connection-0", PROOF, 4, BOB),
+    jconn.URL_MSG_CONNECTION_OPEN_ACK: jconn.MsgConnectionOpenAck(
+        "connection-0", "connection-1", PROOF, 5, ALICE),
+    jconn.URL_MSG_CONNECTION_OPEN_CONFIRM: jconn.MsgConnectionOpenConfirm(
+        "connection-1", PROOF, 6, BOB),
+    jlc.URL_MSG_CREATE_CLIENT: jlc.MsgCreateClient(HEADERS[0], ALICE),
+    jlc.URL_MSG_UPDATE_CLIENT: jlc.MsgUpdateClient("07-tendermint-0", SIGNED[1], BOB),
+    jlc.URL_MSG_SUBMIT_MISBEHAVIOUR: jlc.MsgSubmitMisbehaviour(
+        "07-tendermint-0", SIGNED[0], SIGNED[1], ALICE),
 }
 
 
 def test_the_registry_is_the_jax_registry_less_ibc_and_blobstream():
+    """The port's registry is the JAX registry, URL for URL: the IBC and
+    Blobstream messages it once lacked are ported, and every URL has a
+    sample."""
     port, jax = set(ptx._MSG_REGISTRY), set(jtx._MSG_REGISTRY)
-    assert IBC_AND_BLOBSTREAM_URLS <= jax
-    assert port == jax - IBC_AND_BLOBSTREAM_URLS
+    assert port == jax
     assert set(SAMPLES) == port
+    assert len([u for u in port if u.startswith(("/ibc.", "/celestia.qgb."))]) == 16
 
 
 @pytest.mark.parametrize("url", sorted(SAMPLES))
@@ -107,12 +146,10 @@ def test_each_msg_decodes_and_marshals_back_to_the_jax_bytes(url):
 
 
 def test_an_unknown_type_is_refused_on_both_sides():
-    """Unregistered on both sides, or (an IBC message) in the port alone."""
+    """Unregistered on both sides, alone and inside a tx."""
     for mod in (ptx, jtx):
         with pytest.raises(ValueError, match="unknown message type"):
             mod.decode_any("/no.such.Msg", b"")
-    with pytest.raises(ValueError, match="unknown message type"):
-        ptx.decode_any("/ibc.core.client.v1.MsgCreateClient", b"")
     raw = jtx.Tx(msgs=[], signer_infos=[], fee=jtx.Fee(), signatures=[]).marshal()
     any_bytes = ptx._field_bytes(1, b"/no.such.Msg") + ptx._field_bytes_present(2, b"")
     body = ptx._field_bytes(1, any_bytes)
