@@ -105,12 +105,29 @@ def _op_pow(nbytes: int) -> np.ndarray:
     return result
 
 
+try:  # an optional native accelerator, byte-identical to the numpy path
+    import google_crc32c as _native_crc32c
+except ImportError:  # pragma: no cover - depends on the environment
+    _native_crc32c = None
+
+
+def crc32c_implementation() -> str:
+    """Which CRC-32C ``crc32c`` runs: ``"google_crc32c"`` or ``"numpy"``."""
+    return "numpy" if _native_crc32c is None else "google_crc32c"
+
+
 def crc32c(data) -> int:
-    """CRC-32C of bytes or of any numpy array's bytes."""
+    """CRC-32C of bytes or of any numpy array's bytes.
+
+    A native Castagnoli implementation (``google_crc32c``) when the
+    environment already has it, else the numpy-vectorized path; both are
+    held against the bytewise oracle. Nothing is installed for this."""
     if isinstance(data, np.ndarray):
         buf = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
     else:
         buf = np.frombuffer(data, dtype=np.uint8)
+    if _native_crc32c is not None:
+        return int(_native_crc32c.value(buf.tobytes()))
     return _crc32c_vectorized(buf)
 
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import json
 import logging
 import sys
+import time
 
 _ROOT = "celestia_tpu_torch"
 
@@ -69,6 +70,29 @@ class StructuredLogger:
 
     def error(self, msg: str, **kv) -> None:
         self._emit(logging.ERROR, msg, kv)
+
+    def with_timer(self, msg: str, **kv):
+        """Context manager logging ``msg`` with ``elapsed_ms`` on exit, and
+        the exception's class name as ``error`` when the block raised."""
+        return _LogTimer(self, msg, kv)
+
+
+class _LogTimer:
+    def __init__(self, log: StructuredLogger, msg: str, kv: dict):
+        self.log, self.msg, self.kv = log, msg, kv
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, *_):
+        elapsed = round((time.perf_counter() - self.start) * 1e3, 3)
+        if exc_type is None:
+            self.log.info(self.msg, elapsed_ms=elapsed, **self.kv)
+        else:
+            self.log.error(self.msg, elapsed_ms=elapsed,
+                           error=exc_type.__name__, **self.kv)
+        return False
 
 
 def logger(module: str) -> StructuredLogger:

@@ -1,12 +1,12 @@
-"""The node's serving surface (port of the JAX package's node package, as
-far as serving reads go): ``Node`` answers DAS samples from the paged EDS
-cache of ``node.eds_cache``.
+"""Single-process node shell (port of the JAX package's node package):
+mempool, block production, block store and the serving reads.
 
-``Node`` is resolved lazily (PEP 562), as in the JAX package, so importing
-``node.eds_cache`` alone does not import the prover stack.
+``Block``, ``Mempool`` and ``Node`` are resolved lazily (PEP 562), as in
+the JAX package, so importing ``node.eds_cache`` or ``node.consensus``
+alone does not import the prover stack or the App.
 """
 
-_NODE_NAMES = ("Node",)
+_NODE_NAMES = ("Block", "Mempool", "Node")
 
 
 def __getattr__(name):

@@ -32,7 +32,8 @@ Phases, in order (any failed check raises, so the script exits non-zero and
 prints no result; it also exits non-zero when no CUDA device is present):
 
 1. Environment: versions, the card's name, power limit, SM count and
-   maximum SM clock, the kernel build (nvcc for sm_90a, from
+   maximum SM clock, the CRC-32C the host runs (``google_crc32c`` or
+   ``numpy``: the store's checksums), the kernel build (nvcc for sm_90a, from
    celestia_tpu_torch/csrc/) and its seconds, the ptxas report (registers,
    spills; also of K5/K6, every decode sweep instance and the merkle
    kernel) and SASS opcode mix of the k = 128 encode, K2, K3, the tree
@@ -217,6 +218,35 @@ prints no result; it also exits non-zero when no CUDA device is present):
    (split into filter_txs, build_square and the DAH), ProcessProposal,
    DeliverTx a tx, commit and ExtendBlock; the ``crossover`` line is
    ``calibration.measure_crossover`` (gpu against native at k = 1-128).
+6g. The node (``node``): config 8b's traffic through the port's Node, in a
+   fresh temporary directory removed at the end. Node P (the proposer, its
+   App with a blob arena) and node R (a replica), both on the card with
+   ``extend_blocks`` and a home, from 6f's genesis. P produces the empty
+   height 1 and R applies it (``apply_external_block`` with
+   ``expected_height``); R saves the snapshot the replay starts from. The
+   60 PFBs go through ``broadcast_tx`` on both (P stages their blobs at
+   admission); P produces height 2 from its mempool (the 60 in broadcast
+   order at k = 128, APP_HASH_2, CHAIN_DAH_HASH) and R applies it: equal
+   app hashes and ``blocks/2.json`` bytes, empty mempools, every tx in
+   ``get_tx``. Height 3: 60 more PFBs (blob seed PROPOSAL_SEED + 1,
+   sequences 60-119) to NODE_APP_HASH_3 and NODE_DAH_HASH_3. Each
+   ``produce_block`` and ``apply_external_block`` runs with the counts
+   from 0 and must launch what NODE_LAUNCHES derives from APP_LAUNCHES and
+   the persist's row levels (PERSIST_LAUNCHES): P's ProcessProposal of its
+   own block assembles from its arena too (assemble_square 2, K2 4, K1 9,
+   nmt_tree 4; R: K2 3, K1 6, nmt_tree 3), with ``extend.block``
+   backend "gpu", no degrade counted and ``node_retention_failures_total``
+   at 0. Then R restarts through ``Node.load``: it replays heights 2 and 3
+   from the height-1 snapshot, checking both squares with ONE
+   ``batched_roots_device`` call (B = 2, launching what phase 5 counted for
+   B = 2), answers ``block_dah(2)`` from the store, and serves a 64-sample
+   crowd over heights 2 and 3 from disk with one ragged_gather launch,
+   every proof verified against the stored row roots. A third node
+   state-syncs from P's snapshot to P's app hash; a payload with one
+   flipped byte of state is refused. The ``node`` line times broadcast_tx
+   a tx, produce_block and apply_external_block (split into
+   PrepareProposal, ProcessProposal, deliver + commit, retention and
+   persist from the spans) and Node.load (its replay and batched check).
 7. Timing, after warm-up: each kernel at its main-path shapes (K2 at
    k = 64 and 128, on Q0 and on the EDS), as its own device time per launch
    (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
@@ -429,6 +459,14 @@ APP_FEE, APP_GAS = 2_000, 200_000
 # recomputes both with the JAX package's App on the CPU
 APP_HASH_2 = "3ba138f385c54c9d9db00aa4423c428e1eee713924d133e8f706ea3fec1c0e23"
 APP_HASH_3 = "b98f5bf1ec1b5e7b5517d064a2d80731036a2d6436023108e3b8690d56831db9"
+# the node phase (6g): height 3 is 60 more PFBs of config 8b's traffic (blob
+# seed PROPOSAL_SEED + 1, the signer's sequences 60-119) after 6f's height 2;
+# tests/test_torch_chip_smoke.py recomputes the app hash and the DAH hash
+# with the JAX package's App on the CPU
+NODE_SEED_3 = PROPOSAL_SEED + 1
+NODE_APP_HASH_3 = "d636f79a848566afdf652a71822437d7dd9f756a1e9dcd50fc7f2b204056fab2"
+NODE_DAH_HASH_3 = "969f3012b031e6768cf3eca1ee7ce154e0947f17796613074abe53f852bf9f88"
+NODE_CROWD = 64  # samples of the restarted replica's crowd over heights 2 and 3
 
 
 def serving_crowd(seed: int, heights, width: int, n: int) -> list[tuple[int, int, int]]:
@@ -933,6 +971,285 @@ def app_phase(dev, emit, signer_key, raws: list[bytes], crossover_out=None) -> N
                         "crossover": time.perf_counter() - t_crossover})
 
 
+
+# what one k = 128 persist launches (the row levels of
+# extend.eds_row_levels_device: K2 on the EDS, the tree with the levels)
+PERSIST_LAUNCHES = {"leaf_digests2d": 1, "nmt_tree": 1}
+
+
+def node_launches(own: bool) -> dict[str, int]:
+    """What one k = 128 block through the node launches: its own block
+    (``produce_block``, on the proposer with the blob arena) is
+    PrepareProposal, ProcessProposal, ExtendBlock and the persist, where the
+    proposer's ProcessProposal assembles its square from the arena as its
+    PrepareProposal does (the App hands the square's builder to the DAH,
+    as the JAX App does); a replica's block (``apply_external_block``, no
+    arena) is ProcessProposal, ExtendBlock and the persist."""
+    parts = ([APP_LAUNCHES["prepare_proposal"]] * 2 if own else
+             [APP_LAUNCHES["process_proposal"]]) + [APP_LAUNCHES["extend_block"],
+                                                    PERSIST_LAUNCHES]
+    return dict(sum((collections.Counter(p) for p in parts), collections.Counter()))
+
+
+NODE_LAUNCHES = {"produce_block": node_launches(True),
+                 "apply_external_block": node_launches(False)}
+
+
+def node_height3_txs(signer_key) -> list[bytes]:
+    """Phase 6g's height 3: 60 PFBs of config 8b's traffic drawn with blob
+    seed NODE_SEED_3, signed by 6e's key at sequences 60-119."""
+    from celestia_tpu_torch.x.blob.types import new_msg_pay_for_blobs
+
+    addr = signer_key.bech32_address()
+    return [sign_chain_tx(signer_key, new_msg_pay_for_blobs(addr, b), b, PROPOSAL_BLOBS + i)[1]
+            for i, b in enumerate(config_8b_blobs(NODE_SEED_3))]
+
+
+def raised(call):
+    """The exception ``call()`` raises, or None."""
+    try:
+        call()
+    except Exception as e:  # noqa: BLE001 — the caller checks which
+        return e
+    return None
+
+
+def flip_state_byte(payload: dict) -> dict:
+    """A state-sync payload with one byte of its state flipped: the last
+    decimal digit of the state's data (a hex digit of a stored value or
+    key, which stays a hex digit), so the state parses and restores to
+    another app hash."""
+    state = bytearray(bytes.fromhex(payload["state"]))
+    end = bytes(state).rindex(b'"version"')
+    i = max(j for j in range(end) if 0x30 <= state[j] <= 0x39)
+    state[i] ^= 1
+    return {**payload, "state": bytes(state).hex()}
+
+
+def retention_failures(metrics) -> float:
+    """node_retention_failures_total summed over its reasons."""
+    return sum(v for key, v in metrics.counters.items()
+               if key.split("{")[0] == "node_retention_failures_total")
+
+
+def node_phase(dev, emit, signer_key, raws: list[bytes], batched_launches: dict) -> None:
+    """Phase 6g: config 8b's traffic through the port's Node on the card (see
+    the module docstring). ``batched_launches``: what phase 5's
+    batched_roots_device launched for B = 2 at k = 128. Every check raises;
+    nothing is caught."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from celestia_tpu_torch import crypto, da, tracing
+    from celestia_tpu_torch.app.app import App
+    from celestia_tpu_torch.node import Node
+    from celestia_tpu_torch.node.node import tx_hash
+    from celestia_tpu_torch.ops import _cuda
+    from celestia_tpu_torch.ops.blob_pool import blob_key
+    from celestia_tpu_torch.proof import NmtRangeProof
+    from celestia_tpu_torch.telemetry import metrics
+
+    t_phase = time.perf_counter()
+    v_key = crypto.PrivateKey.from_secret(APP_VALIDATOR_SECRET)
+    s_addr, v_addr = signer_key.bech32_address(), v_key.bech32_address()
+    base, failures0 = degrade_counts(metrics), retention_failures(metrics)
+
+    def clean(node, what: str) -> None:
+        app = node.app
+        check(degrade_counts(metrics) == base and retention_failures(metrics) == failures0
+              and app._gpu_strikes == 0 and not app._gpu_disabled and not app.sdc_quarantined,
+              f"{what}: a degrade or a retention failure (counters {degrade_counts(metrics)} "
+              f"from {base}, retention failures {retention_failures(metrics) - failures0})")
+
+    def on_node(node, entry: str, call):
+        """One block through the node with the counts from 0 and its spans
+        recorded: (the block, wall ms, {span name: ms})."""
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        with tracing.record() as rec:
+            t0 = time.perf_counter()
+            block = call()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_cuda.LAUNCHES)
+        want = {**dict.fromkeys(counts, 0), **NODE_LAUNCHES[entry]}
+        check(counts == want, f"Node.{entry} launched {counts}: {NODE_LAUNCHES[entry]} expected")
+        blocks = [sp.attrs for sp in rec.spans if sp.name == "extend.block"]
+        check(len(blocks) == (3 if entry == "produce_block" else 2)
+              and all(a.get("backend") == "gpu" and not a.get("degraded") for a in blocks),
+              f"Node.{entry}'s extend.block spans: {blocks}")
+        clean(node, f"Node.{entry}")
+        spans = {sp.name: sp.duration * 1e3 for sp in rec.spans if sp.name != "extend.block"}
+        split = {name: spans[f"app.{name}"] for name in ("prepare_proposal", "process_proposal")
+                 if f"app.{name}" in spans}
+        split["retention"] = spans["node.extend_retention"]
+        split["persist"] = spans["node.persist"]
+        split["deliver_commit"] = (spans["node.apply_block"] - split["process_proposal"]
+                                   - split["retention"] - split["persist"])
+        return block, ms, split
+
+    home = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-node-"))
+    try:
+        nodes = {}
+        for name in ("p", "r"):
+            app = App(chain_id=CHAIN_ID, device=dev)
+            if name == "p":
+                app.enable_blob_pool()
+            app_genesis(app, s_addr, v_addr)
+            nodes[name] = Node(app, home=home / name, extend_blocks=True)
+            check(app.extend_backend == "auto" and nodes[name].device.type == "cuda"
+                  and nodes[name].store is not None,
+                  f"node {name} on {nodes[name].device}, backend {app.extend_backend}")
+        p_node, r_node = nodes["p"], nodes["r"]
+
+        # height 1, empty; R's snapshot here is the replay's start
+        b1 = p_node.produce_block(APP_BLOCK_TIMES[0])
+        r1 = r_node.apply_external_block(b1.txs, b1.square_size, b1.data_hash, b1.time,
+                                         expected_height=1)
+        check(b1.txs == [] and b1.square_size == 1 and r1.app_hash == b1.app_hash,
+              f"the empty height 1: {b1.to_json()} and {r1.to_json()}")
+        r_node.save_snapshot()
+
+        # height 2: the 60 through broadcast_tx on both, P staging their blobs
+        broadcast_ms = {"p": [], "r": []}
+        for name, node in nodes.items():
+            for raw in raws:
+                t0 = time.perf_counter()
+                res = node.broadcast_tx(raw)
+                broadcast_ms[name].append((time.perf_counter() - t0) * 1e3)
+                check(res.code == 0, f"node {name} refused a signed PFB: {res.log}")
+            check(len(node.mempool) == len(raws), f"node {name}'s mempool: {len(node.mempool)}")
+        arena = p_node.app.blob_pool
+        staged = sum(arena.offset_of(blob_key(b.data)) is not None for b in config_8b_blobs())
+        check(staged == len(raws), f"P's arena staged {staged} of {len(raws)} blobs")
+        stats0 = dict(p_node.app.arena_stats)
+        b2, produce_ms, produce_split = on_node(
+            p_node, "produce_block", lambda: p_node.produce_block(APP_BLOCK_TIMES[1]))
+        check(b2.txs == raws and b2.square_size == PROPOSAL_K
+              and b2.app_hash.hex() == APP_HASH_2 and b2.data_hash.hex() == CHAIN_DAH_HASH,
+              f"P's height 2: {len(b2.txs)} txs at k = {b2.square_size}, app hash "
+              f"{b2.app_hash.hex()}, data hash {b2.data_hash.hex()}")
+        check(p_node.app.arena_stats["assembled"] - stats0["assembled"] == 2
+              and p_node.app.arena_stats["fallback"] == stats0["fallback"],
+              f"P's height 2 was not assembled from its arena: {p_node.app.arena_stats}")
+        r2, apply_ms, apply_split = on_node(
+            r_node, "apply_external_block",
+            lambda: r_node.apply_external_block(b2.txs, b2.square_size, b2.data_hash, b2.time,
+                                                expected_height=2))
+        check(r2.app_hash == b2.app_hash, f"R's height 2 app hash {r2.app_hash.hex()}")
+        check((home / "p/blocks/2.json").read_bytes() == (home / "r/blocks/2.json").read_bytes(),
+              "the two nodes' blocks/2.json differ")
+        for name, node in nodes.items():
+            check(len(node.mempool) == 0 and all(
+                node.get_tx(tx_hash(raw)) == (node.get_block(2), i) for i, raw in enumerate(raws)),
+                f"node {name} after height 2: {len(node.mempool)} in the mempool, get_tx "
+                f"{sum(node.get_tx(tx_hash(raw)) is not None for raw in raws)} of {len(raws)}")
+        pre_dah = json.dumps(r_node.block_dah(2).to_json(), sort_keys=True)
+
+        # height 3: 60 more PFBs
+        t3 = node_height3_txs(signer_key)
+        for raw in t3:
+            res = p_node.broadcast_tx(raw)
+            check(res.code == 0, f"P refused a height-3 PFB: {res.log}")
+        b3, produce3_ms, _split = on_node(
+            p_node, "produce_block", lambda: p_node.produce_block(APP_BLOCK_TIMES[2]))
+        r3, apply3_ms, _split = on_node(
+            r_node, "apply_external_block",
+            lambda: r_node.apply_external_block(b3.txs, b3.square_size, b3.data_hash, b3.time,
+                                                expected_height=3))
+        check(b3.txs == t3 and b3.square_size == PROPOSAL_K
+              and b3.app_hash.hex() == r3.app_hash.hex() == NODE_APP_HASH_3
+              and b3.data_hash.hex() == NODE_DAH_HASH_3,
+              f"height 3: {len(b3.txs)} txs at k = {b3.square_size}, app hashes "
+              f"{b3.app_hash.hex()} {r3.app_hash.hex()}, data hash {b3.data_hash.hex()}: "
+              f"{NODE_APP_HASH_3} and {NODE_DAH_HASH_3} pinned")
+        check((home / "p/blocks/3.json").read_bytes() == (home / "r/blocks/3.json").read_bytes(),
+              "the two nodes' blocks/3.json differ")
+        check(r_node.store.heights() == [1, 2, 3], f"R's store holds {r_node.store.heights()}")
+
+        # R restarts: the replay of heights 2 and 3 from the height-1
+        # snapshot, both squares checked by one batched_roots_device call
+        r_home = r_node.home
+        del r_node, nodes["r"]
+        gc.collect()
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        with tracing.record() as rec:
+            t0 = time.perf_counter()
+            r_node = Node.load(r_home, device=dev)
+            torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_cuda.LAUNCHES)
+        batched = [sp for sp in rec.spans if sp.name == "extend.device"
+                   and sp.attrs.get("entry") == "batched_roots_device"]
+        check(len(batched) == 1 and batched[0].attrs.get("batch") == 2
+              and batched[0].attrs.get("k") == PROPOSAL_K,
+              f"Node.load's batched checks: {[sp.attrs for sp in batched]}")
+        check(counts == {**dict.fromkeys(counts, 0), **batched_launches},
+              f"Node.load launched {counts}: phase 5's B = 2 line launched {batched_launches}")
+        check(r_node.app.height == 3
+              and r_node.app.store.app_hashes[r_node.app.store.version].hex() == NODE_APP_HASH_3,
+              f"the restarted R at height {r_node.app.height}, app hash "
+              f"{r_node.app.store.app_hashes[r_node.app.store.version].hex()}")
+        check(2 in r_node.store and 2 not in r_node._dah_cache
+              and r_node.block_dah(2).hash().hex() == CHAIN_DAH_HASH
+              and json.dumps(r_node.block_dah(2).to_json(), sort_keys=True) == pre_dah,
+              "the restarted R's block_dah(2) differs from the stored DAH")
+        crowd = serving_crowd(SEED + 20, (2, 3), 2 * PROPOSAL_K, NODE_CROWD)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        docs = r_node.sample_batch_ragged(crowd)
+        torch.cuda.synchronize()
+        crowd_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_cuda.LAUNCHES)
+        check(counts["ragged_gather"] == 1 and sum(counts.values()) == 1,
+              f"the restarted R's crowd launched {counts}: ragged_gather once, nothing else")
+        st = r_node._eds_cache.stats()
+        check(st["heights_from_store"] == 2 and st["page_corrupt"] == 0,
+              f"the restarted R's crowd read its heights off disk: {st}")
+        for (h, i, j), doc in zip(crowd, docs):
+            share = bytes.fromhex(doc["share"])
+            prf = doc["proof"]
+            NmtRangeProof(prf["start"], prf["end"], [bytes.fromhex(x) for x in prf["nodes"]],
+                          prf["tree_size"]).verify_inclusion(
+                r_node.block_dah(h).row_roots[i],
+                [da.erasured_leaf_namespace(i, j, share, PROPOSAL_K)], [share])
+
+        # state sync from P's snapshot, and a payload with one byte flipped
+        payload = p_node.snapshot_payload()
+        p_hash = p_node.app.store.app_hashes[p_node.app.store.version]
+        t0 = time.perf_counter()
+        s_node = Node.state_sync_from(payload, trusted_app_hash=p_hash, device=dev)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        check(s_node.app.store.app_hashes[s_node.app.store.version] == p_hash
+              and s_node.app.height == 3 and s_node.device.type == "cuda",
+              f"the state-synced node at height {s_node.app.height} on {s_node.device}")
+        err = raised(lambda: Node.state_sync_from(flip_state_byte(payload),
+                                                  trusted_app_hash=p_hash, device=dev))
+        check(isinstance(err, ValueError) and "snapshot app hash mismatch" in str(err),
+              f"a payload with a flipped state byte: {err!r}")
+        clean(p_node, "the node phase")
+        med = statistics.median
+        emit(phase="node", k=PROPOSAL_K, txs=len(raws), launches=NODE_LAUNCHES,
+             load_launches=batched_launches,
+             broadcast_tx_ms={"proposer": med(broadcast_ms["p"]),
+                              "replica": med(broadcast_ms["r"])},
+             produce_block_ms=produce_ms, produce_split_ms=produce_split,
+             apply_external_block_ms=apply_ms, apply_split_ms=apply_split,
+             height_3_ms={"produce_block": produce3_ms, "apply_external_block": apply3_ms},
+             load_ms=load_ms, load_batched_ms=batched[0].duration * 1e3,
+             load_replay_blocks=2, crowd_samples=len(crowd), crowd_ms=crowd_ms,
+             state_sync_ms=sync_ms, flipped_state=str(err),
+             app_hash_2=b2.app_hash.hex(), app_hash_3=b3.app_hash.hex(),
+             dah_3=b3.data_hash.hex(), retention_failures=retention_failures(metrics) - failures0,
+             phase_seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+
 def assembly_case(k: int, seed: int, family: str) -> dict[str, np.ndarray]:
     """Inputs of ``extend.assembled_roots`` (its host arrays, and the arena's
     bytes) for one of ASSEMBLY_FAMILIES at k: blobs at strictly ascending
@@ -1412,7 +1729,7 @@ def main(argv: list[str]) -> int:
     emit(phase="environment", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device_count=torch.cuda.device_count(),
          sm_count=torch.cuda.get_device_properties(0).multi_processor_count,
-         max_sm_clock=smi("clocks.max.sm"))
+         max_sm_clock=smi("clocks.max.sm"), crc32c=integrity.crc32c_implementation())
     t0 = time.perf_counter()
     lib = _cuda.library()
     emit(phase="build", seconds=time.perf_counter() - t0)
@@ -1858,19 +2175,24 @@ def main(argv: list[str]) -> int:
                                                  dtype=np.uint8)
         return out
 
+    batched_launches: dict[tuple[int, int], dict[str, int]] = {}  # (k, B) -> one call's
     for kk, base in ((64, sq64), (128, main_sq)):
         pool = [variant(base) for _ in range(8)]
         singles = [extend.roots_device(sq, dev) for sq in pool]
         for b in (1, 2, 4, 8):
             for form, shares in (("list", pool[:b]), ("stacked", np.stack(pool[:b]))):
+                torch.cuda.synchronize()
+                _cuda.reset_launches()
                 rows, cols = extend.batched_roots_device(shares, dev)
+                torch.cuda.synchronize()
+                batched_launches[(kk, b)] = {n: c for n, c in _cuda.LAUNCHES.items() if c}
                 check(all(np.array_equal(rows[i], singles[i][0])
                           and np.array_equal(cols[i], singles[i][1]) for i in range(b)),
                       f"batched_roots_device ({form}) B={b} k={kk} != roots_device")
             batched = wall_ms(lambda s=pool[:b]: extend.batched_roots_device(s, dev), reps=5)
             single = wall_ms(lambda s=pool[:b]: [extend.roots_device(q, dev) for q in s], reps=5)
             emit(phase="batched", k=kk, batch=b, chunk=extend._batch_chunk(kk, b),
-                 identical=True, ms_per_square=batched / b,
+                 identical=True, launches=batched_launches[(kk, b)], ms_per_square=batched / b,
                  roots_device_ms_per_square=single / b)
 
     # staging: the k = 128 square to the card, until the card has it
@@ -2982,6 +3304,12 @@ def main(argv: list[str]) -> int:
     # card: proposer, replica, commit, ExtendBlock, the IBC and Blobstream
     # modules, and the degrade drill
     app_phase(dev, emit, c_key, c_raws, args.crossover_out)
+
+    phase_start("6g")
+    # ---- phase 6g: the node. Config 8b's traffic through the port's Node:
+    # mempool, block production and application with retention and persist,
+    # a restart that replays with one batched DA check, and state sync
+    node_phase(dev, emit, c_key, c_raws, batched_launches[(PROPOSAL_K, 2)])
 
     phase_start("7")
     # ---- phase 7: timing

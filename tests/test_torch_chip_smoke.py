@@ -762,3 +762,124 @@ def test_the_drills_proposal_is_a_square_the_table_sends_to_the_card():
     assert p.txs == raws[:chip_smoke.DRILL_TXS] and p.square_size == 32
     assert app.process_proposal(p)
     assert calibration.load_default_table().winner(p.square_size) == "gpu"
+
+
+# ---- the node phase (6g)
+
+def test_node_phase_catches_no_failure():
+    """Phase 6g holds no except clause: a refusal, a degrade, a retention
+    failure or a wrong hash raises. It checks the launches, spans and
+    counters after every block, the pinned hashes of heights 2 and 3 on
+    both nodes, the blocks' bytes, the mempools and tx index, the restart's
+    one batched check and its crowd's one gather with every proof
+    verified, and the state sync with its refusal; and main runs it after
+    phase 6f."""
+    import ast
+    import inspect
+    import textwrap
+
+    src = inspect.getsource(chip_smoke.node_phase)
+    tree = ast.parse(textwrap.dedent(src))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    for name in ("APP_HASH_2", "CHAIN_DAH_HASH", "NODE_APP_HASH_3", "NODE_DAH_HASH_3",
+                 "NODE_LAUNCHES[entry]", 'a.get("backend") == "gpu"', "degrade_counts(metrics)",
+                 "retention_failures(metrics)", "expected_height=1", "expected_height=2",
+                 "expected_height=3", "save_snapshot()", "broadcast_tx(raw)",
+                 'read_bytes() == (home / "r/blocks/2.json").read_bytes()',
+                 "len(node.mempool) == 0", "get_tx(tx_hash(raw))", "Node.load(r_home, device=dev)",
+                 '"batched_roots_device"', 'attrs.get("batch") == 2', "batched_launches",
+                 'counts["ragged_gather"] == 1', "verify_inclusion", "block_dah(2)",
+                 "state_sync_from(payload", "flip_state_byte(payload)",
+                 '"snapshot app hash mismatch"', 'phase="node"', "shutil.rmtree(home"):
+        assert name in src, name
+    assert src.count("check(") >= 20
+    main = inspect.getsource(chip_smoke.main)
+    assert "node_phase(dev, emit, c_key, c_raws, batched_launches[(PROPOSAL_K, 2)])" in main
+    assert main.index("app_phase(") < main.index("node_phase(") < main.index("# ---- phase 7")
+    assert "crc32c=integrity.crc32c_implementation()" in main
+
+
+def test_node_launches_are_derived_from_the_app_launches():
+    """The node's expected launches are sums of APP_LAUNCHES and the
+    persist's row levels, computed, not typed: changing APP_LAUNCHES moves
+    them. The proposer's own block is PrepareProposal twice over (its
+    ProcessProposal assembles from its arena too), ExtendBlock and the
+    persist; a replica's is ProcessProposal, ExtendBlock and the persist."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(chip_smoke))
+    node_launches = [n for n in tree.body if isinstance(n, ast.Assign)
+                     and any(getattr(t, "id", None) == "NODE_LAUNCHES" for t in n.targets)]
+    assert len(node_launches) == 1
+    assert not [n for n in ast.walk(node_launches[0].value) if isinstance(n, ast.Constant)
+                and isinstance(n.value, int) and not isinstance(n.value, bool)]
+    assert chip_smoke.PERSIST_LAUNCHES == {"leaf_digests2d": 1, "nmt_tree": 1}
+    app = chip_smoke.APP_LAUNCHES
+    assert chip_smoke.NODE_LAUNCHES == {
+        "produce_block": {"assemble_square": 2, "leaf_digests2d": 4, "encode2d_hash": 9,
+                          "nmt_tree": 4},
+        "apply_external_block": {"leaf_digests2d": 3, "encode2d_hash": 6, "nmt_tree": 3}}
+    saved = {e: dict(c) for e, c in app.items()}
+    try:
+        app["extend_block"]["encode2d_hash"] = 5
+        assert chip_smoke.node_launches(True)["encode2d_hash"] == 11
+        assert chip_smoke.node_launches(False)["encode2d_hash"] == 8
+    finally:
+        app.clear()
+        app.update(saved)
+
+
+def test_flip_state_byte_changes_one_byte_of_a_stored_value():
+    """The refused payload differs from the snapshot in one byte, still
+    parses, and restores to another app hash."""
+    from celestia_tpu_torch.state import StateStore
+
+    store = StateStore()
+    store.set(b"k1", b"\x01\x02")
+    store.set(b"k2", b"\x33" * 8)
+    store.commit()
+    payload = {"state": store.snapshot().hex(), "height": 1}
+    flipped = chip_smoke.flip_state_byte(payload)
+    a, b = bytes.fromhex(payload["state"]), bytes.fromhex(flipped["state"])
+    assert len(a) == len(b) and sum(x != y for x, y in zip(a, b)) == 1
+    assert flipped["height"] == 1
+    restored = StateStore.restore(b)
+    assert restored.app_hashes[restored.version] != store.app_hashes[store.version]
+
+
+def test_raised_returns_the_exception_or_none():
+    err = chip_smoke.raised(lambda: int("x"))
+    assert isinstance(err, ValueError)
+    assert chip_smoke.raised(lambda: 1) is None
+
+
+def test_node_constants_are_the_jax_nodes():
+    """Phase 6g's pinned hashes of height 3, recomputed with the JAX
+    package's Node over its App on the CPU (native backend), fed the
+    port-signed txs: the empty height 1, config 8b's 60 PFBs at height 2
+    (APP_HASH_2, CHAIN_DAH_HASH) and the 60 of ``node_height3_txs`` at
+    height 3, each through broadcast_tx and produce_block."""
+    from celestia_tpu.app.app import App
+    from celestia_tpu.node.node import Node
+    from celestia_tpu_torch import crypto
+
+    key, _blobs, raws = _chain_block()
+    v_key = crypto.PrivateKey.from_secret(chip_smoke.APP_VALIDATOR_SECRET)
+    app = App(chain_id=chip_smoke.CHAIN_ID, extend_backend="native")
+    chip_smoke.app_genesis(app, key.bech32_address(), v_key.bech32_address())
+    node = Node(app)
+    b1 = node.produce_block(chip_smoke.APP_BLOCK_TIMES[0])
+    assert b1.txs == [] and b1.square_size == 1
+    assert [node.broadcast_tx(raw).code for raw in raws] == [0] * 60
+    b2 = node.produce_block(chip_smoke.APP_BLOCK_TIMES[1])
+    assert b2.txs == raws and b2.square_size == chip_smoke.PROPOSAL_K
+    assert b2.app_hash.hex() == chip_smoke.APP_HASH_2
+    assert b2.data_hash.hex() == chip_smoke.CHAIN_DAH_HASH
+    t3 = chip_smoke.node_height3_txs(key)
+    assert [node.broadcast_tx(raw).code for raw in t3] == [0] * 60
+    b3 = node.produce_block(chip_smoke.APP_BLOCK_TIMES[2])
+    assert b3.txs == t3 and b3.square_size == chip_smoke.PROPOSAL_K
+    assert [r.code for r in b3.tx_results] == [0] * 60
+    assert b3.app_hash.hex() == chip_smoke.NODE_APP_HASH_3
+    assert b3.data_hash.hex() == chip_smoke.NODE_DAH_HASH_3

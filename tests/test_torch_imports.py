@@ -22,6 +22,7 @@ from celestia_tpu_torch.ops import blob_pool, extend, ragged, repair, transfers
 from celestia_tpu_torch.shares import tail_padding_share
 from celestia_tpu_torch.shares.splitters import Range
 from celestia_tpu_torch.store import BlockStore
+from celestia_tpu_torch import testutil
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "celestia_tpu_torch"
@@ -37,6 +38,10 @@ STATE_MACHINE = ("bech32", "crypto", "crypto.ripemd160", "smt", "state", "tx",
 APP_STACK = ("crypto.keccak", "x.blobstream_abi", "x.blobstream", "x.lightclient",
              "x.connection", "x.ibc", "x.transfer", "x.tokenfilter", "da.fraud", "native",
              "app", "app.calibration", "app.app")
+# the node's block path and what stands around it: consensus, export,
+# config, the Signer and the test harnesses
+NODE_STACK = ("node.consensus", "app.export", "config", "user", "testutil",
+              "testutil.network", "testutil.malicious", "testutil.ibc")
 
 
 def _forbidden(module: str) -> bool:
@@ -73,7 +78,7 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
                  "shares.info_byte", "shares.splitters", "shares.parse", "inclusion",
                  "inclusion.cache", "square", "ops.blob_pool", "ops.assemble",
                  "ops.assemble_cuda", "app.proposal", "log", "store", "store.powercut",
-                 "cli", *STATE_MACHINE, *APP_STACK):
+                 "cli", *STATE_MACHINE, *APP_STACK, *NODE_STACK):
         assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
@@ -150,6 +155,13 @@ ENTRIES = {
         [tail_padding_share()], tail_padding_share().namespace(), Range(0, 1)),
     "new_tx_inclusion_proof": lambda: proof.new_tx_inclusion_proof([b"\x01" * 40], 0, 1),
     "App": lambda: App(),
+    "Node(app)": lambda: Node(App()),
+    # the App is made before the home is read: no directory is needed
+    "Node.load": lambda: Node.load(REPO / "_no_such_home"),
+    "Node.state_sync_from": lambda: Node.state_sync_from(
+        {"height": 0, "chain_id": "c", "app_version": 1, "block_time": 0.0,
+         "app_hash": "", "state": b'{"data": {}, "version": 0}'.hex()}),
+    "testnode": lambda: testutil.testnode(),
     "App(extend_backend=...)": lambda: App(extend_backend="native"),
     "measure_crossover": lambda: calibration.measure_crossover((1,)),
 }

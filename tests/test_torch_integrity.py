@@ -7,6 +7,8 @@ get the same squares, indices, rules and seeds, and must give the same
 counts, the same flipped bytes and the same ``IntegrityError.mismatches``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -265,3 +267,33 @@ def test_configure_levels():
     eng = integrity.configure("sampled", q=2, seed=1)
     assert integrity.get() is eng and eng.enabled
     assert eng.sample_chunks(2) == frozenset({0, 1}) and len(eng.sample_chunks(9)) == 2
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_case(size: int) -> tuple[bytes, int]:
+    """A seeded buffer and its CRC-32C from the bytewise oracle."""
+    buf = np.random.default_rng(size + 7).integers(0, 256, size=size, dtype=np.uint8).tobytes()
+    return buf, integrity._crc32c_bytewise(buf)
+
+
+@pytest.mark.parametrize("branch", ["google_crc32c", "numpy"])
+@pytest.mark.parametrize("size", [0, 1, 4095, 4096, (1 << 20) + 3])
+def test_crc32c_dispatch_matches_the_bytewise_oracle(monkeypatch, branch, size):
+    """Both branches of the port's dispatch, as the JAX package's: the
+    native module where importable, the numpy path when the module's handle
+    is None. Each gives the bytewise oracle's value on bytes and arrays."""
+    if branch == "numpy":
+        monkeypatch.setattr(integrity, "_native_crc32c", None)
+    else:
+        monkeypatch.setattr(integrity, "_native_crc32c", pytest.importorskip("google_crc32c"))
+    assert integrity.crc32c_implementation() == branch
+    buf, want = _crc_case(size)
+    assert integrity.crc32c(buf) == want
+    assert integrity.crc32c(np.frombuffer(buf, np.uint8)) == want
+    assert jax_integrity.crc32c(buf) == want
+
+
+def test_crc32c_dispatch_picks_what_the_jax_package_picks():
+    """With nothing installed for it, the port runs the native module
+    exactly when the JAX package does."""
+    assert (integrity._native_crc32c is None) == (jax_integrity._native_crc32c is None)

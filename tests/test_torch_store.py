@@ -15,6 +15,7 @@ with equal results and equal counter moves in each package's registry. The
 codes on the same directory.
 """
 
+import contextlib
 import errno
 import json
 import os
@@ -785,3 +786,46 @@ def test_store_logs_like_jax(tmp_path):
     assert lines["port"][0] == {"level": "warning", "module": "store",
                                 "msg": "store re-index skipped file", "file": "7.ctps",
                                 "reason": "bad_header"}
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_with_timer_logs_like_jax(fails):
+    """``StructuredLogger.with_timer`` writes the JAX logger's record on exit:
+    info with ``elapsed_ms`` and the fields on success, error with the
+    exception's class name when the block raised (which still propagates).
+    ``elapsed_ms`` is compared by key and type only."""
+    import io
+    import logging
+
+    from celestia_tpu import log as jax_log
+    from celestia_tpu_torch import log
+
+    streams = {"jax": io.StringIO(), "port": io.StringIO()}
+    jax_log.configure("info", streams["jax"])
+    log.configure("info", streams["port"])
+    try:
+        for name, pkg in (("jax", jax_log), ("port", log)):
+            timer = pkg.logger("node").with_timer("replayed block", height=3, k=128)
+            with pytest.raises(KeyError) if fails else contextlib.nullcontext():
+                with timer as entered:
+                    assert entered is timer
+                    if fails:
+                        raise KeyError("missing")
+    finally:
+        for root in ("celestia_tpu", "celestia_tpu_torch"):
+            lg = logging.getLogger(root)
+            lg.handlers.clear()
+            lg.addHandler(logging.NullHandler())
+            lg.setLevel(logging.NOTSET)
+            lg.propagate = True
+    records = {}
+    for name, stream in streams.items():
+        (doc,) = [json.loads(line) for line in stream.getvalue().splitlines()]
+        doc.pop("ts")
+        assert isinstance(doc.pop("elapsed_ms"), float)
+        records[name] = doc
+    assert records["port"] == records["jax"]
+    want = {"level": "error" if fails else "info", "module": "node", "msg": "replayed block"}
+    if fails:
+        want["error"] = "KeyError"
+    assert records["port"] == {**want, "height": 3, "k": 128}
