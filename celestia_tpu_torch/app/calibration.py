@@ -24,9 +24,13 @@ times in ms per spelling, e.g.
 ``{"entries": {"64": {"dense": 2.1, "xor": 1.9}}, "measured_at": ...}``,
 plus the card's name and power limit as nvidia-smi reports them. The port's
 times are device times: one extend's three encode launches on the fused
-route (K1 or K5, the only kernels in which the fused routes differ), written
-by ``python3 chip_smoke.py --xor-table-out PATH``, which keeps only the k at
-which the two spellings' launch times do not overlap.
+route (K1 or K5, the only kernels in which the fused routes differ), and a
+rung enters the table only where the two spellings' launch times do not
+overlap (``xor_table_from_launches``). ``python3 chip_smoke.py
+--xor-table-out PATH`` writes it from the profiler's records of each
+launch; ``measure_xor_crossover`` (the JAX package's name, at
+``XOR_DEFAULT_KS``) takes the same launches' times with CUDA events, for
+an operator's check on any card, and writes no file.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ DEFAULT_KS = (1, 2, 4, 8, 16, 32, 64, 128)
 FILENAME = "crossover.json"
 CROSSOVER_TABLE_PATH = pathlib.Path(__file__).resolve().parents[1] / "config" / FILENAME
 XOR_FILENAME = "xor_schedule.json"
+XOR_DEFAULT_KS = (32, 64)
 XOR_TABLE_PATH = pathlib.Path(__file__).resolve().parents[1] / "config" / XOR_FILENAME
 
 
@@ -150,6 +155,83 @@ def xor_winner(k: int) -> str:
     if table is None:
         return "dense"
     return table.winner(k) or "dense"
+
+
+def xor_table_from_launches(per_launch: dict[int, dict[str, list[float]]],
+                            measured_at: float, card: str = "",
+                            power_limit: str = "") -> tuple[CrossoverTable, dict]:
+    """The dense/XOR routing table from the per-launch device ms of the two
+    fused encode kernels per k (``{k: {"dense": [K1 ms...], "xor": [K5
+    ms...]}}``). A rung's time per spelling is one extend's three encode
+    launches, 3 x their mean. A rung enters the table only where the two
+    spellings' launches do not overlap (the faster's slowest below the
+    slower's fastest); the lookup takes the nearest rung for the others.
+    Returns (the table, every rung's times with ``resolved`` and each
+    spelling's launch range)."""
+    table = CrossoverTable({}, measured_at, card, power_limit)
+    rungs = {}
+    for k, launches in sorted(per_launch.items()):
+        d, x = launches["dense"], launches["xor"]
+        entry = {"dense": 3 * float(np.mean(d)), "xor": 3 * float(np.mean(x))}
+        resolved = max(d) < min(x) or max(x) < min(d)
+        if resolved:
+            table.entries[k] = entry
+        rungs[k] = {**entry, "resolved": resolved,
+                    "dense_launch_range_ms": [min(d), max(d)],
+                    "xor_launch_range_ms": [min(x), max(x)]}
+    return table, rungs
+
+
+def _launch_ms(call, launches: int) -> list[float]:
+    """Device ms of each of ``launches`` back-to-back calls of ``call`` (one
+    kernel launch each), by CUDA events between them. The card sleeps while
+    the host queues them, so no launch waits on the host."""
+    import torch
+
+    call()  # the build and the first launch stay out of the times
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(launches + 1)]
+    torch.cuda._sleep(10_000_000)
+    for mark in marks[:-1]:
+        mark.record()
+        call()
+    marks[-1].record()
+    marks[-1].synchronize()
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+
+def measure_xor_crossover(ks: tuple[int, ...] = XOR_DEFAULT_KS,
+                          device=None) -> CrossoverTable:
+    """The dense/XOR table on ``device`` (None means CUDA; the card only):
+    per k, a random square's fused encode on K1 (dense) and on K5 (xor),
+    10 launches each timed by CUDA events, through
+    ``xor_table_from_launches``, the rule of the committed table. The
+    table holds the resolved rungs; the log has every rung's times."""
+    import torch
+
+    from celestia_tpu_torch import device as device_mod
+    from celestia_tpu_torch.ops import rs, rs_cuda, xor_cuda
+
+    dev = device_mod.resolve(device)
+    if dev.type != "cuda":
+        raise ValueError("measure_xor_crossover times the card's kernels: "
+                         f"it needs a CUDA device, not {dev}")
+    per_launch = {}
+    for k in ks:
+        rng = np.random.default_rng(k)
+        x = torch.from_numpy(rng.integers(0, 256, size=(k, k * SHARE_SIZE),
+                                          dtype=np.uint8)).to(dev)
+        m2, ops = rs.encode_matrix(k, dev), xor_cuda.schedule_operands(k, dev)
+        per_launch[k] = {
+            "dense": _launch_ms(lambda: rs_cuda.encode2d_hash(x, m2), 10),
+            "xor": _launch_ms(lambda: xor_cuda.encode2d_xor_hash(x, ops), 10),
+        }
+    table, rungs = xor_table_from_launches(per_launch, time.time(),
+                                           torch.cuda.get_device_name(dev))
+    for k, rung in rungs.items():
+        log.info("xor crossover rung", k=k, dense=round(rung["dense"], 4),
+                 xor=round(rung["xor"], 4), resolved=rung["resolved"])
+    return table
 
 
 def _best_of(fn, repeats: int) -> float:

@@ -16,6 +16,12 @@ Named sites a test or a drill can arm without touching the code path:
     store.rename           the rename of a put's temp file
     store.dirsync          the store directory's fsync
     store.unlink           a temp file's or an evicted height's unlink
+    dispatch.enqueue       a submit, before admission      (node/dispatch.py)
+    dispatch.run           each device dispatch on the dispatcher thread
+    dispatch.batch         each micro-batch, before its batch_exec
+    pipeline.block         a fed block, before staging     (node/pipeline.py)
+    codec.backend          a codec RPC, before its backend (service/codec_service.py)
+    codec.call             a codec client's call, before the wire
 
 Fault kinds, as in the JAX package:
 

@@ -7,7 +7,10 @@ The library is compiled on first use with ``g++ -O3 -march=native`` from the
 port's own copy of the sources, into
 ``celestia_tpu_torch/_build/native-<source hash>/`` (gitignored): a changed
 source builds a new directory, and a directory appears only once its library
-is complete, so concurrent processes never load half a build. Callers check
+is complete, so concurrent processes never load half a build. The build is
+an instrumented builder of the device ledger (entry ``native.library``,
+keyed on the source hash; a library already on disk is a build-cache hit).
+Callers check
 ``available()`` and use the plain host path (``da.extend_shares(...,
 device="cpu")``) when the toolchain is missing.
 """
@@ -25,6 +28,7 @@ import threading
 
 import numpy as np
 
+from celestia_tpu_torch import devledger
 from celestia_tpu_torch.appconsts import SHARE_SIZE
 
 _SRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc" / "host"
@@ -48,9 +52,13 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _path_for(source_hash: str) -> pathlib.Path:
+    return _BUILD_ROOT / f"native-{source_hash}" / _LIB_NAME
+
+
 def lib_path() -> pathlib.Path:
     """Where the library for the current sources lives (built or not)."""
-    return _BUILD_ROOT / f"native-{_source_hash()}" / _LIB_NAME
+    return _path_for(_source_hash())
 
 
 def _build(out_dir: pathlib.Path) -> None:
@@ -68,31 +76,38 @@ def _build(out_dir: pathlib.Path) -> None:
             shutil.rmtree(tmp, ignore_errors=True)
 
 
+@devledger.instrument_builder("native.library")
+def _library_for(source_hash: str) -> ctypes.CDLL:
+    path = _path_for(source_hash)
+    if path.exists():
+        devledger.note_cache_hit()
+    else:
+        _build(path.parent)
+    lib = ctypes.CDLL(str(path))
+    for fn in ("leo_encode", "eds_extend", "leo_decode"):
+        getattr(lib, fn).argtypes = [
+            ctypes.c_int, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_char_p]
+    lib.eds_nmt_roots.argtypes = [
+        ctypes.c_int, ctypes.c_size_t, ctypes.c_char_p,
+        ctypes.c_char_p, ctypes.c_char_p,
+    ]
+    lib.merkle_root.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_size_t, ctypes.c_char_p,
+    ]
+    lib.eds_repair.argtypes = [
+        ctypes.c_int, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_char_p,
+    ]
+    lib.eds_repair.restype = ctypes.c_int
+    return lib
+
+
 def _load():
     global _lib, _load_error
     with _lock:
         if _lib is not None or _load_error is not None:
             return _lib
         try:
-            path = lib_path()
-            if not path.exists():
-                _build(path.parent)
-            lib = ctypes.CDLL(str(path))
-            for fn in ("leo_encode", "eds_extend", "leo_decode"):
-                getattr(lib, fn).argtypes = [
-                    ctypes.c_int, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_char_p]
-            lib.eds_nmt_roots.argtypes = [
-                ctypes.c_int, ctypes.c_size_t, ctypes.c_char_p,
-                ctypes.c_char_p, ctypes.c_char_p,
-            ]
-            lib.merkle_root.argtypes = [
-                ctypes.c_char_p, ctypes.c_int, ctypes.c_size_t, ctypes.c_char_p,
-            ]
-            lib.eds_repair.argtypes = [
-                ctypes.c_int, ctypes.c_size_t, ctypes.c_char_p, ctypes.c_char_p,
-            ]
-            lib.eds_repair.restype = ctypes.c_int
-            _lib = lib
+            _lib = _library_for(_source_hash())
         except Exception as e:  # noqa: BLE001 — the toolchain may be absent
             _load_error = str(e)
         return _lib

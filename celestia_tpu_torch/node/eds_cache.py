@@ -33,6 +33,10 @@ record that fails its CRC raises ``IntegrityError`` at ``store.read``, with
 the page's height, so a cross-height group heals only that height. The
 fault-in records ``crc`` and ``h2d`` stages (and the store ``disk`` and
 ``crc``), the ragged gather a ``gather`` stage, in the active stage sink.
+
+Both caches register with the device ledger (``devledger``) as owners
+``eds_cache_resident`` and ``eds_cache_paged``, held weakly: a collected
+cache drops out of the ledger.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import threading
 import numpy as np
 import torch
 
-from celestia_tpu_torch import da, faults, integrity, tracing
+from celestia_tpu_torch import da, devledger, faults, integrity, tracing
 from celestia_tpu_torch import device as device_mod
 from celestia_tpu_torch.ops import ragged, transfers
 from celestia_tpu_torch.telemetry import metrics
@@ -60,6 +64,7 @@ class ResidentEdsCache:
         self._entries: collections.OrderedDict[int, object] = collections.OrderedDict()
         self._pins: collections.Counter[int] = collections.Counter()
         self._lock = threading.Lock()
+        devledger.register_owner("eds_cache_resident", self.device_bytes)
 
     def get(self, height: int):
         """Unpinned lookup, for callers that only hand the value on.
@@ -383,6 +388,7 @@ class PagedEdsCache:
         self._cond = threading.Condition()
         self._tick = itertools.count(1)
         self.stats_counters = collections.Counter()  # hits, misses, ...
+        devledger.register_owner("eds_cache_paged", self.device_bytes)
 
     # -- the ResidentEdsCache-compatible height surface ----------------- #
 

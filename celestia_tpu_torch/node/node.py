@@ -36,6 +36,13 @@ levels with no hashing, and ``block_dah`` answers the stored DAH byte for
 byte. A height that neither the cache nor the store can serve is rebuilt
 on the host from the node's blocks.
 
+``extend_pipeline(k)`` streams consecutive squares through a 3-deep block
+pipeline (``node/pipeline.py``) and adopts each retired block into the
+DAH memo, the cache, the provers' levels and the store. A dispatcher
+attached as ``node.dispatcher`` (``node/dispatch.py``; a server attaches its
+own, and registers its ``run_device`` with ``transfers``) runs blob staging
+and the pipeline's legs on its thread.
+
 Where the port differs from the JAX node: retention degrades only where
 the device is unavailable (``faults.DeviceUnavailable``), a result or a
 page failed its check (``integrity.IntegrityError``) or the disk failed
@@ -355,7 +362,8 @@ class Node:
     def broadcast_tx(self, raw: bytes):
         """CheckTx, then the mempool. An admitted PFB's blobs are staged in
         the App's blob arena, when it has one, so the proposal assembles the
-        square on the card without uploading them again; a device that is
+        square on the card without uploading them again (on the attached
+        dispatcher's thread, when there is one); a device that is
         unavailable leaves them to the upload path."""
         app = self._need_app()
         with self._lock:
@@ -367,8 +375,14 @@ class Node:
 
             btx, is_blob = blob_pkg.unmarshal_blob_tx(raw)
             if is_blob:
+                blob_bytes = [b.data for b in btx.blobs]
                 try:
-                    app.blob_pool.put_many([b.data for b in btx.blobs])
+                    # the uploads are device work: with a dispatcher attached
+                    # they run on its thread, CheckTx stays on this one
+                    if self.dispatcher is not None:
+                        self.dispatcher.run_device(lambda: app.blob_pool.put_many(blob_bytes))
+                    else:
+                        app.blob_pool.put_many(blob_bytes)
                 except faults.DeviceUnavailable as e:
                     log.info("blob staging failed", error=str(e))
         return res
@@ -841,6 +855,12 @@ class Node:
         else:
             data = getattr(eds, "data", eds)
         width = int(getattr(eds, "original_width", data.shape[0] // 2))
+        self._store_put(height, data, width, dah, levels)
+
+    def _store_put(self, height: int, data, width: int, dah, levels) -> None:
+        """Write one height's host square, DAH and levels to the store in
+        the cache's page geometry; a disk failure (or the read-only skip)
+        is logged and leaves the height to the cache tiers."""
         rpp = getattr(self._eds_cache, "rows_per_page", None) or 8
         try:
             entry = self.store.put_eds(height, data, width, dah_doc=dah.to_json(),
@@ -850,6 +870,45 @@ class Node:
             return
         if entry is not None:
             self._store_refused.discard(height)
+
+    # --- the block pipeline (node/pipeline.py) ---
+
+    def extend_pipeline(self, k: int, depth: int = 3):
+        """A 3-deep H2D/compute/D2H block pipeline bound to this node, on its
+        device: feed consecutive (height, shares) squares (block replay,
+        proposal bursts, a catching-up stream), and each retired block lands
+        where retention puts it (the serving cache, the prover memo seeded
+        from the device's level stack, the DAH memo, the store), with the
+        three legs of consecutive blocks overlapped. Its legs run on the
+        attached dispatcher's thread, when there is one."""
+        from celestia_tpu_torch.node.pipeline import BlockPipeline
+
+        def adopt(block):
+            with self._lock:
+                self._adopt_pipelined_block(block)
+
+        return BlockPipeline(k, dispatcher=self.dispatcher, depth=depth, on_block=adopt,
+                             device=self.device)
+
+    def _adopt_pipelined_block(self, block) -> None:
+        """Install one retired ``PipelinedBlock`` into the serving state from
+        its fetched outputs, with no second device pass: the DAH memo, the
+        host square in the cache, the provers' levels and the store record.
+        A RETENTION_FAULTS failure of the cache is logged and counted, as
+        ``_retain`` counts it. Called under ``_lock``."""
+        dah = da.DataAvailabilityHeader([r.tobytes() for r in block.row_roots],
+                                        [c.tobytes() for c in block.col_roots])
+        self._dah_cache[block.height] = dah
+        try:
+            self._eds_cache.put(block.height, block.eds)
+        except RETENTION_FAULTS as e:
+            log.info("pipelined eds retention failed", height=block.height, error=str(e))
+            metrics.incr_counter("node_retention_failures_total", reason=type(e).__name__)
+        while len(self._prover_cache) >= self._PROVER_CACHE_HEIGHTS:
+            self._prover_cache.pop(next(iter(self._prover_cache)))
+        self._prover_cache[block.height] = (block.levels, {})
+        if self.store is not None:
+            self._store_put(block.height, block.eds, block.eds.shape[0] // 2, dah, block.levels)
 
     def ibc_light_client_header(self):
         """Unsigned light-client header material for this chain's latest

@@ -10,6 +10,11 @@ Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on anything but 0. There is no
 fallback: a build or launch failure is an error.
 
+The build is an instrumented builder of the device ledger (entry
+``cuda.library``, keyed on the source hash): one ``device_build_total``
+per distinct source tree, and a ``device_build_cache_hit_total`` when the
+library of that hash is already on disk.
+
 ``LAUNCHES`` counts kernel launches by wrapper name. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 path went through the kernels.
@@ -27,6 +32,8 @@ import tempfile
 import threading
 
 import torch
+
+from celestia_tpu_torch import devledger
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[1] / "_build"
@@ -155,22 +162,34 @@ def build_log() -> str:
     return "".join(p.read_text() for p in sorted(d.glob("*.log")))
 
 
+def _open(path: pathlib.Path) -> ctypes.CDLL:
+    """Load the library and declare every C signature."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES.items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return lib
+
+
+@devledger.instrument_builder("cuda.library")
+def _library_for(source_hash: str) -> ctypes.CDLL:
+    out_dir = BUILD_ROOT / source_hash
+    if (out_dir / LIB_NAME).exists():
+        devledger.note_cache_hit()
+    else:
+        _build(out_dir)
+    return _open(out_dir / LIB_NAME)
+
+
 def library() -> ctypes.CDLL:
-    """The kernel library, built on first use and cached by source hash."""
+    """The kernel library, built (or found on disk by source hash) on first
+    use and kept for the process: ``_lib`` is its one cache."""
     global _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        out_dir = BUILD_ROOT / _source_hash()
-        if not (out_dir / LIB_NAME).exists():
-            _build(out_dir)
-        lib = ctypes.CDLL(str(out_dir / LIB_NAME))
-        for fn, argtypes in _SIGNATURES.items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = _library_for(_source_hash())
+        return _lib
 
 
 def check(rc: int, what: str) -> None:

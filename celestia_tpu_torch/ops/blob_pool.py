@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from celestia_tpu_torch import device as device_mod
+from celestia_tpu_torch import devledger
 from celestia_tpu_torch.ops import transfers
 from celestia_tpu_torch.telemetry import metrics
 
@@ -96,11 +97,14 @@ class DeviceBlobArena:
         # makes the in-place insert safe: an insert or a half flip would
         # otherwise rewrite bytes at offsets a queued proposal reads.
         self._lock = threading.RLock()
-        # The JAX package registers the arena with its device-memory ledger
-        # here; the port's ledger is not ported yet (ROADMAP Queue 1 item 10).
+        # the arena's fixed device allocation in the device ledger, held
+        # weakly: a dropped arena leaves the ledger on its next snapshot
+        devledger.register_owner("blob_arena", self.device_bytes)
 
     def device_bytes(self) -> int:
-        """The arena's device footprint (fixed at construction)."""
+        """The arena's device footprint (fixed at construction), the device
+        ledger's owner callback. It runs with no ledger lock held, so taking
+        the arena lock here makes no edge between the two locks."""
         with self._lock:
             arena = self._arena
             return int(arena.nbytes) if arena is not None else 0

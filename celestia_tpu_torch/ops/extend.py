@@ -157,16 +157,22 @@ def merkle_root_pow2(items: torch.Tensor, kernels: Kernels = KERNELS) -> torch.T
     return out.reshape(*lead, 32)
 
 
-def _eds_tree(eds: torch.Tensor, kernels: Kernels, keep_levels: bool = False):
-    """The tree kernel over an existing EDS: K2's (2k, 2k, 8) leaf-digest
-    grid, passed as four quadrant slices, and Q0's namespaces read from
-    the shares. ``keep_levels`` goes to ``nmt_tree``."""
+def _eds_leaves(eds: torch.Tensor, kernels: Kernels):
+    """The tree kernel's inputs over an existing EDS: K2's (2k, 2k, 8)
+    leaf-digest grid as four quadrant slices, and Q0's namespaces read
+    from the shares."""
     w = eds.shape[0]
     k = w // 2
     q0_ns = eds[:k, :k, :NAMESPACE_SIZE]
     grid = kernels.leaf_digests2d(eds.reshape(w, w * SHARE_SIZE),
                                   rs_cuda.pad_namespaces(_leaf_namespaces(q0_ns, k)))
-    quads = (grid[:k, :k], grid[:k, k:], grid[k:, :k], grid[k:, k:])
+    return (grid[:k, :k], grid[:k, k:], grid[k:, :k], grid[k:, k:]), q0_ns
+
+
+def _eds_tree(eds: torch.Tensor, kernels: Kernels, keep_levels: bool = False):
+    """The tree kernel over an existing EDS's leaves. ``keep_levels`` goes
+    to ``nmt_tree`` (which then builds the rows alone)."""
+    quads, q0_ns = _eds_leaves(eds, kernels)
     return kernels.nmt_tree(quads, q0_ns, keep_levels)
 
 
@@ -259,13 +265,19 @@ def _roots(shares: torch.Tensor, m2: rs.EncodeMatrix, fused: bool | None = None,
         return _roots_of_fused_xor(shares, kernels, keep_eds)
     if fused:
         return _roots_of_fused_dense(shares, m2, kernels, keep_eds)
-    if xor:
-        eds = xor_cuda.extend_square_xor(
-            shares, xor_cuda.schedule_operands(k, shares.device), kernels.encode2d_xor)
-    else:
-        eds = rs_cuda.extend_square(shares, m2, kernels.encode2d)
+    eds = _unfused_eds(shares, m2, xor, kernels)
     roots, _levels = _eds_tree(eds, kernels)
     return (eds if keep_eds else None), roots
+
+
+def _unfused_eds(shares: torch.Tensor, m2: rs.EncodeMatrix, xor: bool, kernels: Kernels):
+    """The unfused routes' EDS: three encodes without the hash (K4, or K6
+    through the XOR schedule)."""
+    if xor:
+        return xor_cuda.extend_square_xor(
+            shares, xor_cuda.schedule_operands(shares.shape[0], shares.device),
+            kernels.encode2d_xor)
+    return rs_cuda.extend_square(shares, m2, kernels.encode2d)
 
 
 def _rows_cols_only(shares: torch.Tensor, m2: rs.EncodeMatrix, fused: bool | None = None,
@@ -524,6 +536,42 @@ def eds_row_levels_device(eds, device=None, kernels: Kernels = KERNELS) -> list[
         _roots, levels = _eds_tree(_stage(eds, dev), kernels, keep_levels=True)
         transfers.profile_fence(levels, "eds_row_levels_device", t0, k=k)
         return nmt_cuda.split_levels(levels.cpu().numpy(), k)  # one D2H copy
+
+
+# ------------------------------------------------------------------ #
+# Device-in, device-out entries for the block pipeline (node/pipeline.py),
+# the JAX package's extend_and_root_staged and extend_root_levels_staged
+# (celestia_tpu/ops/extend_tpu.py:489, :502) on one device: the square is
+# already staged and the results stay on its device, so the legs of
+# consecutive blocks overlap. The launches queue on the caller's current
+# stream and return before the card is done.
+
+
+def extend_and_root_staged(dev: torch.Tensor, kernels: Kernels = KERNELS):
+    """A staged (k, k, 512) uint8 square -> (eds (2k, 2k, 512), row_roots
+    (2k, 90), col_roots (2k, 90), dah (32,)), all on its device."""
+    k = _square_size(dev)
+    return extend_and_root(dev, rs.encode_matrix(k, dev.device), kernels)
+
+
+def extend_root_levels_staged(dev: torch.Tensor, kernels: Kernels = KERNELS):
+    """A staged (k, k, 512) uint8 square -> (eds, row_roots, col_roots, dah,
+    levels), all on its device, as ``extend_and_root_staged`` and
+    ``eds_row_levels_device`` give them: levels a tuple of views of one
+    flat buffer, [leaf nodes (2k, 2k, 90), (2k, k, 90), ..., (2k, 1, 90)].
+    The JAX package's single-device spelling, the unfused pair, on the
+    port's unfused route: the three encodes without the hash, then K2 over
+    the EDS, so every cell is hashed once, and the tree twice over that one
+    leaf grid: both axes' roots, which the DAH merkles, and the row levels
+    (the tree keeps levels for the rows alone). Its fused mesh spelling is
+    not ported."""
+    k = _square_size(dev)
+    eds = _unfused_eds(dev, rs.encode_matrix(k, dev.device), _xor_active(k), kernels)
+    quads, q0_ns = _eds_leaves(eds, kernels)
+    roots, _levels = kernels.nmt_tree(quads, q0_ns)
+    _rows, levels = kernels.nmt_tree(quads, q0_ns, True)
+    dah = merkle_root_pow2(roots.reshape(-1, NMT_NODE_SIZE), kernels)
+    return eds, roots[0], roots[1], dah, tuple(nmt_cuda.split_levels(levels, k))
 
 
 # ------------------------------------------------------------------ #

@@ -29,6 +29,12 @@ on a device.
 The contraction runs in float32: the operands are 0/1 and a sum has at most
 1024 terms, so every partial sum is an exact integer in float32 (and in
 TF32, whose inputs 0 and 1 are exact too); ``& 1`` then gives the GF(2) bit.
+
+The per-k builders (``encode_bit_matrix``, ``fft_program``,
+``decode_program``, ``decode_twiddles``, ``decode_bit_matrix``) are
+instrumented builders of the device ledger (``devledger``, entries
+``rs.<name>``): one build per k, and a retrace when a new k arrives after
+warm-up.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import functools
 import numpy as np
 import torch
 
+from celestia_tpu_torch import devledger
 from celestia_tpu_torch.ops import gf256
 
 
@@ -55,6 +62,7 @@ def expand_bit_matrix(m: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
+@devledger.instrument_builder("rs.encode_bit_matrix")
 def encode_bit_matrix(k: int) -> np.ndarray:
     """(8k, 8k) uint8 0/1 matrix M2 with parity_bits = M2 @ data_bits mod 2."""
     return expand_bit_matrix(gf256.encode_matrix(k))
@@ -79,6 +87,7 @@ def _check_pow2(name: str, v: int) -> None:
 
 
 @functools.lru_cache(maxsize=16)
+@devledger.instrument_builder("rs.fft_program")
 def fft_program(k: int) -> tuple[np.ndarray, np.ndarray]:
     """The butterfly program of ``gf256.leopard_encode`` for k shards, as
     the kernels read it: ``(rows, group)``.
@@ -109,6 +118,7 @@ def fft_program(k: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=16)
+@devledger.instrument_builder("rs.decode_program")
 def decode_program(n: int) -> np.ndarray:
     """The butterfly program of ``gf256._decode_core`` over n = 2k
     positions (the erasure-pattern-independent middle of the Leopard
@@ -146,6 +156,7 @@ HALF_ROW = 128  # bytes of a half row of decode_table: c·y for y < 128
 
 
 @functools.lru_cache(maxsize=16)
+@devledger.instrument_builder("rs.decode_twiddles")
 def decode_twiddles(n: int) -> np.ndarray:
     """Each butterfly group's multiply entry as the decode kernel reads it
     (its kernel parameters), (2(n - 1), 3) uint32, from the twiddle
@@ -175,6 +186,7 @@ def decode_table() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
+@devledger.instrument_builder("rs.decode_bit_matrix")
 def decode_bit_matrix(n: int) -> np.ndarray:
     """(8n, 8n) uint8 0/1 matrix of the decode core over GF(2), the decode
     counterpart of ``encode_bit_matrix`` (the JAX package's

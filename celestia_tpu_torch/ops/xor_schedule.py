@@ -35,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from celestia_tpu_torch import devledger
 from celestia_tpu_torch.ops import rs
 
 # CSE node budget per compile: diminishing returns set in well before
@@ -204,10 +205,12 @@ def supported(k: int) -> bool:
 
 
 @functools.lru_cache(maxsize=16)
+@devledger.instrument_builder("xor.compile_schedule")
 def compile_schedule(k: int) -> XorSchedule:
     """The schedule of the full (8k, 8k) encode matrix, compiled once per
     process and k. It is host time at first use, seconds at k = 128
-    (``chip_smoke.py`` prints it)."""
+    (``chip_smoke.py`` prints it), timed by the device ledger as the
+    ``xor.compile_schedule`` build."""
     return _compile_from_matrix(rs.encode_bit_matrix(k))
 
 

@@ -67,6 +67,8 @@ class Registry:
         self.counters: dict[str, float] = collections.defaultdict(float)
         self.gauges: dict[str, float] = {}
         self.timings: dict[str, Histogram] = {}
+        # the last (trace id, value) exemplar of a histogram key
+        self._exemplars: dict[str, tuple[str, float]] = {}
 
     def incr_counter(self, name: str, value: float = 1.0, **labels) -> None:
         key = _key(name, labels)
@@ -88,14 +90,24 @@ class Registry:
         with self._lock:
             return self.gauges.get(_key(name, labels))
 
-    def observe(self, name: str, value: float, **labels) -> None:
-        """One histogram observation (seconds)."""
+    def observe(self, name: str, value: float, exemplar: str | None = None,
+                **labels) -> None:
+        """One histogram observation (seconds). ``exemplar`` attaches a
+        trace id to the observation (the last one per key is kept), linking
+        the metric to a concrete span."""
         key = _key(name, labels)
         with self._lock:
             hist = self.timings.get(key)
             if hist is None:
                 hist = self.timings[key] = Histogram(self._buckets)
             hist.observe(value)
+            if exemplar is not None:
+                self._exemplars[key] = (exemplar, value)
+
+    def get_exemplar(self, name: str, **labels) -> tuple[str, float] | None:
+        """The last (trace_id, value) exemplar of a histogram key."""
+        with self._lock:
+            return self._exemplars.get(_key(name, labels))
 
     def measure_since(self, name: str, start: float, **labels) -> None:
         self.observe(name, time.perf_counter() - start, **labels)
@@ -118,6 +130,7 @@ class Registry:
             self.counters.clear()
             self.gauges.clear()
             self.timings.clear()
+            self._exemplars.clear()
 
 
 class _Timer:

@@ -16,7 +16,8 @@ card that served them and the fault-site strikes that hit during them.
    ``record()``.
 
 Also here: stage sinks (per-request accumulators of stage durations that
-the transfers feed with ``add_stage``) and fenced device-time profiling
+the transfers feed with ``add_stage``, and ``merge_stages`` folds in from
+the dispatcher's thread) and fenced device-time profiling
 (``enable_profiling``: a 1-in-N sample of entry calls waits for the card
 and emits a ``profile.fence`` span).
 """
@@ -357,6 +358,18 @@ def add_stage(name: str, seconds: float) -> None:
     sink = active_stage_sink()
     if sink is not None:
         sink.add(name, seconds)
+
+
+def merge_stages(stages: dict | None) -> None:
+    """Fold stages measured on another thread (the dispatcher) into the
+    calling thread's sink: the request thread calls this after its job
+    completes."""
+    if not stages:
+        return
+    sink = active_stage_sink()
+    if sink is not None:
+        for name, seconds in stages.items():
+            sink.add(name, seconds)
 
 
 # ---------------------------------------------------------------------- #

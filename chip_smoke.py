@@ -247,6 +247,49 @@ prints no result; it also exits non-zero when no CUDA device is present):
    a tx, produce_block and apply_external_block (split into
    PrepareProposal, ProcessProposal, deliver + commit, retention and
    persist from the spans) and Node.load (its replay and batched check).
+6h. The device lane (``lane``): bench.py's square at k = 128 (seeds 42-47)
+   through the serial entries (extend_and_root_device, then
+   eds_row_levels_device), then through a bare 3-deep ``BlockPipeline``
+   with the counts from 0 (PIPELINE_LAUNCHES a block); every retired block's
+   EDS, roots, DAH and levels must equal the entries' bytes, in feed order,
+   no retired array may be a view of the pipeline's three pinned result
+   sets, and ``feed`` after ``drain`` must raise Shed("draining"). The same
+   six at depth 1 are the fenced serial reference. Then ``devledger.end_warmup``
+   and a second 3-deep stream under strict retraces: no RetraceError, and
+   the ledger's unattributed device bytes no more than before it. Three
+   squares through ``Node.extend_pipeline`` on a node with a home: the
+   adopted DAH memo, 32 reads a height from the cache with the provers
+   from the fetched levels (no launch), the store's DAH, levels and first
+   page; the six through home-less nodes' ``extend_pipeline`` at depth 3,
+   in turns with depth 1, time the node's own adopting stream. A node with
+   phase 6b's four heights (6b's own has read its squares to the host)
+   gets a ``DeviceDispatcher`` attached as a server attaches it
+   (``node.dispatcher``, ``transfers.register_device_executor``); 8
+   request threads submit 6b's 256-sample crowd as ``("sample",)`` batch
+   jobs: the documents equal a direct ``sample_batch_ragged``, one
+   ragged_gather a batch and nothing else, ``device_busy_ratio`` above 0.
+   With the dispatcher attached, the six squares go through
+   ``Node.extend_pipeline`` on another node: every leg on the dispatcher's
+   thread (its ``dispatch.run`` spans), PIPELINE_LAUNCHES a block, the
+   blocks and the adopted DAHs equal to the serial entries'.
+   A ``dispatch.run`` delay stalls a capacity-1 dispatcher for one
+   ``queue_full`` shed and one deadline expiry, each counted once. The
+   codec service's four calls at k = 32 and 128 (Repair on bench.py's
+   first 25% mask) through its method bodies, marshalled bytes in and
+   out, on the card (``CodecBackend()``) and the host backend
+   (``CodecBackend(device="cpu")``): equal bytes, launches as
+   CODEC_EXTEND_LAUNCHES (Roots none, Repair its planned sweeps), no
+   degrade; and, where grpc imports, a loopback client's ExtendAndRoot.
+   ``lane`` lines: ``pipeline`` (the stream's, the depth-1 and the serial
+   entries' wall seconds, each leg's wall), ``ledger`` (``debug_doc()``:
+   owners, live, attributed and unattributed bytes, builds by entry),
+   ``node_pipeline`` (with the adopting stream's seconds),
+   ``dispatcher`` (batches, jobs a batch, launches, busy ratio, the
+   dispatched pipeline's seconds), ``dispatcher_drill`` and ``codec`` (ms of each call on
+   the card and on the host, the transport). Phase 7 adds a ``lane`` line
+   ``xor_crossover`` beside the ``xor_table`` line:
+   ``calibration.measure_xor_crossover`` at k = 32 and 64, the same
+   table's launches timed by CUDA events under the same rule.
 7. Timing, after warm-up: each kernel at its main-path shapes (K2 at
    k = 64 and 128, on Q0 and on the EDS), as its own device time per launch
    (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
@@ -299,6 +342,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import hashlib
+import importlib.util
 import json
 import os
 import pathlib
@@ -467,6 +511,13 @@ NODE_SEED_3 = PROPOSAL_SEED + 1
 NODE_APP_HASH_3 = "d636f79a848566afdf652a71822437d7dd9f756a1e9dcd50fc7f2b204056fab2"
 NODE_DAH_HASH_3 = "969f3012b031e6768cf3eca1ee7ce154e0947f17796613074abe53f852bf9f88"
 NODE_CROWD = 64  # samples of the restarted replica's crowd over heights 2 and 3
+# the device lane phase (6h): bench.py's square at k = 128 (seeds 42-47)
+# through the block pipeline, the phase-6b node's crowd through the
+# dispatcher, and the codec service at k = 32 and 128
+LANE_SEEDS = (42, 43, 44, 45, 46, 47)
+LANE_NODE_BLOCKS = 3  # squares through Node.extend_pipeline
+LANE_THREADS = 8  # request threads of the dispatcher's crowd
+CODEC_KS = (32, 128)
 
 
 def serving_crowd(seed: int, heights, width: int, n: int) -> list[tuple[int, int, int]]:
@@ -993,6 +1044,16 @@ def node_launches(own: bool) -> dict[str, int]:
 
 NODE_LAUNCHES = {"produce_block": node_launches(True),
                  "apply_external_block": node_launches(False)}
+# phase 6h: the codec's Encode and ExtendAndRoot on the card run one fused
+# extend, as ExtendBlock does (Roots runs on the host; Repair's decode sweeps
+# are counted from its plan); a pipelined block (extend_root_levels_staged)
+# runs the unfused route: that extend's three quadrant encodes on K4, the
+# row levels of the EDS as the persist computes them, one more tree over the
+# same leaves for both axes' roots, and their device DAH (dah_merkle)
+CODEC_EXTEND_LAUNCHES = dict(APP_LAUNCHES["extend_block"])
+PIPELINE_LAUNCHES = dict(sum((collections.Counter(p) for p in (
+    {"encode2d": CODEC_EXTEND_LAUNCHES["encode2d_hash"]}, PERSIST_LAUNCHES,
+    {"nmt_tree": 1, "dah_merkle": 1})), collections.Counter()))
 
 
 def node_height3_txs(signer_key) -> list[bytes]:
@@ -1249,6 +1310,431 @@ def node_phase(dev, emit, signer_key, raws: list[bytes], batched_launches: dict)
              phase_seconds=time.perf_counter() - t_phase)
     finally:
         shutil.rmtree(home, ignore_errors=True)
+
+def lane_docs(eds: np.ndarray, coords, k: int) -> list:
+    """The sample documents of ``coords`` built on the host from a fetched
+    EDS (host-hashed provers)."""
+    from celestia_tpu_torch import proof
+
+    rows = {i: [eds[i, c].tobytes() for c in range(2 * k)] for i in sorted({i for i, _j in coords})}
+    return proof.das_sample_docs(rows, list(coords), k)
+
+
+def stream_blocks(pipe, squares, first_height: int = 0, keep: bool = True) -> tuple[list, float]:
+    """Feed the squares through a BlockPipeline as consecutive heights and
+    drain it: (the retired blocks in retirement order, the stream's wall
+    seconds, ending when the last block's results are on the host). With
+    ``keep`` False each block is dropped as it retires (its height kept)."""
+    out = []
+
+    def take(block) -> None:
+        if block is not None:
+            out.append(block if keep else block.height)
+
+    t = time.perf_counter()
+    for h, sq in enumerate(squares, first_height):
+        take(pipe.feed(h, sq))
+    for block in pipe.drain():
+        take(block)
+    return out, time.perf_counter() - t
+
+
+def same_block(block, ref) -> bool:
+    """A retired block equals ``ref`` = (eds, row_roots, col_roots, dah,
+    levels), byte for byte."""
+    eds, rows, cols, dah, levels = ref
+    return (np.array_equal(block.eds, eds) and np.array_equal(block.row_roots, rows)
+            and np.array_equal(block.col_roots, cols) and np.array_equal(block.dah, dah)
+            and len(block.levels) == len(levels)
+            and all(np.array_equal(a, b) for a, b in zip(block.levels, levels)))
+
+
+def crowd_through(dispatcher, exec_fn, payloads, threads: int) -> list:
+    """The crowd as batch jobs under the ``("sample",)`` key, from
+    ``threads`` request threads, each submitting its share of the payloads
+    one job at a time, as a server's request threads do: the documents in
+    the crowd's order."""
+    import concurrent.futures
+
+    def worker(t: int) -> list:
+        return [(i, dispatcher.submit(label="sample", batch_key=("sample",),
+                                      batch_exec=exec_fn, payload=payloads[i]))
+                for i in range(t, len(payloads), threads)]
+
+    out = [None] * len(payloads)
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        for part in pool.map(worker, range(threads)):
+            for i, doc in part:
+                out[i] = doc
+    return out
+
+
+def lane_phase(dev, emit, squares: list, crowd: list, codec_squares: dict,
+               codec_masks: dict) -> None:
+    """Phase 6h: the device lane on the card (see the module docstring).
+    ``squares``: bench.py's square at k = 128, seeds 42-47 (the first four
+    are phase 6b's heights 1-4); ``crowd``: phase 6b's 256-sample crowd over
+    those heights; ``codec_squares`` and ``codec_masks``: the codec's square
+    and 25% presence mask per k. Every check raises; nothing is caught."""
+    import concurrent.futures
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from celestia_tpu_torch import da, devledger, faults, tracing
+    from celestia_tpu_torch.appconsts import SHARE_SIZE
+    from celestia_tpu_torch.node import Node
+    from celestia_tpu_torch.node.dispatch import DeadlineExceeded, DeviceDispatcher, Shed
+    from celestia_tpu_torch.node.pipeline import HOST_POOL, BlockPipeline
+    from celestia_tpu_torch.ops import _cuda, extend, transfers
+    from celestia_tpu_torch.ops.repair import plan_sweeps
+    from celestia_tpu_torch.service import codec_service, wire
+    from celestia_tpu_torch.telemetry import metrics
+
+    t_phase = time.perf_counter()
+    k = squares[0].shape[0]
+    n = len(squares)
+    zero = dict.fromkeys(_cuda.LAUNCHES, 0)
+
+    def counted(call):
+        """call() with the launch counts from 0: (its result, the counts)."""
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        return out, dict(_cuda.LAUNCHES)
+
+    def settled_ledger() -> dict:
+        gc.collect()
+        torch.cuda.synchronize()
+        return devledger.ledger.snapshot()
+
+    # (a) the serial entries' bytes: the reference every pipelined block is held to
+    t = time.perf_counter()
+    refs = []
+    for sq in squares:
+        eds, rows, cols, dah = extend.extend_and_root_device(sq, dev)
+        refs.append((eds, rows, cols, dah, extend.eds_row_levels_device(eds, dev)))
+    entries_s = time.perf_counter() - t
+
+    # (b) six squares through a bare 3-deep pipeline, the launches counted
+    pipe = BlockPipeline(k, depth=3, device=dev)
+    (blocks, stream_s), counts = counted(lambda: stream_blocks(pipe, squares))
+    want = {**zero, **{name: c * n for name, c in PIPELINE_LAUNCHES.items()}}
+    emit(phase="main_path", entry="BlockPipeline.feed", k=k, blocks=n, depth=3, launches=counts)
+    check(counts == want, f"the pipeline launched {counts}: {want} expected")
+    check([b.height for b in blocks] == list(range(n)),
+          f"retire order {[b.height for b in blocks]}")
+    check(all(same_block(b, refs[b.height]) for b in blocks),
+          "a pipelined block differs from extend_and_root_device and eds_row_levels_device")
+    # three pinned result sets in turn; every retired array is pageable, none
+    # a view of a set
+    ring = [hosts for hosts, _fetched in filter(None, pipe._ring)]
+    check(len(ring) == 3 and not any(np.shares_memory(a, h.numpy()) for b in blocks
+                                     for a in (b.eds, *b.levels) for hosts in ring
+                                     for h in hosts),
+          f"the pipeline's ring holds {len(ring)} pinned sets, or a block is a view of one")
+    stage_wall = pipe.stats()["stage_wall_s"]
+    check(pipe.stats()["fed"] == pipe.stats()["retired"] == n and pipe.inflight == 0
+          and pipe.device_bytes() == 0, f"the pipeline after drain: {pipe.stats()}")
+    shed = raised(lambda: pipe.feed(n, squares[0]))
+    check(isinstance(shed, Shed) and shed.reason == "draining",
+          f"feed after drain raised {shed!r}, not Shed('draining')")
+    del blocks
+    # the stream's time, the blocks dropped as they retire, in turns with
+    # the same work fenced: depth 1 retires every block inside its own feed
+    timed = {3: [], 1: []}
+    walls = {}
+    pool0 = (HOST_POOL.fresh, HOST_POOL.reused)
+    for depth in (3, 1) * 5:
+        timed_pipe = BlockPipeline(k, depth=depth, device=dev)
+        order, wall = stream_blocks(timed_pipe, squares, keep=False)
+        check(order == list(range(n)), f"depth {depth}: retire order {order}")
+        timed[depth].append(wall)
+        walls[depth] = timed_pipe.stats()["stage_wall_s"]
+    host_pool = {"fresh": HOST_POOL.fresh - pool0[0], "reused": HOST_POOL.reused - pool0[1]}
+    check(host_pool["reused"] > 0, f"the dropped blocks' host buffers were never reused: {host_pool}")
+    serial_blocks, _wall = stream_blocks(BlockPipeline(k, depth=1, device=dev), squares)
+    check(all(same_block(b, refs[b.height]) for b in serial_blocks),
+          "a depth-1 block differs from the serial entries")
+    del serial_blocks
+
+    # one block's three legs back to back on the card, by CUDA events: the
+    # square's H2D from pinned memory, the compute leg's launches, the D2H
+    # of its results into pinned memory (median of 3)
+    legs_ms: dict[str, list[float]] = {"h2d": [], "compute": [], "d2h": []}
+    src = torch.from_numpy(squares[0]).pin_memory()
+    for _ in range(3):
+        x = torch.empty(src.shape, dtype=torch.uint8, device=dev)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda.synchronize()
+        marks[0].record()
+        x.copy_(src, non_blocking=True)
+        marks[1].record()
+        outs = extend.extend_root_levels_staged(x)
+        marks[2].record()
+        results = [*outs[:4], *outs[4]]
+        hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in results]
+        torch.cuda.synchronize()  # the allocations stay out of the timed D2H
+        marks[3].record()
+        for h, r in zip(hosts, results):
+            h.copy_(r, non_blocking=True)
+        marks[4].record()
+        marks[4].synchronize()
+        for name, (a, b) in zip(legs_ms, ((0, 1), (1, 2), (3, 4))):
+            legs_ms[name].append(marks[a].elapsed_time(marks[b]))
+    block_device_ms = {name: statistics.median(v) for name, v in legs_ms.items()}
+    del x, outs, results, hosts
+
+    # (c) the ledger: warm-up ends after the first streams; a second stream
+    # under strict retraces builds nothing new and leaves no device bytes
+    before = settled_ledger()
+    devledger.end_warmup()
+    with devledger.ledger.strict_retraces():
+        again, again_s = stream_blocks(BlockPipeline(k, depth=3, device=dev), squares)
+    after = settled_ledger()
+    check(devledger.ledger.retrace_count() == 0, f"retraces: {devledger.ledger.retraces()}")
+    check(all(same_block(b, refs[b.height]) for b in again), "the second stream's bytes differ")
+    check(after["unattributed_bytes"] <= before["unattributed_bytes"],
+          f"unattributed device bytes grew from {before['unattributed_bytes']} to "
+          f"{after['unattributed_bytes']} over a second stream")
+    doc = devledger.debug_doc()
+    devledger.begin_warmup()
+    emit(phase="lane", part="pipeline", k=k, blocks=n, depth=3, first_stream_s=stream_s,
+         first_stage_wall_s=stage_wall, kept_stream_s=again_s, stream_s=timed[3],
+         serial_depth1_s=timed[1], stage_wall_s=walls[3], serial_stage_wall_s=walls[1],
+         serial_entries_s=entries_s, block_device_ms=block_device_ms, host_pool=host_pool)
+    emit(phase="lane", part="ledger", owners=doc["ledger"]["owners"],
+         live_bytes=doc["ledger"]["live_bytes"],
+         attributed_bytes=doc["ledger"]["attributed_bytes"],
+         unattributed_bytes=doc["ledger"]["unattributed_bytes"],
+         unattributed_before=before["unattributed_bytes"],
+         unattributed_after=after["unattributed_bytes"],
+         builds={e: v["builds"] for e, v in doc["compile"]["entries"].items()},
+         retrace_count=doc["compile"]["retrace_count"], provenance=doc["provenance"])
+
+    # (d) three squares through Node.extend_pipeline on a node with a home:
+    # the DAH memo, reads from the cache with provers from the levels (no
+    # launch), and the store's records
+    home = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-lane-"))
+    try:
+        pnode = Node(device=dev, home=home)
+        npipe = pnode.extend_pipeline(k)
+        (nblocks, node_s), counts = counted(
+            lambda: stream_blocks(npipe, squares[:LANE_NODE_BLOCKS], first_height=1))
+        want = {**zero, **{name: c * LANE_NODE_BLOCKS for name, c in PIPELINE_LAUNCHES.items()}}
+        emit(phase="main_path", entry="Node.extend_pipeline", k=k, blocks=LANE_NODE_BLOCKS,
+             launches=counts)
+        check(counts == want, f"Node.extend_pipeline launched {counts}: {want} expected")
+        coords = [(i, j) for _h, i, j in serving_crowd(SEED + 70, (1,), 2 * k, 32)]
+        read_counts = {}
+        for h in range(1, LANE_NODE_BLOCKS + 1):
+            eds, rows, cols, dah, levels = refs[h - 1]
+            check(pnode.block_dah(h).hash() == dah.tobytes()
+                  and pnode.block_dah(h).row_roots == [r.tobytes() for r in rows],
+                  f"height {h}: the adopted DAH memo differs")
+            docs, read_counts[h] = counted(lambda: pnode.sample_batch(h, coords))
+            check(read_counts[h] == zero and pnode._prover_cache[h][0] is not None,
+                  f"height {h}: the reads launched {read_counts[h]}: provers from the levels expected")
+            check(docs == lane_docs(eds, coords, k), f"height {h}: the cache's documents differ")
+            check(da.DataAvailabilityHeader.from_json(pnode.store.read_dah(h)).hash()
+                  == dah.tobytes(), f"height {h}: the store's DAH differs")
+            stored = pnode.store.read_levels(h)
+            check(len(stored) == len(levels)
+                  and all(np.array_equal(a, b) for a, b in zip(stored, levels)),
+                  f"height {h}: the store's levels differ")
+            page, _crc = pnode.store.read_page(h, 0)
+            check(np.array_equal(page, eds[:page.shape[0]]), f"height {h}: the store's page 0 differs")
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+    # the node's own stream, as a replica without a home adopts it (the DAH
+    # memo, the cache, the provers' levels; the store's persist left out),
+    # at depth 3 in turns with depth 1
+    adopted = {3: [], 1: []}
+    for depth in (3, 1) * 3:
+        tnode = Node(device=dev)
+        order, wall = stream_blocks(tnode.extend_pipeline(k, depth=depth), squares,
+                                    first_height=1, keep=False)
+        check(order == list(range(1, n + 1)) and tnode.block_dah(n).hash() == refs[-1][3].tobytes(),
+              f"the node's depth-{depth} stream: retire order {order}, or its last DAH differs")
+        adopted[depth].append(wall)
+        del tnode
+    emit(phase="lane", part="node_pipeline", k=k, blocks=LANE_NODE_BLOCKS, stream_s=node_s,
+         stage_wall_s=npipe.stats()["stage_wall_s"], sample_reads=len(coords),
+         adopted_blocks=n, adopted_stream_s=adopted[3], adopted_serial_depth1_s=adopted[1])
+
+    # (e) the dispatcher attached, as a server attaches it, to a node with
+    # phase 6b's four heights (6b's own node has read its squares to the
+    # host, so its reads no longer gather); the crowd from eight request
+    # threads as ("sample",) batch jobs
+    node = Node(device=dev)
+    for h in sorted({h for h, _i, _j in crowd}):
+        node._eds_cache.put(h, da.extend_shares(squares[h - 1].reshape(-1, SHARE_SIZE), dev))
+    direct = node.sample_batch_ragged(crowd)
+    disp = DeviceDispatcher().start()
+    node.dispatcher = disp
+    transfers.register_device_executor(disp.run_device)
+    try:
+        batches0 = metrics.get_counter("dispatch_batch_total")
+        jobs0 = metrics.get_counter("dispatch_batched_jobs_total")
+        t = time.perf_counter()
+        docs, counts = counted(lambda: crowd_through(disp, node.sample_batch_ragged, crowd,
+                                                     LANE_THREADS))
+        crowd_s = time.perf_counter() - t
+        busy = devledger.ledger.busy_ratio()
+        batches = metrics.get_counter("dispatch_batch_total") - batches0
+        jobs = metrics.get_counter("dispatch_batched_jobs_total") - jobs0
+        # the six squares through Node.extend_pipeline with the dispatcher
+        # attached: the pipeline's legs run on the dispatcher's thread,
+        # under the compute stream this thread made the pipeline on
+        dnode = Node(device=dev)
+        dnode.dispatcher = disp
+        dpipe = dnode.extend_pipeline(k)
+        check(dpipe.dispatcher is disp, "Node.extend_pipeline did not take the node's dispatcher")
+        with tracing.record() as rec:
+            (dblocks, dispatched_s), dcounts = counted(lambda: stream_blocks(dpipe, squares))
+        legs = [sp for sp in rec.spans if sp.name == "dispatch.run"
+                and str(sp.attrs.get("label", "")).startswith("pipeline.")]
+        dispatched_legs = len(legs)
+        leg_threads = {sp.tid for sp in legs}
+        disp_thread = disp._thread.ident
+    finally:
+        transfers.unregister_device_executor(disp.run_device)
+        node.dispatcher = None
+        clean_drain = disp.drain()
+    emit(phase="main_path", entry="DeviceDispatcher.submit", batch_key="sample",
+         samples=len(crowd), launches=counts)
+    check(docs == direct, "the dispatcher's documents differ from sample_batch_ragged's")
+    check(jobs == len(crowd) and batches >= 1 and counts["ragged_gather"] == batches
+          and sum(counts.values()) == batches,
+          f"{jobs} jobs in {batches} batches launched {counts}: one ragged_gather a batch")
+    check(busy > 0 and clean_drain, f"busy ratio {busy}, clean drain {clean_drain}")
+    want = {**zero, **{name: c * n for name, c in PIPELINE_LAUNCHES.items()}}
+    emit(phase="main_path", entry="Node.extend_pipeline", dispatcher=True, k=k, blocks=n,
+         launches=dcounts)
+    check(dcounts == want, f"the dispatched pipeline launched {dcounts}: {want} expected")
+    check([b.height for b in dblocks] == list(range(n))
+          and all(same_block(b, refs[b.height]) for b in dblocks),
+          "a block of the dispatched pipeline differs from the serial entries, or its order")
+    check(all(dnode.block_dah(h).hash() == refs[h][3].tobytes() for h in range(n)),
+          "the dispatched pipeline's adopted DAH memo differs")
+    check(dispatched_legs == 3 * n and leg_threads == {disp_thread},
+          f"{dispatched_legs} pipeline legs ran on threads {leg_threads}: {3 * n} on the "
+          f"dispatcher's ({disp_thread}) expected")
+    del dblocks, dnode
+    devledger.publish()
+    emit(phase="lane", part="dispatcher", samples=len(crowd), threads=LANE_THREADS,
+         batches=batches, jobs_per_batch=jobs / batches, ragged_gather=counts["ragged_gather"],
+         device_busy_ratio=metrics.get_gauge("device_busy_ratio"), crowd_s=crowd_s,
+         max_batch=disp.max_batch, batch_window_s=disp.batch_window_s,
+         pipeline_blocks=n, pipeline_legs=dispatched_legs, pipeline_stream_s=dispatched_s,
+         pipeline_stage_wall_s=dpipe.stats()["stage_wall_s"])
+
+    # one queue_full shed and one deadline expiry: a dispatch.run delay
+    # stalls the single consumer on its first job
+    stalled = DeviceDispatcher(capacity=1).start()
+    shed0 = {r: metrics.get_counter("rpc_shed_total", reason=r) for r in ("queue_full", "deadline")}
+
+    def job():
+        return int(torch.ones(1, device=dev).sum().item())
+
+    def wait_for(cond, what: str) -> None:
+        end = time.monotonic() + 10.0
+        while not cond() and time.monotonic() < end:
+            time.sleep(0.002)
+        check(cond(), f"the stalled dispatcher never reached: {what}")
+
+    with faults.inject(faults.rule("dispatch.run", "delay", delay_s=1.0, times=1), seed=SEED), \
+            concurrent.futures.ThreadPoolExecutor(2) as pool:
+        first = pool.submit(stalled.submit, job)
+        wait_for(lambda: stalled._busy and stalled.depth == 0, "the first job taken")
+        late = pool.submit(raised, lambda: stalled.submit(job, deadline_s=0.2))
+        wait_for(lambda: stalled.depth == 1, "the second job queued")
+        full = raised(lambda: stalled.submit(job))
+        expired = late.result(timeout=10)
+        check(first.result(timeout=10) == 1, "the stalled job's result")
+    check(stalled.drain(), "the stalled dispatcher did not drain")
+    shed = {r: metrics.get_counter("rpc_shed_total", reason=r) - shed0[r] for r in shed0}
+    check(isinstance(full, Shed) and full.reason == "queue_full"
+          and isinstance(expired, DeadlineExceeded) and shed == {"queue_full": 1, "deadline": 1},
+          f"shed {full!r}, deadline {expired!r}, counted {shed}")
+    emit(phase="lane", part="dispatcher_drill", queue_full=type(full).__name__,
+         deadline=type(expired).__name__, shed_counted=shed)
+
+    # (f) the codec service's four calls at k = 32 and 128 through its
+    # method bodies, marshalled bytes in and out, against the host backend
+    gpu, host = codec_service.CodecBackend(), codec_service.CodecBackend(device="cpu")
+    check(gpu.use_gpu and not host.use_gpu, "the codec backends' devices")
+    codec = {}
+
+    def fallbacks() -> float:
+        return sum(metrics.get_counter("codec_gpu_fallback_total", op=op)
+                   for op in ("encode", "extend_and_root", "repair"))
+
+    fallbacks0 = fallbacks()
+    for kk in CODEC_KS:
+        sq, present = codec_squares[kk], codec_masks[kk]
+        eds_np = np.frombuffer(host.encode(kk, SHARE_SIZE, sq.tobytes()),
+                               np.uint8).reshape(2 * kk, 2 * kk, SHARE_SIZE)
+        erased = eds_np.copy()
+        erased[~present] = 0
+        requests = {
+            "Encode": wire.EncodeRequest(kk, SHARE_SIZE, sq.tobytes()),
+            "ExtendAndRoot": wire.EncodeRequest(kk, SHARE_SIZE, sq.tobytes()),
+            "Roots": wire.EdsRequest(kk, SHARE_SIZE, eds_np.tobytes()),
+            "Repair": wire.RepairRequest(kk, SHARE_SIZE, erased.tobytes(),
+                                         present.astype(np.uint8).tobytes()),
+        }
+        launches_of = {"Encode": CODEC_EXTEND_LAUNCHES, "ExtendAndRoot": CODEC_EXTEND_LAUNCHES,
+                       "Roots": {}, "Repair": {"decode_sweep": len(plan_sweeps(present, kk))}}
+        rung, answers = {}, {}
+        for method, req in requests.items():
+            raw = req.marshal()
+            codec_service.call_in_process(gpu, method, raw)  # warm
+            t = time.perf_counter()
+            answers[method], counts = counted(
+                lambda: codec_service.call_in_process(gpu, method, raw))
+            ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            want_bytes = codec_service.call_in_process(host, method, raw)
+            host_ms = (time.perf_counter() - t) * 1e3
+            check(answers[method] == want_bytes,
+                  f"k={kk}: {method} on the card differs from the host backend")
+            check(counts == {**zero, **launches_of[method]},
+                  f"k={kk}: {method} launched {counts}: {launches_of[method]} expected")
+            rung[method] = {"ms": ms, "host_ms": host_ms,
+                            "launches": {name: c for name, c in counts.items() if c}}
+        check(wire.EdsResponse.unmarshal(answers["Encode"]).eds == eds_np.tobytes()
+              and wire.EdsResponse.unmarshal(answers["Repair"]).eds == eds_np.tobytes(),
+              f"k={kk}: Encode or Repair did not give the extended square")
+        codec[kk] = rung
+    check(gpu.use_gpu and gpu._gpu_strikes == 0
+          and fallbacks() == fallbacks0,
+          "the codec's card path degraded")
+    loopback = None
+    if importlib.util.find_spec("grpc") is not None:
+        server = codec_service.CodecServer()
+        server.start()
+        client = codec_service.CodecClient(f"127.0.0.1:{server.port}", timeout=60.0)
+        try:
+            sq = codec_squares[CODEC_KS[-1]]
+            want_roots = codec_service.CodecBackend(device="cpu").extend_and_root(
+                sq.shape[0], SHARE_SIZE, sq.tobytes())
+            client.extend_and_root(sq)  # warm
+            t = time.perf_counter()
+            got_roots = client.extend_and_root(sq)
+            loopback = {"method": "ExtendAndRoot", "k": sq.shape[0],
+                        "ms": (time.perf_counter() - t) * 1e3}
+            check(tuple(got_roots) == tuple(want_roots), "the loopback client's roots differ")
+        finally:
+            client.close()
+            server.stop()
+    emit(phase="lane", part="codec", ks=list(CODEC_KS), calls=codec,
+         transport="grpc loopback" if loopback else "in process (no grpc)", loopback=loopback,
+         phase_seconds=time.perf_counter() - t_phase)
+
 
 def assembly_case(k: int, seed: int, family: str) -> dict[str, np.ndarray]:
     """Inputs of ``extend.assembled_roots`` (its host arrays, and the arena's
@@ -3311,6 +3797,15 @@ def main(argv: list[str]) -> int:
     # a restart that replays with one batched DA check, and state sync
     node_phase(dev, emit, c_key, c_raws, batched_launches[(PROPOSAL_K, 2)])
 
+    phase_start("6h")
+    # ---- phase 6h: the device lane. Bench squares through the block
+    # pipeline (bare and through a node with a home) against the serial
+    # entries, the ledger across a strict second stream, phase 6b's crowd
+    # through the dispatcher, and the codec service against the host backend
+    lane_phase(dev, emit, [bench_square(sk, seed) for seed in LANE_SEEDS], crowd0,
+               {kk: bench_square(kk, 42) for kk in CODEC_KS},
+               {kk: repair_masks(kk)[0][1] for kk in CODEC_KS})
+
     phase_start("7")
     # ---- phase 7: timing
     def bound(ops_s: float, nbytes: float) -> tuple[float, str]:
@@ -3634,24 +4129,25 @@ def main(argv: list[str]) -> int:
     # per launch. A rung enters the table only where the two spellings'
     # launches do not overlap (the faster's slowest below the slower's
     # fastest); the lookup takes the nearest rung for the others.
-    table = calibration.CrossoverTable({}, time.time(), card_name, power_limit)
     committed = calibration.load_xor_table()
-    rungs = {}
-    for kk in TABLE_K:
-        d, x = per_launch[f"table_dense_{kk}"], per_launch[f"table_xor_{kk}"]
-        entry = {"dense": 3 * statistics.fmean(d), "xor": 3 * statistics.fmean(x)}
-        resolved = max(d) < min(x) or max(x) < min(d)
-        if resolved:
-            table.entries[kk] = entry
-        rungs[kk] = {**entry, "resolved": resolved,
-                     "dense_launch_range_ms": [min(d), max(d)],
-                     "xor_launch_range_ms": [min(x), max(x)],
-                     "committed_winner": committed.winner(kk) if committed else None}
+    table, rungs = calibration.xor_table_from_launches(
+        {kk: {"dense": per_launch[f"table_dense_{kk}"], "xor": per_launch[f"table_xor_{kk}"]}
+         for kk in TABLE_K}, time.time(), card_name, power_limit)
+    for kk, rung in rungs.items():
+        rung["committed_winner"] = committed.winner(kk) if committed else None
     emit(phase="xor_table", basis="device ms of one extend's 3 fused encode launches",
          rungs=rungs, table=table.to_json(),
          agrees_with_committed=all(
              (committed.winner(kk) if committed else "dense") == table.winner(kk)
              for kk in table.entries))
+    # beside it, the operator's check of the same table: the same launches
+    # timed by CUDA events under the same rule, at the JAX package's rungs
+    crossover_xor = calibration.measure_xor_crossover(device=dev)
+    emit(phase="lane", part="xor_crossover", basis="CUDA-event device ms of one extend's 3 "
+         "fused encode launches, resolved rungs only", ks=list(calibration.XOR_DEFAULT_KS),
+         table=crossover_xor.to_json()["entries"],
+         agrees_with_xor_table={kk: crossover_xor.winner(kk) == table.winner(kk)
+                                for kk in crossover_xor.entries if kk in table.entries})
     if args.xor_table_out:
         with open(args.xor_table_out, "w") as f:
             json.dump(table.to_json(), f, indent=2)

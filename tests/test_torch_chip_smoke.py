@@ -883,3 +883,127 @@ def test_node_constants_are_the_jax_nodes():
     assert [r.code for r in b3.tx_results] == [0] * 60
     assert b3.app_hash.hex() == chip_smoke.NODE_APP_HASH_3
     assert b3.data_hash.hex() == chip_smoke.NODE_DAH_HASH_3
+
+
+def test_lane_phase_catches_no_failure():
+    """Phase 6h holds no except clause (its try blocks only clean up): a
+    byte difference, a launch count, a retrace, growing unattributed bytes,
+    a wrong document, a missing shed, a degrade, a pinned view in a retired
+    block or a pipeline leg off the dispatcher's thread raises. main runs it after
+    phase 6g with phase 6b's squares and crowd, and phase 7 prints the XOR
+    crossover beside its table."""
+    import ast
+    import inspect
+    import textwrap
+
+    src = inspect.getsource(chip_smoke.lane_phase)
+    tree = ast.parse(textwrap.dedent(src))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    for name in ("PIPELINE_LAUNCHES", "same_block(b, refs[b.height])", 'shed.reason == "draining"',
+                 "depth=1", "devledger.end_warmup()", "strict_retraces()",
+                 "retrace_count() == 0", 'after["unattributed_bytes"] <= before["unattributed_bytes"]',
+                 "debug_doc()", "extend_pipeline(k)", "block_dah(h).hash()", "read_levels(h)",
+                 "read_page(h, 0)", "_prover_cache[h][0] is not None", "read_counts[h] == zero",
+                 "node.dispatcher = disp", "register_device_executor(disp.run_device)",
+                 "crowd_through(disp, node.sample_batch_ragged", "docs == direct",
+                 'counts["ragged_gather"] == batches', "busy > 0", '"dispatch.run", "delay"',
+                 'full.reason == "queue_full"', "DeadlineExceeded", "CodecBackend(device=\"cpu\")",
+                 "call_in_process(gpu, method, raw)", "CODEC_EXTEND_LAUNCHES",
+                 "plan_sweeps(present, kk)", "fallbacks() == fallbacks0",
+                 'find_spec("grpc")', 'part="pipeline"', 'part="ledger"', 'part="dispatcher"',
+                 'part="codec"', "shutil.rmtree(home", "np.shares_memory(a, h.numpy())",
+                 "extend_pipeline(k, depth=depth)", "dnode.dispatcher = disp",
+                 "dcounts == want", "same_block(b, refs[b.height]) for b in dblocks",
+                 "leg_threads == {disp_thread}", 'host_pool["reused"] > 0'):
+        assert name in src, name
+    assert src.count("check(") >= 25
+    main = inspect.getsource(chip_smoke.main)
+    assert "lane_phase(dev, emit, [bench_square(sk, seed) for seed in LANE_SEEDS], crowd0," \
+        in main
+    assert main.index("node_phase(") < main.index("lane_phase(") < main.index("# ---- phase 7")
+    assert main.index('emit(phase="xor_table"') < main.index("measure_xor_crossover(device=dev)")
+
+
+def test_lane_constants():
+    """Six of bench.py's squares (seeds 42-47, build_square's); the launches
+    of a pipelined block and of the codec's extend are derived from the App's
+    ExtendBlock and the persist's row levels, not typed."""
+    import ast
+    import inspect
+
+    assert chip_smoke.LANE_SEEDS == (42, 43, 44, 45, 46, 47)
+    assert chip_smoke.CODEC_KS == (32, 128) and chip_smoke.LANE_THREADS == 8
+    assert chip_smoke.CODEC_EXTEND_LAUNCHES == {"leaf_digests2d": 1, "encode2d_hash": 3,
+                                                "nmt_tree": 1}
+    assert chip_smoke.PIPELINE_LAUNCHES == {"encode2d": 3, "leaf_digests2d": 1,
+                                            "nmt_tree": 2, "dah_merkle": 1}
+    tree = ast.parse(inspect.getsource(chip_smoke))
+    assigns = [n for n in tree.body if isinstance(n, ast.Assign) and any(
+        getattr(t, "id", None) == "PIPELINE_LAUNCHES" for t in n.targets)]
+    assert len(assigns) == 1
+    assert not [n for n in ast.walk(assigns[0].value) if isinstance(n, ast.Constant)
+                and isinstance(n.value, int) and n.value > 1]
+
+
+def _lane_square(k: int, seed: int) -> np.ndarray:
+    r = np.random.default_rng(seed)
+    sq = r.integers(0, 256, size=(k, k, 512), dtype=np.uint8)
+    sq[..., :29] = 0
+    sq[..., 28] = 7  # one namespace: the push order holds
+    return sq
+
+
+@pytest.mark.parametrize("keep", [True, False])
+def test_stream_blocks_feeds_consecutive_heights_and_drains(keep):
+    from celestia_tpu_torch.node.pipeline import BlockPipeline
+    from celestia_tpu_torch.ops import extend
+
+    squares = [_lane_square(2, s) for s in range(3)]
+    out, wall = chip_smoke.stream_blocks(BlockPipeline(2, depth=2, device="cpu"), squares,
+                                         first_height=5, keep=keep)
+    assert wall > 0
+    if not keep:
+        assert out == [5, 6, 7]
+        return
+    assert [b.height for b in out] == [5, 6, 7]
+    for b, sq in zip(out, squares):
+        eds, rows, cols, dah = extend.extend_and_root_device(sq, "cpu")
+        ref = (eds, rows, cols, dah, extend.eds_row_levels_device(eds, "cpu"))
+        assert chip_smoke.same_block(b, ref)
+        bad = (eds, rows, cols, dah[::-1].copy(), ref[4])
+        assert not chip_smoke.same_block(b, bad)
+
+
+def test_crowd_through_answers_every_payload_in_order():
+    from celestia_tpu_torch.node.dispatch import DeviceDispatcher
+    from celestia_tpu_torch.telemetry import Registry
+
+    reg = Registry()
+    d = DeviceDispatcher(registry=reg).start()
+    groups = []
+
+    def exec_fn(payloads):
+        groups.append(len(payloads))
+        return [h * 10000 + i * 100 + j for h, i, j in payloads]
+
+    try:
+        crowd = chip_smoke.serving_crowd(3, (1, 2), 16, 40)
+        out = chip_smoke.crowd_through(d, exec_fn, crowd, 4)
+    finally:
+        d.drain()
+    assert out == [h * 10000 + i * 100 + j for h, i, j in crowd]
+    assert sum(groups) == 40 and reg.get_counter("dispatch_batched_jobs_total") == 40
+
+
+def test_lane_docs_are_the_nodes_documents():
+    from celestia_tpu_torch.node import Node
+    from celestia_tpu_torch.node.eds_cache import ResidentEdsCache
+    from celestia_tpu_torch.ops import extend
+
+    k = 2
+    eds = extend.extend_and_root_device(_lane_square(k, 4), "cpu")[0]
+    node = Node(device="cpu")
+    node._eds_cache = ResidentEdsCache()
+    node._eds_cache.put(1, eds)
+    coords = [(0, 1), (3, 3), (2, 0)]
+    assert chip_smoke.lane_docs(eds, coords, k) == node.sample_batch(1, coords)

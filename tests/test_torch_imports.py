@@ -18,9 +18,11 @@ from celestia_tpu_torch.app import calibration, proposal
 from celestia_tpu_torch.app.app import App
 from celestia_tpu_torch.da import repair as da_repair
 from celestia_tpu_torch.node import Node, eds_cache
+from celestia_tpu_torch.node.pipeline import BlockPipeline
 from celestia_tpu_torch.ops import blob_pool, extend, ragged, repair, transfers
 from celestia_tpu_torch.shares import tail_padding_share
 from celestia_tpu_torch.shares.splitters import Range
+from celestia_tpu_torch.service import CodecBackend
 from celestia_tpu_torch.store import BlockStore
 from celestia_tpu_torch import testutil
 
@@ -42,6 +44,10 @@ APP_STACK = ("crypto.keccak", "x.blobstream_abi", "x.blobstream", "x.lightclient
 # config, the Signer and the test harnesses
 NODE_STACK = ("node.consensus", "app.export", "config", "user", "testutil",
               "testutil.network", "testutil.malicious", "testutil.ibc")
+# the device lane: the runtime ledger, the dispatcher, the block pipeline
+# and the codec service
+DEVICE_LANE = ("devledger", "node.dispatch", "node.pipeline", "service", "service.wire",
+               "service.codec_service")
 
 
 def _forbidden(module: str) -> bool:
@@ -78,7 +84,7 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
                  "shares.info_byte", "shares.splitters", "shares.parse", "inclusion",
                  "inclusion.cache", "square", "ops.blob_pool", "ops.assemble",
                  "ops.assemble_cuda", "app.proposal", "log", "store", "store.powercut",
-                 "cli", *STATE_MACHINE, *APP_STACK, *NODE_STACK):
+                 "cli", *STATE_MACHINE, *APP_STACK, *NODE_STACK, *DEVICE_LANE):
         assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
@@ -164,6 +170,9 @@ ENTRIES = {
     "testnode": lambda: testutil.testnode(),
     "App(extend_backend=...)": lambda: App(extend_backend="native"),
     "measure_crossover": lambda: calibration.measure_crossover((1,)),
+    "measure_xor_crossover": lambda: calibration.measure_xor_crossover((1,)),
+    "BlockPipeline": lambda: BlockPipeline(1),
+    "CodecBackend": lambda: CodecBackend(),
 }
 
 

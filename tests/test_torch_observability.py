@@ -99,6 +99,7 @@ def test_span_tree_equals_jax_entry(entry):
     jax_call, port_call = ENTRIES[entry]
     eds()  # built outside the recordings
     jax_call()  # the JAX package's first call also records its compile
+    port_call()  # and the port's its builds (the device ledger's device.build spans)
     # the resident entries audit their output: the same seeded engine in both
     jax_integrity.configure("sampled", seed=3)
     integrity.configure("sampled", seed=3)
@@ -270,6 +271,7 @@ def _renamed(tree):
 def test_repair_span_tree_equals_jax_entry(entry):
     jax_call, port_call = _repair_entries()[entry]
     jax_call()  # the JAX package's first call also records its compile
+    port_call()  # and the port's its builds (the device ledger's device.build spans)
     jax_integrity.configure("sampled", seed=3)
     integrity.configure("sampled", seed=3)
     theirs = recorded(jax_tracing, jax_call)

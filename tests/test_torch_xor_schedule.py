@@ -243,6 +243,31 @@ def test_committed_table_if_any_parses_with_its_card():
         assert set(timings) == {"dense", "xor"}
 
 
+def test_the_table_rule_keeps_rungs_whose_launches_do_not_overlap():
+    """``calibration.xor_table_from_launches``, the rule of
+    ``--xor-table-out`` and of ``measure_xor_crossover``: a rung's time is
+    3 x the mean launch per spelling, and a rung enters the table only where
+    the two spellings' launch ranges are apart."""
+    per_launch = {16: {"dense": [0.010, 0.012], "xor": [0.011, 0.013]},  # overlap
+                  64: {"dense": [0.040, 0.042], "xor": [0.050, 0.052]},
+                  128: {"dense": [0.20, 0.21], "xor": [0.10, 0.11]}}
+    table, rungs = calibration.xor_table_from_launches(per_launch, 5.0, "card", "700.00 W")
+    assert sorted(table.entries) == [64, 128]
+    assert table.entries[64] == pytest.approx({"dense": 0.123, "xor": 0.153})
+    assert table.winner(64) == "dense" and table.winner(128) == "xor"
+    assert table.winner(16) == "dense"  # the nearest resolved rung
+    assert [rungs[k]["resolved"] for k in (16, 64, 128)] == [False, True, True]
+    assert rungs[16]["xor_launch_range_ms"] == [0.011, 0.013]
+    assert (table.card, table.power_limit, table.measured_at) == ("card", "700.00 W", 5.0)
+
+
+def test_measure_xor_crossover_times_the_card_only():
+    """The crossover is a device-time measurement: a CPU device is refused
+    (None, the card, raises without one: tests/test_torch_imports.py)."""
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        calibration.measure_xor_crossover((4,), device="cpu")
+
+
 def test_unpinned_route_follows_the_committed_table(monkeypatch):
     monkeypatch.delenv(extend._XOR_ENV, raising=False)
     monkeypatch.setattr(calibration, "_xor_loaded", False)
