@@ -20,6 +20,14 @@
 // 0xFF); its leaf node is ns ‖ ns ‖ digest, as extend._leaf_namespaces
 // builds it.
 //
+// The row-block mode (celestia_nmt_tree_rows) reduces the row trees alone of
+// a block of grid rows, as one shard of a row-sharded mesh holds them: its
+// top rows (the rows below k, read from the Q0 and Q1 tiles, Q0's cells under
+// their own namespaces) and then its bottom rows (from the Q2 and Q3 tiles,
+// every cell under the parity namespace), each pair of tiles holding only
+// those rows. The same kernel runs both modes: the (2k, 2k) grid is the row
+// block of k top and k bottom rows, followed by the 2k column trees.
+//
 // The inner node rule (nmt v0.20 with IgnoreMaxNamespace, in the two-branch
 // form of extend_tpu._nmt_reduce_once): min = left.min; max = left.max if
 // right.min is the parity namespace, else right.max.
@@ -107,7 +115,9 @@ struct TreeArgs {
   uint8_t* roots;           // (n_trees, 90)
   uint8_t* levels;          // row levels, or null
   int k, log_w;             // w = 2k leaves a tree
-  int n_trees;              // 2k row trees, then 2k column trees unless levels are kept
+  int top_rows;             // grid rows read from Q0 and Q1 (k; a row block's own count)
+  int row_trees;            // row trees: top_rows plus the rows of Q2 and Q3
+  int n_trees;              // the row trees, then 2k column trees on an extend's call
 };
 
 // Words 14..22 of a node: the last two max-namespace bytes (bytes 0, 1 of
@@ -120,16 +130,19 @@ __device__ __forceinline__ void put_digest(uint32_t* dst, int pitch, uint32_t x1
   dst[22 * pitch] = __byte_perm(st[7], 0u, 0x4401);
 }
 
-// The leaf node ns ‖ ns ‖ digest of cell (r, c) of the EDS.
+// The leaf node ns ‖ ns ‖ digest of cell (r, c) of the grid: rows below
+// top_rows are read from Q0 and Q1, the rest from Q2 and Q3.
 __device__ __forceinline__ void load_leaf(const TreeArgs& a, int r, int c, uint32_t* dst,
                                           int pitch) {
   const int k = a.k;
-  const int q = (r >= k ? 2 : 0) + (c >= k ? 1 : 0);
+  const bool bottom = r >= a.top_rows;
+  const int q = (bottom ? 2 : 0) + (c >= k ? 1 : 0);
+  const int tr = bottom ? r - a.top_rows : r;  // the row within its tile
   const uint32_t* base = q == 0 ? a.quad[0] : q == 1 ? a.quad[1] : q == 2 ? a.quad[2] : a.quad[3];
   const int rs = q == 0 ? a.quad_rs[0] : q == 1 ? a.quad_rs[1] : q == 2 ? a.quad_rs[2] : a.quad_rs[3];
   const int cs = q == 0 ? a.quad_cs[0] : q == 1 ? a.quad_cs[1] : q == 2 ? a.quad_cs[2] : a.quad_cs[3];
   const uint4* d = reinterpret_cast<const uint4*>(
-      base + static_cast<size_t>(r & (k - 1)) * rs + static_cast<size_t>(c & (k - 1)) * cs);
+      base + static_cast<size_t>(tr) * rs + static_cast<size_t>(c & (k - 1)) * cs);
   const uint4 d0 = __ldg(d), d1 = __ldg(d + 1);
   const uint32_t st[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
   uint32_t nw[8];
@@ -252,7 +265,7 @@ __global__ void __launch_bounds__(kTreeThreads * kMaxGroups) nmt_tree_kernel(con
   const int trees = leaves >> a.log_w;  // trees in this block
   const int tree0 = blockIdx.x * trees;
   // the row trees come first; only they have levels
-  const int row_trees = min(max(w - tree0, 0), trees);
+  const int row_trees = min(max(a.row_trees - tree0, 0), trees);
   const bool keep = a.levels != nullptr;
 
   // level 0: leaves 2t and 2t + 1 of the block
@@ -262,8 +275,8 @@ __global__ void __launch_bounds__(kTreeThreads * kMaxGroups) nmt_tree_kernel(con
     const int tree = tree0 + (c >> a.log_w);
     uint32_t* dst = buf_a.node(c);
     if (tree < a.n_trees) {
-      const bool col = tree >= w;
-      const int i = tree & (w - 1), n = c & (w - 1);
+      const bool col = tree >= a.row_trees;
+      const int i = col ? tree - a.row_trees : tree, n = c & (w - 1);
       load_leaf(a, col ? n : i, col ? i : n, dst, buf_a.pitch);
     } else {
 #pragma unroll
@@ -275,7 +288,7 @@ __global__ void __launch_bounds__(kTreeThreads * kMaxGroups) nmt_tree_kernel(con
   if (keep) {
     copy_nodes(buf_a, row_trees * w,
                a.levels + static_cast<size_t>(tree0) * w * kNodeBytes);
-    level_off += static_cast<size_t>(w) * w;
+    level_off += static_cast<size_t>(a.row_trees) * w;
   }
 
   for (int lv = 1; lv <= a.log_w; ++lv) {
@@ -305,7 +318,7 @@ __global__ void __launch_bounds__(kTreeThreads * kMaxGroups) nmt_tree_kernel(con
     if (keep) {
       copy_nodes(dst, row_trees * per_tree,
                  a.levels + (level_off + static_cast<size_t>(tree0) * per_tree) * kNodeBytes);
-      level_off += static_cast<size_t>(w) * per_tree;
+      level_off += static_cast<size_t>(a.row_trees) * per_tree;
     }
     if (lv == a.log_w) {
       copy_nodes(dst, min(trees, a.n_trees - tree0),
@@ -333,24 +346,25 @@ static size_t smem_bytes(int groups) {
 
 }  // namespace celestia
 
-extern "C" int celestia_nmt_tree(const void* q0, const void* q1, const void* q2, const void* q3,
-                                 int q0_rs, int q0_cs, int q1_rs, int q1_cs, int q2_rs,
-                                 int q2_cs, int q3_rs, int q3_cs, const void* ns, int ns_rs,
-                                 int ns_cs, void* roots, void* levels, int k, int device,
-                                 void* stream) {
-  using namespace celestia;
-  if (k < 1 || k > kTreeThreads || (k & (k - 1))) return static_cast<int>(cudaErrorInvalidValue);
+namespace celestia {
+
+// One launch over the grid: top_rows + bottom_rows row trees, then (with
+// columns) the 2k column trees; the row levels when levels is not null.
+static int launch_tree(const void* const q[4], const int rs[4], const int cs[4], const void* ns,
+                       int ns_rs, int ns_cs, void* roots, void* levels, int k, int top_rows,
+                       int bottom_rows, bool columns, int device, void* stream) {
+  if (k < 1 || k > kTreeThreads || (k & (k - 1)) || top_rows < 0 || bottom_rows < 0 ||
+      top_rows + bottom_rows < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   TreeArgs a;
-  a.quad[0] = static_cast<const uint32_t*>(q0);
-  a.quad[1] = static_cast<const uint32_t*>(q1);
-  a.quad[2] = static_cast<const uint32_t*>(q2);
-  a.quad[3] = static_cast<const uint32_t*>(q3);
-  a.quad_rs[0] = q0_rs; a.quad_cs[0] = q0_cs;
-  a.quad_rs[1] = q1_rs; a.quad_cs[1] = q1_cs;
-  a.quad_rs[2] = q2_rs; a.quad_cs[2] = q2_cs;
-  a.quad_rs[3] = q3_rs; a.quad_cs[3] = q3_cs;
+  for (int i = 0; i < 4; ++i) {
+    a.quad[i] = static_cast<const uint32_t*>(q[i]);
+    a.quad_rs[i] = rs[i];
+    a.quad_cs[i] = cs[i];
+  }
   a.ns = static_cast<const uint8_t*>(ns);
   a.ns_rs = ns_rs;
   a.ns_cs = ns_cs;
@@ -359,7 +373,9 @@ extern "C" int celestia_nmt_tree(const void* q0, const void* q1, const void* q2,
   a.k = k;
   a.log_w = 0;
   while ((1 << a.log_w) < 2 * k) ++a.log_w;
-  a.n_trees = (levels != nullptr ? 1 : 2) * 2 * k;
+  a.top_rows = top_rows;
+  a.row_trees = top_rows + bottom_rows;
+  a.n_trees = a.row_trees + (columns ? 2 * k : 0);
   const int groups = groups_for(a.n_trees * 2 * k);
   const int per_block = kTreeLeaves * groups / (2 * k);
   const int grid = (a.n_trees + per_block - 1) / per_block;
@@ -369,6 +385,39 @@ extern "C" int celestia_nmt_tree(const void* q0, const void* q1, const void* q2,
   if (err != cudaSuccess) return static_cast<int>(err);
   nmt_tree_kernel<<<grid, kTreeThreads * groups, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace celestia
+
+// The (2k, 2k) grid: the 2k row trees, and the 2k column trees unless the
+// row levels are kept.
+extern "C" int celestia_nmt_tree(const void* q0, const void* q1, const void* q2, const void* q3,
+                                 int q0_rs, int q0_cs, int q1_rs, int q1_cs, int q2_rs,
+                                 int q2_cs, int q3_rs, int q3_cs, const void* ns, int ns_rs,
+                                 int ns_cs, void* roots, void* levels, int k, int device,
+                                 void* stream) {
+  const void* q[4] = {q0, q1, q2, q3};
+  const int rs[4] = {q0_rs, q1_rs, q2_rs, q3_rs};
+  const int cs[4] = {q0_cs, q1_cs, q2_cs, q3_cs};
+  return celestia::launch_tree(q, rs, cs, ns, ns_rs, ns_cs, roots, levels, k, k, k,
+                               levels == nullptr, device, stream);
+}
+
+// The row-block mode: the row trees alone of a block of grid rows, top_rows
+// of them read from the Q0 and Q1 tiles (Q0's cells under their own
+// namespaces) and bottom_rows from the Q2 and Q3 tiles (every cell under the
+// parity namespace), with their levels when levels is not null.
+extern "C" int celestia_nmt_tree_rows(const void* q0, const void* q1, const void* q2,
+                                      const void* q3, int q0_rs, int q0_cs, int q1_rs,
+                                      int q1_cs, int q2_rs, int q2_cs, int q3_rs, int q3_cs,
+                                      const void* ns, int ns_rs, int ns_cs, void* roots,
+                                      void* levels, int k, int top_rows, int bottom_rows,
+                                      int device, void* stream) {
+  const void* q[4] = {q0, q1, q2, q3};
+  const int rs[4] = {q0_rs, q1_rs, q2_rs, q3_rs};
+  const int cs[4] = {q0_cs, q1_cs, q2_cs, q3_cs};
+  return celestia::launch_tree(q, rs, cs, ns, ns_rs, ns_cs, roots, levels, k, top_rows,
+                               bottom_rows, false, device, stream);
 }
 
 // Blocks of nmt_tree_kernel resident on one SM at the block size of the

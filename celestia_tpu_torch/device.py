@@ -20,3 +20,13 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def same(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one: ``cuda`` names the current card."""
+    def index(d: torch.device):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+
+    return a.type == b.type and index(a) == index(b)

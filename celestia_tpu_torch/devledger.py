@@ -38,11 +38,12 @@ device lane is. Three planes in one leaf-locked object:
 Where the port differs from the JAX package: the watchdog's series are
 named ``device_*`` (the JAX package's ``xla_*``), the build is the
 builder's body (the JAX package times its compiled callable's first call),
-the live bytes come from the CUDA allocator, so they read 0 on the CPU
-(the JAX package counts every live array, CPU arrays included), and
-``instrument_builder`` keys on the builder's arguments alone (the JAX
-package's ``key_extra`` carries a mesh; the port has none). Reading the
-live bytes never initialises CUDA.
+and the live bytes come from the CUDA allocator, so they read 0 on the CPU
+(the JAX package counts every live array, CPU arrays included). As in the
+JAX package, ``instrument_builder``'s ``key_extra`` appends ambient state
+the arguments do not carry: the row-sharded builders of ``ops/extend``
+pass the active mesh's shape, so a flip of the mesh is a new key at the
+same k. Reading the live bytes never initialises CUDA.
 
 Lock discipline: ``_lock`` is a leaf. It is never held across an owner
 callback, a metric write, a span or device work; ``snapshot()`` copies the
@@ -113,15 +114,19 @@ class DeviceLedger:
 
     # -- build watchdog -------------------------------------------------- #
 
-    def instrument_builder(self, entry: str):
+    def instrument_builder(self, entry: str, key_extra=None):
         """Decorator for a cached builder, placed BETWEEN its cache and its
         body, so it fires once per distinct key. The key is the builder's
-        arguments: the port's builders read no ambient state."""
+        arguments, and ``key_extra()``'s value when given: ambient state the
+        arguments do not carry (the active mesh's shape), so a flip of it
+        reads as a new key, and as a retrace after warm-up."""
 
         def deco(builder):
             @functools.wraps(builder)
             def wrapped(*args, **kwargs):
                 key = _shape_key(args, kwargs)
+                if key_extra is not None:
+                    key = f"{key}|{key_extra()!r}"
                 self.note_build(entry, key)  # strict mode raises before the build
                 return self._timed_build(entry, key, builder, args, kwargs)
 

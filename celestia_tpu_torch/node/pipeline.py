@@ -13,6 +13,12 @@ Mechanics, on a CUDA device:
 - ``feed(height, shares)`` admits one block. The h2d leg stages the square
   through ``transfers.device_put_chunked`` (site ``pipeline.h2d``): pinned
   chunks on the copy stream, the compute stream waiting on their events.
+  While a mesh whose 'sp' divides k is configured
+  (``parallel.configure_mesh``), it stages through
+  ``transfers.device_put_sharded_rows`` instead, each row block onto its
+  shard, and the compute leg runs the mesh's fused pass (Row C,
+  ``parallel.extend_root_levels_rowsharded``), whose results gather onto
+  the mesh's first device: the pipeline's own device, or ``feed`` raises.
   The compute leg queues ``extend.extend_root_levels_staged`` on the
   pipeline's compute stream, records an event after it, and queues the
   fetch: a D2H stream of the pipeline's own waits on that event alone and
@@ -243,8 +249,14 @@ class BlockPipeline:
         metrics.observe("pipeline_stage", elapsed, stage=stage)
         return out
 
-    def _stage_h2d(self, shares: np.ndarray) -> torch.Tensor:
-        return transfers.device_put_chunked(shares, self.device, site="pipeline.h2d")
+    def _stage_h2d(self, shares: np.ndarray):
+        mesh = extend._mesh_if_divisible(self.k)
+        if mesh is None:
+            return transfers.device_put_chunked(shares, self.device, site="pipeline.h2d")
+        if not device_mod.same(mesh.first, self.device):
+            raise ValueError(f"the mesh gathers onto {mesh.first}, the pipeline runs on "
+                             f"{self.device}")
+        return transfers.device_put_sharded_rows(shares, mesh, site="pipeline.h2d")
 
     def _compute_and_fetch(self, dev: torch.Tensor, slot: int):
         """Queue the extend on the compute stream and the fetch of its

@@ -48,6 +48,7 @@ LIB_NAME = "libcelestia_kernels.so"
 LAUNCHES: dict[str, int] = {
     "encode2d_hash": 0, "leaf_digests2d": 0, "sha256_words": 0,
     "encode2d": 0, "encode2d_xor_hash": 0, "encode2d_xor": 0, "nmt_tree": 0,
+    "nmt_tree_rows": 0,
     "decode_sweep": 0, "dah_merkle": 0, "ragged_gather": 0, "assemble_square": 0,
 }
 
@@ -76,6 +77,10 @@ _SIGNATURES = {
     # (q0, q1, q2, q3, q0_rs, q0_cs, q1_rs, q1_cs, q2_rs, q2_cs, q3_rs, q3_cs,
     #  ns, ns_rs, ns_cs, roots, levels, k, device, stream)
     "celestia_nmt_tree": (_V, _V, _V, _V, *(_I,) * 8, _V, _I, _I, _V, _V, _I, _I, _V),
+    # (q0, q1, q2, q3, their row and column strides, ns, ns_rs, ns_cs, roots,
+    #  levels, k, top_rows, bottom_rows, device, stream)
+    "celestia_nmt_tree_rows": (_V, _V, _V, _V, *(_I,) * 8, _V, _I, _I, _V, _V, _I, _I, _I, _I,
+                               _V),
     # (eds, axis_stride, cell_stride, consts, axes, table, twiddles, n, device,
     #  stream)
     "celestia_decode_sweep": (_V, _L, _L, _V, _I, _V, _V, _I, _I, _V),

@@ -78,7 +78,7 @@ import numpy as np
 import torch
 
 from celestia_tpu_torch import device as device_mod
-from celestia_tpu_torch import faults, integrity, tracing
+from celestia_tpu_torch import devledger, faults, integrity, tracing
 from celestia_tpu_torch.appconsts import (
     DEFAULT_SQUARE_SIZE_UPPER_BOUND,
     NAMESPACE_SIZE,
@@ -106,18 +106,20 @@ class Kernels:
     encode2d_xor: Callable
     nmt_tree: Callable
     assemble_square: Callable
+    nmt_tree_rows: Callable
 
 
 KERNELS = Kernels(rs_cuda.encode_hash_into, rs_cuda.leaf_digests2d,
                   merkle_cuda.dah_merkle, rs_cuda.encode_into,
                   xor_cuda.encode2d_xor_hash, xor_cuda.encode2d_xor,
-                  nmt_cuda.nmt_tree, assemble_cuda.assemble_square)
+                  nmt_cuda.nmt_tree, assemble_cuda.assemble_square, nmt_cuda.nmt_tree_rows)
 PLAIN = Kernels(rs_cuda.encode_hash_into_reference,
                 rs_cuda.leaf_digests2d_reference,
                 merkle_cuda.dah_merkle_reference, rs_cuda.encode_into_reference,
                 xor_cuda.encode2d_xor_hash_reference,
                 xor_cuda.encode2d_xor_reference,
-                nmt_cuda.nmt_tree_reference, assemble.assemble_square_reference)
+                nmt_cuda.nmt_tree_reference, assemble.assemble_square_reference,
+                nmt_cuda.nmt_tree_rows_reference)
 
 _FUSED_ENV = "CELESTIA_FUSED_KERNELS"
 _XOR_ENV = "CELESTIA_XOR_SCHEDULE"
@@ -341,11 +343,126 @@ def roots_only_batched(shares: torch.Tensor, m2: rs.EncodeMatrix,
 # integrity audit. ``backend`` names the card (or "cpu"). The square is
 # staged through ``transfers.device_put_chunked`` (site ``extend.stage``),
 # which adds a ``transfer.extend.stage`` span under ``extend.stage``, as the
-# JAX package's sharded staging does. Its mesh branches are not ported.
+# JAX package's sharded staging does.
+#
+# The mesh routing (the JAX package's extend_tpu.py:380-520): while an
+# operator has configured a mesh (``parallel.configure_mesh``), the entries
+# below route a square whose rows the mesh's 'sp' divides through the
+# row-sharded spelling of ``celestia_tpu_torch.parallel``, with the same
+# bytes; another square falls back to the single-device route, as in the
+# JAX package. The mesh places the work: the square is staged row-sharded
+# onto the devices of the mesh's first dp row
+# (``transfers.device_put_sharded_rows``) and the results gather onto its
+# first device, which the spans' ``backend`` names. The mesh runs the
+# wrappers (``KERNELS``), so it routes only a call that asks for them on the
+# device the mesh gathers onto (``device`` resolved first, None = CUDA); a
+# call naming other kernels (``PLAIN``) or another device takes the
+# single-device route with what it names (the JAX entries take neither
+# argument). The state lives here because ``parallel`` imports this module;
+# the builders import ``parallel`` when they build.
+
+_ACTIVE_MESH = None
+
+
+def set_active_mesh(mesh) -> None:
+    """Install (None clears) the process-wide mesh; public entry
+    ``parallel.configure_mesh``. Drops the row-sharded builders' caches,
+    whose programs hold the mesh they were built for."""
+    global _ACTIVE_MESH
+    _ACTIVE_MESH = mesh
+    for builder in (_rowsharded, _rowsharded_roots, _rowsharded_levels, _rowsharded_full):
+        builder.cache_clear()
+
+
+def active_mesh():
+    return _ACTIVE_MESH
+
+
+def _mesh_if_divisible(n_rows: int):
+    """The active mesh when its 'sp' divides n_rows, else None: the caller
+    falls back to the single-device route."""
+    m = _ACTIVE_MESH
+    if m is None or n_rows % m.shape["sp"]:
+        return None
+    return m
+
+
+def _mesh_for(n_rows: int, dev: torch.device, kernels: Kernels):
+    """The active mesh when it routes this call: its 'sp' divides n_rows,
+    the call asks for the wrappers and for the device the mesh gathers onto.
+    Else None: the call takes the single-device route with its own kernels
+    on its own device."""
+    m = _mesh_if_divisible(n_rows)
+    if m is None or kernels is not KERNELS or not device_mod.same(dev, m.first):
+        return None
+    return m
+
+
+def _mesh_compile_key():
+    """The mesh part of the row-sharded builders' key: a flip of the mesh's
+    shape is a new build at the same k."""
+    m = _ACTIVE_MESH
+    return None if m is None else tuple(sorted(m.shape.items()))
+
+
+@functools.lru_cache(maxsize=8)
+@devledger.instrument_builder("extend.rowsharded", key_extra=_mesh_compile_key)
+def _rowsharded(k: int):
+    from celestia_tpu_torch import parallel
+
+    return parallel.extend_and_root_rowsharded(_ACTIVE_MESH, k)
+
+
+@functools.lru_cache(maxsize=8)
+@devledger.instrument_builder("extend.rowsharded_roots", key_extra=_mesh_compile_key)
+def _rowsharded_roots(k: int):
+    """The roots-only spelling: no EDS row is assembled, as roots_device's
+    contract asks."""
+    from celestia_tpu_torch import parallel
+
+    return parallel.roots_rowsharded(_ACTIVE_MESH, k)
+
+
+@functools.lru_cache(maxsize=8)
+@devledger.instrument_builder("extend.rowsharded_levels", key_extra=_mesh_compile_key)
+def _rowsharded_levels(k: int):
+    from celestia_tpu_torch import parallel
+
+    return parallel.eds_row_level_buffer_rowsharded(_ACTIVE_MESH, k)
+
+
+@functools.lru_cache(maxsize=8)
+@devledger.instrument_builder("extend.rowsharded_full", key_extra=_mesh_compile_key)
+def _rowsharded_full(k: int):
+    from celestia_tpu_torch import parallel
+
+    return parallel.extend_root_levels_rowsharded(_ACTIVE_MESH, k)
+
+
+def _stage_sharded(arr, mesh, site: str = "extend.stage") -> transfers.RowShards:
+    """A square (or EDS) row-sharded over the devices of the mesh's first dp
+    row: host rows land on their shards through the telemetered transfer
+    (``site``); a device tensor is split on the device, without a host round
+    trip; ``RowShards`` already on those devices pass through."""
+    devices = list(mesh.devices[0])
+    if isinstance(arr, transfers.RowShards):
+        if arr.devices != devices:
+            raise ValueError(f"row shards on {arr.devices}, the mesh row is {devices}")
+        return arr
+    if arr.shape[0] % len(devices):
+        raise ValueError(f"{arr.shape[0]} rows not divisible by sp={len(devices)}")
+    if isinstance(arr, torch.Tensor) and arr.device.type != "cpu":
+        per = arr.shape[0] // len(devices)
+        return transfers.RowShards(arr[i * per:(i + 1) * per].to(d).contiguous()
+                                   for i, d in enumerate(devices))
+    host = arr.numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    if host.dtype != np.uint8:
+        raise ValueError(f"expected uint8 bytes, got {host.dtype}")
+    return transfers.device_put_sharded_rows(host, mesh, site=site)
 
 
 def _square_size(shares) -> int:
-    shape = tuple(shares.shape)
+    shape = tuple(shares.shape)  # a host array, a tensor or transfers.RowShards
     k = shape[0]
     if (len(shape) != 3 or shape[1] != k or shape[2] != SHARE_SIZE
             or k < 1 or k & (k - 1) or k > DEFAULT_SQUARE_SIZE_UPPER_BOUND):
@@ -392,18 +509,19 @@ def _numpy(*tensors: torch.Tensor):
 
 
 @contextlib.contextmanager
-def _extend_device(entry: str, dev: torch.device, k: int):
+def _extend_device(entry: str, dev: torch.device, k: int, mesh=None):
     """The ``extend.device`` span and the ``device.extend`` fault site;
-    yields the backend name."""
-    backend = _backend(dev)
+    yields the backend name (the mesh's first device's when a mesh routes
+    the call)."""
+    backend = _backend(dev if mesh is None else mesh.first)
     with tracing.span("extend.device", backend=backend, k=k, entry=entry):
         faults.fire("device.extend", entry=entry)
         yield backend
 
 
-def _staged(shares, dev: torch.device, k: int, backend: str) -> torch.Tensor:
+def _staged(shares, dev: torch.device, k: int, backend: str, mesh=None):
     with tracing.span("extend.stage", backend=backend, k=k):
-        return _stage(shares, dev)
+        return _stage(shares, dev) if mesh is None else _stage_sharded(shares, mesh)
 
 
 def roots_device(shares, device=None, kernels: Kernels = KERNELS):
@@ -411,12 +529,16 @@ def roots_device(shares, device=None, kernels: Kernels = KERNELS):
     roots-only core: the EDS is never assembled."""
     dev = device_mod.resolve(device)
     k = _square_size(shares)
-    with _extend_device("roots_device", dev, k) as backend:
-        x = _staged(shares, dev, k, backend)
+    mesh = _mesh_for(k, dev, kernels)
+    with _extend_device("roots_device", dev, k, mesh) as backend:
+        x = _staged(shares, dev, k, backend, mesh)
         with tracing.span("extend.rs_nmt", backend=backend, k=k, fused="rs+nmt",
-                          sharded=False):
+                          sharded=mesh is not None):
             t0 = time.perf_counter()
-            rows, cols = _rows_cols_only(x, rs.encode_matrix(k, dev), kernels=kernels)
+            if mesh is not None:
+                rows, cols = _rowsharded_roots(k)(x)
+            else:
+                rows, cols = _rows_cols_only(x, rs.encode_matrix(k, dev), kernels=kernels)
             transfers.profile_fence(cols, "roots_device", t0, k=k)
             return _numpy(rows, cols)
 
@@ -427,12 +549,16 @@ def _extend_resident(entry: str, shares, device, kernels: Kernels):
     site and the audit."""
     dev = device_mod.resolve(device)
     k = _square_size(shares)
-    with _extend_device(entry, dev, k) as backend:
-        x = _staged(shares, dev, k, backend)
+    mesh = _mesh_for(k, dev, kernels)
+    with _extend_device(entry, dev, k, mesh) as backend:
+        x = _staged(shares, dev, k, backend, mesh)
         with tracing.span("extend.rs_nmt", backend=backend, k=k, fused="rs+nmt",
-                          sharded=False):
+                          sharded=mesh is not None):
             t0 = time.perf_counter()
-            eds, (rows, cols) = _roots(x, rs.encode_matrix(k, dev), kernels=kernels)
+            if mesh is not None:
+                eds, rows, cols, _dah = _rowsharded(k)(x)
+            else:
+                eds, (rows, cols) = _roots(x, rs.encode_matrix(k, dev), kernels=kernels)
             transfers.profile_fence(cols, entry, t0, k=k)
         # SDC model: the result is damaged in flight; the audit must catch it
         flip = faults.fire("device.extend.output", entry=entry)
@@ -465,12 +591,16 @@ def extend_and_root_device(shares, device=None, kernels: Kernels = KERNELS):
     hash computed on the device."""
     dev = device_mod.resolve(device)
     k = _square_size(shares)
-    with _extend_device("extend_and_root_device", dev, k) as backend:
-        x = _staged(shares, dev, k, backend)
+    mesh = _mesh_for(k, dev, kernels)
+    with _extend_device("extend_and_root_device", dev, k, mesh) as backend:
+        x = _staged(shares, dev, k, backend, mesh)
         with tracing.span("extend.rs_nmt", backend=backend, k=k, fused="rs+nmt+dah",
-                          sharded=False):
+                          sharded=mesh is not None):
             t0 = time.perf_counter()
-            out = extend_and_root(x, rs.encode_matrix(k, dev), kernels)
+            if mesh is not None:
+                out = _rowsharded(k)(x)
+            else:
+                out = extend_and_root(x, rs.encode_matrix(k, dev), kernels)
             transfers.profile_fence(out[3], "extend_and_root_device", t0, k=k)
             return _numpy(*out)
 
@@ -530,10 +660,14 @@ def eds_row_levels_device(eds, device=None, kernels: Kernels = KERNELS) -> list[
     [j·2^L, (j+1)·2^L)."""
     dev = device_mod.resolve(device)
     k = _eds_size(eds)
-    with tracing.span("extend.nmt_levels", backend=_backend(dev), k=k,
-                      entry="eds_row_levels_device", sharded=False):
+    mesh = _mesh_for(2 * k, dev, kernels)  # sp shards the 2k EDS rows here
+    with tracing.span("extend.nmt_levels", backend=_backend(dev if mesh is None else mesh.first),
+                      k=k, entry="eds_row_levels_device", sharded=mesh is not None):
         t0 = time.perf_counter()
-        _roots, levels = _eds_tree(_stage(eds, dev), kernels, keep_levels=True)
+        if mesh is not None:
+            levels = _rowsharded_levels(k)(_stage_sharded(eds, mesh))
+        else:
+            _roots, levels = _eds_tree(_stage(eds, dev), kernels, keep_levels=True)
         transfers.profile_fence(levels, "eds_row_levels_device", t0, k=k)
         return nmt_cuda.split_levels(levels.cpu().numpy(), k)  # one D2H copy
 
@@ -547,10 +681,29 @@ def eds_row_levels_device(eds, device=None, kernels: Kernels = KERNELS) -> list[
 # stream and return before the card is done.
 
 
-def extend_and_root_staged(dev: torch.Tensor, kernels: Kernels = KERNELS):
+def _staged_mesh(staged, kernels: Kernels):
+    """(k, the mesh that routes it or None) of a staged square: a tensor as
+    ``_mesh_for`` decides on its device; row shards on the active mesh
+    alone, through the wrappers."""
+    k = _square_size(staged)
+    if not isinstance(staged, transfers.RowShards):
+        return k, _mesh_for(k, staged.device, kernels)
+    mesh = _mesh_if_divisible(k)
+    if mesh is None or kernels is not KERNELS:
+        raise ValueError("row shards run on the active mesh alone, through the wrappers")
+    return k, mesh
+
+
+def extend_and_root_staged(dev, kernels: Kernels = KERNELS):
     """A staged (k, k, 512) uint8 square -> (eds (2k, 2k, 512), row_roots
-    (2k, 90), col_roots (2k, 90), dah (32,)), all on its device."""
-    k = _square_size(dev)
+    (2k, 90), col_roots (2k, 90), dah (32,)), all on its device. Routed
+    through the row-sharded spelling when the active mesh routes it
+    (``_mesh_for``: the square on the device the mesh gathers onto), or when
+    ``dev`` is ``transfers.RowShards`` staged on the mesh; the results then
+    lie on the mesh's first device."""
+    k, mesh = _staged_mesh(dev, kernels)
+    if mesh is not None:
+        return _rowsharded(k)(_stage_sharded(dev, mesh))
     return extend_and_root(dev, rs.encode_matrix(k, dev.device), kernels)
 
 
@@ -563,9 +716,13 @@ def extend_root_levels_staged(dev: torch.Tensor, kernels: Kernels = KERNELS):
     port's unfused route: the three encodes without the hash, then K2 over
     the EDS, so every cell is hashed once, and the tree twice over that one
     leaf grid: both axes' roots, which the DAH merkles, and the row levels
-    (the tree keeps levels for the rows alone). Its fused mesh spelling is
-    not ported."""
-    k = _square_size(dev)
+    (the tree keeps levels for the rows alone). Where the active mesh routes
+    the square, as in ``extend_and_root_staged``, this is the mesh's fused
+    pass (Row C, ``parallel.extend_root_levels_rowsharded``): each shard's
+    leaves hashed once feed its row levels and the column roots."""
+    k, mesh = _staged_mesh(dev, kernels)
+    if mesh is not None:
+        return _rowsharded_full(k)(_stage_sharded(dev, mesh))
     eds = _unfused_eds(dev, rs.encode_matrix(k, dev.device), _xor_active(k), kernels)
     quads, q0_ns = _eds_leaves(eds, kernels)
     roots, _levels = kernels.nmt_tree(quads, q0_ns)

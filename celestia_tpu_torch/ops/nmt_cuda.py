@@ -34,9 +34,24 @@ Contract of ``nmt_tree(quadrants, q0_ns, keep_levels)``:
   L = 0 .. log2(2k), one after another (``split_levels`` cuts it), or
   None.
 
-A CPU tensor runs ``nmt_tree_reference``, the plain PyTorch level loop
-through the plain SHA-256 (``sha256_cuda.sha_core_reference``); a CUDA
-tensor launches the kernel or raises.
+The row-block mode ``nmt_tree_rows(quadrants, q0_ns, keep_levels)`` (the
+same kernel, its own C entry and launch count) reduces the row trees alone
+of a block of grid rows, as one shard of a row-sharded mesh holds them
+(``parallel``): Q0 and Q1 are the (t, k, 8) tiles of its t top rows (grid
+rows below k), Q2 and Q3 the (b, k, 8) tiles of its b bottom rows, and
+``q0_ns`` the (t, k, W >= 29) namespaces of the top rows' first k cells
+(None when t = 0). The top rows keep Q0's namespaces in their first k cells;
+every other cell takes the parity namespace. It returns the (1, t + b, 90)
+row roots, top rows first, and with ``keep_levels`` the (t + b, 2k >> L, 90)
+levels in the same flat layout (``split_levels(buf, k, t + b)``). A row
+range [lo, lo + n) of the (2k, 2k) grid is the block of its rows below k and
+its rows from k on. The column trees of a grid are the row trees of its
+transpose: the tiles (Q0ᵀ, Q2ᵀ, Q1ᵀ, Q3ᵀ) with ``q0_ns.transpose(0, 1)``.
+
+A CPU tensor runs ``nmt_tree_reference`` (``nmt_tree_rows_reference``), the
+plain PyTorch level loop through the plain SHA-256
+(``sha256_cuda.sha_core_reference``); a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -89,16 +104,18 @@ def reduce_once(nodes: torch.Tensor) -> torch.Tensor:
     return torch.cat([left[..., :NAMESPACE_SIZE], max_ns, digest], dim=-1)
 
 
-def level_shapes(k: int) -> list[tuple[int, int, int]]:
-    """The row-tree levels' shapes: (2k, 2k >> L, 90) for L = 0 .. log2(2k)."""
+def level_shapes(k: int, rows: int | None = None) -> list[tuple[int, int, int]]:
+    """The row-tree levels' shapes: (rows, 2k >> L, 90) for L = 0 .. log2(2k),
+    rows = 2k unless given (a row block's)."""
     w = 2 * k
-    return [(w, w >> lv, NMT_NODE_SIZE) for lv in range(w.bit_length())]
+    rows = w if rows is None else rows
+    return [(rows, w >> lv, NMT_NODE_SIZE) for lv in range(w.bit_length())]
 
 
-def split_levels(buf, k: int) -> list:
+def split_levels(buf, k: int, rows: int | None = None) -> list:
     """A flat levels buffer (tensor or numpy) -> its list of level views."""
     out, off = [], 0
-    for shape in level_shapes(k):
+    for shape in level_shapes(k, rows):
         size = shape[0] * shape[1] * shape[2]
         out.append(buf[off:off + size].reshape(shape))
         off += size
@@ -124,6 +141,19 @@ def _check(quadrants, q0_ns: torch.Tensor) -> int:
     return k
 
 
+def _reduce_plain(families: list[torch.Tensor], keep_levels: bool):
+    """The plain level loop over (trees, w, 90) leaf families stacked into
+    one level-synchronous pass: (roots (F, trees, 90), the first family's
+    levels as one flat buffer or None)."""
+    nodes = torch.stack(families, dim=0)
+    levels = [nodes[0]]
+    while nodes.shape[-2] > 1:
+        nodes = reduce_once(nodes)
+        levels.append(nodes[0])
+    buf = torch.cat([lv.reshape(-1) for lv in levels]) if keep_levels else None
+    return nodes[:, :, 0, :].contiguous(), buf
+
+
 def nmt_tree_reference(quadrants, q0_ns: torch.Tensor, keep_levels: bool = False):
     """Plain PyTorch version of the tree kernel: the level loop of
     ``extend_tpu._digest_grid_roots`` / ``nmt_reduce_levels`` over the plain
@@ -135,13 +165,49 @@ def nmt_tree_reference(quadrants, q0_ns: torch.Tensor, keep_levels: bool = False
     leaf_ns = leaf_namespaces(q0_ns[..., :NAMESPACE_SIZE], k)
     leaves = torch.cat([leaf_ns, leaf_ns, words_to_bytes(grid)], dim=-1)  # (2k, 2k, 90)
     families = [leaves] if keep_levels else [leaves, leaves.transpose(0, 1)]
-    nodes = torch.stack(families, dim=0)
-    levels = [nodes[0]]
-    while nodes.shape[-2] > 1:
-        nodes = reduce_once(nodes)
-        levels.append(nodes[0])
-    buf = torch.cat([lv.reshape(-1) for lv in levels]) if keep_levels else None
-    return nodes[:, :, 0, :].contiguous(), buf
+    return _reduce_plain(families, keep_levels)
+
+
+def _check_rows(quadrants, q0_ns) -> tuple[int, int, int]:
+    """The row-block mode's inputs: (k, top rows, bottom rows)."""
+    if len(quadrants) != 4:
+        raise ValueError(f"expected 4 quadrant tiles, got {len(quadrants)}")
+    top, k = int(quadrants[0].shape[0]), int(quadrants[0].shape[1])
+    bottom = int(quadrants[2].shape[0])
+    if k < 1 or k & (k - 1) or k > MAX_K:
+        raise ValueError(f"k must be a power of two <= {MAX_K}, got {k}")
+    if top + bottom < 1:
+        raise ValueError("a row block needs at least one row")
+    dev = quadrants[0].device
+    for i, q in enumerate(quadrants):
+        rows = top if i < 2 else bottom
+        if tuple(q.shape) != (rows, k, 8) or q.dtype != torch.uint32 or q.device != dev:
+            raise ValueError(f"quadrant {i} must be ({rows}, {k}, 8) uint32 on {dev}, got "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}")
+    if top and (q0_ns is None or q0_ns.dim() != 3 or tuple(q0_ns.shape[:2]) != (top, k)
+                or q0_ns.shape[2] < NAMESPACE_SIZE or q0_ns.dtype != torch.uint8
+                or q0_ns.device != dev):
+        got = None if q0_ns is None else (tuple(q0_ns.shape), q0_ns.dtype, q0_ns.device)
+        raise ValueError(f"q0_ns must be ({top}, {k}, >= {NAMESPACE_SIZE}) uint8 on {dev}, "
+                         f"got {got}")
+    return k, top, bottom
+
+
+def nmt_tree_rows_reference(quadrants, q0_ns, keep_levels: bool = False):
+    """Plain PyTorch version of the row-block mode: the top rows' leaves
+    (Q0's namespaces in their first k cells) over the bottom rows' (all
+    parity), reduced as rows by the same level loop."""
+    k, top, bottom = _check_rows(quadrants, q0_ns)
+    q0, q1, q2, q3 = quadrants
+    parity = _device_const("parity", q0.device)
+    grid = torch.cat([torch.cat([q0, q1], dim=1), torch.cat([q2, q3], dim=1)], dim=0)
+    ns_parts = [parity.expand(bottom, 2 * k, NAMESPACE_SIZE)]
+    if top:
+        ns_parts.insert(0, torch.cat([q0_ns[..., :NAMESPACE_SIZE],
+                                      parity.expand(top, k, NAMESPACE_SIZE)], dim=1))
+    leaf_ns = torch.cat(ns_parts, dim=0)
+    leaves = torch.cat([leaf_ns, leaf_ns, words_to_bytes(grid)], dim=-1)  # (t + b, 2k, 90)
+    return _reduce_plain([leaves], keep_levels)
 
 
 def _word_strides(t: torch.Tensor, name: str) -> tuple[int, int]:
@@ -155,6 +221,28 @@ def _word_strides(t: torch.Tensor, name: str) -> tuple[int, int]:
     return (rs if t.shape[0] > 1 else 0), (cs if t.shape[1] > 1 else 0)
 
 
+def _ns_operand(q0_ns, rows: int, k: int) -> tuple[int, int, int]:
+    """(pointer, row stride, cell stride) of the namespaces the kernel reads
+    32 bytes at, for each of rows x k cells."""
+    if rows == 0:
+        return 0, 0, 0
+    ns_rs, ns_cs = _word_strides(q0_ns, "q0_ns")
+    if (q0_ns.storage_offset() + (rows - 1) * ns_rs + (k - 1) * ns_cs + 32
+            > q0_ns.untyped_storage().nbytes()):
+        raise ValueError("q0_ns must hold 32 readable bytes at each cell: a view of "
+                         "the shares, or rs_cuda.pad_namespaces' form")
+    return q0_ns.data_ptr(), ns_rs, ns_cs
+
+
+def _outputs(trees: int, families: int, k: int, keep_levels: bool, dev: torch.device):
+    roots = torch.empty((families, trees, NMT_NODE_SIZE), dtype=torch.uint8, device=dev)
+    levels = None
+    if keep_levels:
+        levels = torch.empty(sum(a * b * c for a, b, c in level_shapes(k, trees)),
+                             dtype=torch.uint8, device=dev)
+    return roots, levels
+
+
 def nmt_tree(quadrants, q0_ns: torch.Tensor, keep_levels: bool = False):
     """NMT roots (and the row levels) of a leaf-digest grid; see the module
     docstring. A CPU tensor runs the plain version; a CUDA tensor launches
@@ -164,21 +252,32 @@ def nmt_tree(quadrants, q0_ns: torch.Tensor, keep_levels: bool = False):
     k = _check(quadrants, q0_ns)
     dev = quadrants[0].device
     strides = [s for i, q in enumerate(quadrants) for s in _word_strides(q, f"quadrant {i}")]
-    ns_rs, ns_cs = _word_strides(q0_ns, "q0_ns")
-    # the kernel reads 32 bytes at each cell's namespace
-    if q0_ns.storage_offset() + (k - 1) * (ns_rs + ns_cs) + 32 > q0_ns.untyped_storage().nbytes():
-        raise ValueError("q0_ns must hold 32 readable bytes at each cell: a view of "
-                         "the shares, or rs_cuda.pad_namespaces' form")
-    roots = torch.empty((1 if keep_levels else 2, 2 * k, NMT_NODE_SIZE), dtype=torch.uint8,
-                        device=dev)
-    levels = None
-    if keep_levels:
-        levels = torch.empty(sum(a * b * c for a, b, c in level_shapes(k)),
-                             dtype=torch.uint8, device=dev)
+    ns = _ns_operand(q0_ns, k, k)
+    roots, levels = _outputs(2 * k, 1 if keep_levels else 2, k, keep_levels, dev)
     rc = _cuda.library().celestia_nmt_tree(
-        *(q.data_ptr() for q in quadrants), *strides, q0_ns.data_ptr(), ns_rs, ns_cs,
+        *(q.data_ptr() for q in quadrants), *strides, *ns,
         roots.data_ptr(), levels.data_ptr() if levels is not None else None, k,
         dev.index or 0, _cuda.stream_of(quadrants[0]))
     _cuda.check(rc, "nmt_tree")
     _cuda.LAUNCHES["nmt_tree"] += 1
+    return roots, levels
+
+
+def nmt_tree_rows(quadrants, q0_ns, keep_levels: bool = False):
+    """The row-block mode: the row roots (and levels) of a block of grid
+    rows; see the module docstring. A CPU tensor runs the plain version; a
+    CUDA tensor launches the tree kernel."""
+    if quadrants[0].device.type == "cpu":
+        return nmt_tree_rows_reference(quadrants, q0_ns, keep_levels)
+    k, top, bottom = _check_rows(quadrants, q0_ns)
+    dev = quadrants[0].device
+    strides = [s for i, q in enumerate(quadrants) for s in _word_strides(q, f"quadrant {i}")]
+    ns = _ns_operand(q0_ns, top, k)
+    roots, levels = _outputs(top + bottom, 1, k, keep_levels, dev)
+    rc = _cuda.library().celestia_nmt_tree_rows(
+        *(q.data_ptr() for q in quadrants), *strides, *ns,
+        roots.data_ptr(), levels.data_ptr() if levels is not None else None, k, top, bottom,
+        dev.index or 0, _cuda.stream_of(quadrants[0]))
+    _cuda.check(rc, "nmt_tree_rows")
+    _cuda.LAUNCHES["nmt_tree_rows"] += 1
     return roots, levels

@@ -18,6 +18,8 @@ interconnect, with four disciplines:
    overlaps block i's DMA and the caller's work queues behind the upload. Pinning memory or creating the
    stream raises on failure: there is no quiet pageable path. On the CPU
    the blocks are plain copies. ``device_get_chunked`` downloads row blocks.
+   ``device_put_sharded_rows`` lands each row block of a square on its
+   mesh shard's device (``RowShards``), through the same uploader.
 
 3. **Telemetry.** Every movement adds to the ``transfer_bytes`` and
    ``transfer_ms`` counters by site and direction, observes the
@@ -365,6 +367,89 @@ def device_put_chunked(arr, device=None, *, site: str, chunks: int | None = None
                 _verify_put_chunk(up, lo, hi, block, want, site, idx)
     _record(site, "h2d", nbytes, start)
     return up.out
+
+
+class RowShards:
+    """A (n, ...) array split by rows over the sp devices of one mesh row:
+    ``shards[i]`` holds rows [i·n/sp, (i + 1)·n/sp) on the i-th device. What
+    ``device_put_sharded_rows`` returns and the row-sharded entries take."""
+
+    __slots__ = ("shards",)
+
+    def __init__(self, shards):
+        self.shards = list(shards)
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        first = self.shards[0]
+        return (sum(int(t.shape[0]) for t in self.shards), *first.shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def nbytes(self) -> int:
+        return sum(_nbytes(t) for t in self.shards)
+
+    @property
+    def devices(self) -> list[torch.device]:
+        return [t.device for t in self.shards]
+
+
+def _put_rows(host: np.ndarray, devices) -> list[torch.Tensor]:
+    """Each device's row block of ``host``, uploaded to it: one pinned
+    staging copy and one H2D copy a block, each on its device's copy stream."""
+    sp = len(devices)
+    rows = host.shape[0] // sp
+    dtype = torch.from_numpy(np.empty(0, host.dtype)).dtype
+    row_bytes = host.nbytes // host.shape[0]
+    out = []
+    for i, dev in enumerate(devices):
+        with _Uploader((rows, *host.shape[1:]), dtype, dev, row_bytes) as up:
+            up.put(0, rows, host[i * rows:(i + 1) * rows])
+        out.append(up.out)
+    return out
+
+
+def device_put_sharded_rows(arr, mesh, *, site: str) -> RowShards:
+    """Upload a host array row-sharded over the mesh's 'sp' axis: each row
+    block lands directly on its shard's device (the devices of the mesh's
+    first dp row), so a mesh-routed extend never funnels the whole square
+    through one device. Its telemetry is one transfer of the array's bytes
+    at ``site``; it passes the ``transfer.chunk`` fault site once (index 0)
+    and, with audits on, checks the CRC-32C of every byte at the sinks and
+    uploads once more from the pristine source before raising, as the JAX
+    package's does."""
+    host = arr.numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    devices = list(mesh.devices[0])
+    if host.shape[0] % len(devices):
+        raise ValueError(f"{host.shape[0]} rows do not divide over sp={len(devices)}")
+    start = time.perf_counter()
+    eng = integrity.get()
+    verify = eng.sample_chunks(1) if eng.enabled else ()
+    want = integrity.crc32c(host) if 0 in verify else None
+    flip = faults.fire("transfer.chunk", transfer=site, direction="h2d", index=0)
+    shards = _put_rows(host if flip is None else flip(host), devices)
+    if want is not None:
+        got = _shards_crc(shards)
+        if got != want:
+            integrity.record_sdc("transfer.chunk")
+            metrics.incr_counter("transfer_retry_total", site=site, direction="h2d")
+            flip = faults.fire("transfer.chunk", transfer=site, direction="h2d", index=0,
+                               retry=1)
+            shards = _put_rows(host if flip is None else flip(host), devices)
+            if _shards_crc(shards) != want:
+                raise integrity.IntegrityError(
+                    f"h2d chunk 0 corrupt after retry at {site} "
+                    f"(crc {got:#010x} != {want:#010x})")
+    _record(site, "h2d", host.nbytes, start)
+    return RowShards(shards)
+
+
+def _shards_crc(shards: list[torch.Tensor]) -> int:
+    """The CRC-32C of the shards' bytes in row order, read back."""
+    return integrity.crc32c(np.concatenate([t.cpu().numpy() for t in shards]))
 
 
 def _verify_put_chunk(up: _Uploader, lo: int, hi: int, pristine: np.ndarray, want: int,

@@ -16,7 +16,8 @@ This module holds the host half of that spelling:
 - ``apply_planes_np`` evaluates a schedule in numpy (tests).
 - ``apply_planes`` and ``rs_encode_rows_xor`` are the plain PyTorch
   evaluators: the reference the CUDA kernels K5 and K6 (``ops/xor_cuda.py``)
-  are held against.
+  are held against, and (``apply_planes``) each mesh shard's column-block
+  partial (``compile_col_block``, ``sharded_schedule_arrays``).
 
 Schedule format: planes are indexed inputs [0, n_in), a constant zero plane
 at n_in (the pad target), then the CSE nodes in topological level order.
@@ -214,6 +215,61 @@ def compile_schedule(k: int) -> XorSchedule:
     return _compile_from_matrix(rs.encode_bit_matrix(k))
 
 
+@functools.lru_cache(maxsize=64)
+def compile_col_block(k: int, sp: int, idx: int) -> XorSchedule:
+    """The schedule of shard ``idx`` of a row-sharded mesh (``parallel``):
+    the (8k, 8k/sp) column block of the encode matrix that contracts
+    against the 8k/sp bit-planes of the rows this shard holds. The shards'
+    partial parities combine by XOR (GF(2) addition)."""
+    m2 = rs.encode_bit_matrix(k)
+    cols = (8 * k) // sp
+    return _compile_from_matrix(m2[:, idx * cols: (idx + 1) * cols])
+
+
+@functools.lru_cache(maxsize=16)
+def sharded_schedule_arrays(k: int, sp: int):
+    """The sp column-block schedules stacked into arrays of one shape, equal
+    to the JAX package's: each level's width and the row width are padded
+    to the widest shard's (a pad node computes ZERO ^ ZERO, a pad row slot
+    reads ZERO; neither changes a byte). Returns (template, flat_a, flat_b,
+    row_idx): flat_a and flat_b (sp, sum(level_widths)) and row_idx
+    (sp, 8k, width) int32, and a template ``XorSchedule`` holding the padded
+    level structure, which ``apply_planes`` reads with one shard's arrays."""
+    scheds = [compile_col_block(k, sp, i) for i in range(sp)]
+    n_in = scheds[0].n_in
+    zero = n_in
+    n_levels = max(len(s.level_widths) for s in scheds)
+    widths = tuple(
+        max((s.level_widths[lv] if lv < len(s.level_widths) else 0) for s in scheds)
+        for lv in range(n_levels))
+    total = sum(widths)
+    flat_a = np.full((sp, total), zero, dtype=np.int32)
+    flat_b = np.full((sp, total), zero, dtype=np.int32)
+    row_w = max(s.row_idx.shape[1] for s in scheds)
+    row_idx = np.full((sp, scheds[0].n_out, row_w), zero, dtype=np.int32)
+    for i, s in enumerate(scheds):
+        # node indices shift where levels are padded: map this shard's layout
+        # (n_in + 1, then its own level offsets) into the padded one
+        remap = np.arange(n_in + 1 + s.n_nodes, dtype=np.int32)
+        src = dst = n_in + 1
+        for lv, w_pad in enumerate(widths):
+            w = s.level_widths[lv] if lv < len(s.level_widths) else 0
+            remap[src: src + w] = np.arange(dst, dst + w, dtype=np.int32)
+            src += w
+            dst += w_pad
+        off = src = 0
+        for lv, w_pad in enumerate(widths):
+            w = s.level_widths[lv] if lv < len(s.level_widths) else 0
+            flat_a[i, off: off + w] = remap[s.flat_a[src: src + w]]
+            flat_b[i, off: off + w] = remap[s.flat_b[src: src + w]]
+            off += w_pad
+            src += w
+        row_idx[i, :, : s.row_idx.shape[1]] = remap[s.row_idx]
+    template = dataclasses.replace(scheds[0], level_widths=widths, flat_a=flat_a[0],
+                                   flat_b=flat_b[0], row_idx=row_idx[0])
+    return template, flat_a, flat_b, row_idx
+
+
 def schedule_stats(k: int) -> dict:
     """Host-readable schedule metrics."""
     s = compile_schedule(k)
@@ -258,12 +314,16 @@ class ScheduleIndex:
     row_idx: torch.Tensor
 
 
-def schedule_index(sched: XorSchedule, device) -> ScheduleIndex:
+def schedule_index(sched: XorSchedule, device, flat_a=None, flat_b=None,
+                   row_idx=None) -> ScheduleIndex:
+    """The schedule's index arrays on ``device``; a mesh shard passes its own
+    rows of ``sharded_schedule_arrays`` with the padded template."""
     def as_index(a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a.astype(np.int64), device=device)
 
-    return ScheduleIndex(sched, as_index(sched.flat_a), as_index(sched.flat_b),
-                         as_index(sched.row_idx))
+    return ScheduleIndex(sched, as_index(sched.flat_a if flat_a is None else flat_a),
+                         as_index(sched.flat_b if flat_b is None else flat_b),
+                         as_index(sched.row_idx if row_idx is None else row_idx))
 
 
 def apply_planes(planes: torch.Tensor, index: ScheduleIndex) -> torch.Tensor:

@@ -4,7 +4,11 @@
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--xor-table-out PATH] [--crossover-out PATH] [--sass-out PATH]
+    python3 chip_smoke.py --mesh-only
 
+``--mesh-only`` builds the kernels and runs phase 6i alone: on a machine of
+several cards (four, joined by NVLink) its meshes over distinct cards are the
+cross-card reading, without the single-card phases; it prints no ``ok`` line.
 ``--xor-table-out`` also writes the dense/XOR routing table this run measured
 (phase 7) to PATH, in the format of celestia_tpu_torch/config/xor_schedule.json;
 ``--crossover-out`` writes the App's gpu/native backend table (phase 6f) to
@@ -290,6 +294,31 @@ prints no result; it also exits non-zero when no CUDA device is present):
    ``xor_crossover`` beside the ``xor_table`` line:
    ``calibration.measure_xor_crossover`` at k = 32 and 64, the same
    table's launches timed by CUDA events under the same rule.
+6i. Multi-GPU (``mesh``), at k = 128 over bench.py's square (seeds
+   42-45). The tree kernel's row-block mode (``nmt_cuda.nmt_tree_rows``)
+   against its plain version: every row block of ``row_blocks(k)`` (a
+   mesh shard's top and bottom rows, ranges across and inside the halves)
+   with its levels, and the column roots through the grid's transpose,
+   under phase 2's namespace squares at k = 1, 8 and 128. Then meshes of
+   virtual shards on cuda:0, (dp, sp) = (1, 2), (1, 4) and (2, 2) (the
+   same over distinct cards where the machine has several): under
+   ``parallel.configure_mesh`` roots_device, extend_roots_device,
+   extend_roots_device_resident, extend_and_root_device and
+   eds_row_levels_device equal the single-device route, Row C
+   (extend_root_levels_staged on the mesh) equals the unfused single-device
+   pair, and the XOR spelling equals the dense one; roots_device and Row C
+   launch ``mesh_launches``, and their ms (host clock, and Row C's by CUDA
+   events; medians of 10 turns, each sp = 1 and then the mesh) stand with
+   the bytes the collectives copied (on one card the shards run in turn:
+   the cost of sharding, not a speed-up). An sp of 3 falls
+   back to the single-device route. The main path: phase 6h's six squares
+   through a 3-deep BlockPipeline on the (1, 2) mesh with the counts from 0
+   (``mesh_launches(2, "row_c")`` a block), every block equal to the
+   single-device entries'. Multi-host: a one-rank NCCL group extends a
+   square on a (1, 2) mesh and gathers its DAH; two processes on the one
+   card (this script again, ``--multihost-worker``) form a gloo group,
+   named (NCCL refuses two ranks on one card), each extending its dp
+   square, and both gather DAHs equal to the host path's.
 7. Timing, after warm-up: each kernel at its main-path shapes (K2 at
    k = 64 and 128, on Q0 and on the EDS), as its own device time per launch
    (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
@@ -331,7 +360,9 @@ prints no result; it also exits non-zero when no CUDA device is present):
 
 Every measurement is one JSON line carrying the card's name and power limit.
 The ``phase_seconds`` line gives each phase's wall seconds (from its first
-line to the next phase's; "1" includes the build). Then come the ``kernels`` line (the eleven kernels; the ragged gather timed
+line to the next phase's; "1" includes the build). Then come the ``kernels`` line (the twelve
+kernels, the tree's row-block mode timed at the (1, 2) mesh's shard block
+with its launches from phase 6i's pipeline; the ragged gather timed
 at the full-width crowd's bucket, its library time the device time of
 torch.cat of the bucket's row views; the assembly at config 8b's square), the card as nvidia-smi reports it, and the
 last line ``{"ok": true, "device": {...}}``.
@@ -448,6 +479,10 @@ KERNEL_SOURCES = {
                      "celestia_tpu/ops/xor_schedule.py:476"),
     # the tree form of K3: every NMT level of extend_tpu._nmt_reduce_once
     "nmt_tree": ("celestia_tpu_torch/csrc/nmt_tree.cu", "celestia_tpu/ops/sha256_pallas.py:129"),
+    # its row-block mode: a mesh shard's row levels, the XLA nmt_reduce_levels
+    # of parallel.extend_root_levels_rowsharded
+    "nmt_tree_rows": ("celestia_tpu_torch/csrc/nmt_tree.cu",
+                      "celestia_tpu/parallel/__init__.py:338"),
     # the repair sweep, an XLA graph in JAX (no Pallas kernel)
     "decode_sweep": ("celestia_tpu_torch/csrc/rs_decode.cu", "celestia_tpu/ops/repair_tpu.py:124"),
     # the merkle form of K3: every level of extend_tpu.merkle_root_pow2
@@ -515,6 +550,16 @@ NODE_CROWD = 64  # samples of the restarted replica's crowd over heights 2 and 3
 # through the block pipeline, the phase-6b node's crowd through the
 # dispatcher, and the codec service at k = 32 and 128
 LANE_SEEDS = (42, 43, 44, 45, 46, 47)
+# the multi-GPU phase (6i): bench.py's square at k = 128 (seeds 42-45), the
+# meshes of virtual shards on cuda:0 (and over distinct cards where there are
+# several), the mesh of the pipeline (the main path of the row-block mode),
+# calls a timing, and the tree's row-block cases: (k, namespace squares)
+MESH_SEEDS = (42, 43, 44, 45)
+MESH_SHAPES = ((1, 2), (1, 4), (2, 2))
+MESH_MAIN = (1, 2)
+MESH_REPS = 10
+MESH_TREE_CASES = ((1, ("random",)), (8, ("random", "tail_padding", "single_namespace")),
+                   (128, ("random", "single_namespace")))
 LANE_NODE_BLOCKS = 3  # squares through Node.extend_pipeline
 LANE_THREADS = 8  # request threads of the dispatcher's crowd
 CODEC_KS = (32, 128)
@@ -1736,6 +1781,366 @@ def lane_phase(dev, emit, squares: list, crowd: list, codec_squares: dict,
          phase_seconds=time.perf_counter() - t_phase)
 
 
+def mesh_launches(sp: int, call: str) -> dict[str, int]:
+    """The launches of one dense call on a mesh of sp shards: each shard K2
+    on its Q0 rows and K1 three times (its Q1 rows, the whole Q2 from the
+    gathered Q0, its Q3 rows); then ``roots`` the tree once over the
+    gathered grid, ``extend`` that and the DAH merkle, and ``row_c`` each
+    shard's row-block tree, one over the gathered grid's transpose (the
+    column roots) and the DAH merkle."""
+    shards = {"leaf_digests2d": sp, "encode2d_hash": 3 * sp}
+    return {**shards, **{"roots": {"nmt_tree": 1},
+                         "extend": {"nmt_tree": 1, "dah_merkle": 1},
+                         "row_c": {"nmt_tree_rows": sp + 1, "dah_merkle": 1}}[call]}
+
+
+def row_blocks(k: int) -> list[tuple[tuple[int, int], tuple[int, int]]]:
+    """Row blocks of the (2k, 2k) grid for the row-block mode: (top rows
+    [a, b), bottom rows [c, d)). A range that starts in the top half and
+    ends in the bottom, ranges inside one half, one row, and each shard's
+    block of a (1, 2) and a (1, 4) mesh (its top rows, then its bottom rows
+    k rows on)."""
+    out = {((0, k), (k, 2 * k)), ((0, 1), (k, k)), ((k - 1, k), (k, 2 * k)),
+           ((0, 0), (2 * k - 1, 2 * k)), ((k // 2, k), (k, k + k // 2 + 1))}
+    for sp in (2, 4):
+        if k % sp == 0:
+            rp = k // sp
+            out |= {((i * rp, (i + 1) * rp), (k + i * rp, k + (i + 1) * rp)) for i in range(sp)}
+    return sorted(out)
+
+
+def multihost_worker(rank: int, world: int, port: int, path: str) -> int:
+    """One rank of phase 6i's second multi-host case: a gloo group (named:
+    NCCL refuses two ranks on one card), this rank's squares of the batch
+    in ``path`` extended on a (1, 2) mesh of virtual shards on cuda:0, and
+    every rank's DAHs gathered; prints them as one JSON line."""
+    import torch.distributed as dist
+
+    from celestia_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                         local_devices=["cuda:0", "cuda:0"])
+    try:
+        mesh = multihost.process_mesh(sp=2)
+        batch = np.load(path)
+        per = len(batch) // world
+        local = batch[rank * per:(rank + 1) * per]
+        fn = multihost.distributed_extend_and_root(mesh, batch.shape[1])
+        _eds, _rows, _cols, dah = fn(multihost.shard_batch_from_host(local, mesh))
+        dahs = multihost.gather_to_hosts(dah, mesh)
+        print(json.dumps({"rank": rank, "backend": dist.get_backend(), "mesh": mesh.shape,
+                          "device": str(dah.device), "dahs": [d.tobytes().hex() for d in dahs]}),
+              flush=True)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(dev, emit, same, squares: list, stream: list, tree_square, dev_bytes) -> int:
+    """Phase 6i: multi-GPU on the card (see the module docstring).
+    ``squares``: bench.py's square at k = 128, seeds 42-45; ``stream``: the
+    six squares of phase 6h; ``tree_square(k, kind)`` and ``dev_bytes``:
+    phase 2's namespace squares and random bytes on the card. Returns the
+    pipeline's launches of nmt_tree_rows (the main path the kernels line
+    reads). Every check raises; nothing is caught (the subprocesses are
+    killed on the way out)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from celestia_tpu_torch import da, parallel, tracing
+    from celestia_tpu_torch.appconsts import NAMESPACE_SIZE, SHARE_SIZE
+    from celestia_tpu_torch.node.pipeline import BlockPipeline
+    from celestia_tpu_torch.ops import _cuda, extend, nmt_cuda
+    from celestia_tpu_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    k = squares[0].shape[0]
+    zero = dict.fromkeys(_cuda.LAUNCHES, 0)
+    n_cards = torch.cuda.device_count()
+    card0 = torch.device("cuda", 0)
+
+    def counted(call):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        out = call()
+        torch.cuda.synchronize()
+        return out, dict(_cuda.LAUNCHES)
+
+    def wall_ms(call) -> float:
+        """Host ms of one call ended by a synchronize of the card."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    # (a) the tree's row-block mode against its plain version on the card:
+    # random digest grids under phase 2's namespace squares; the plain
+    # version once over all 2k rows with their levels and once over the
+    # grid's transpose (the column roots), the kernel on every row block of
+    # row_blocks(k) against the plain rows it covers, and on the transpose
+    cases = 0
+    for kk, kinds in MESH_TREE_CASES:
+        for kind in kinds:
+            grid = dev_bytes((2 * kk, 2 * kk, 32)).view(torch.int32).view(torch.uint32)
+            q0_ns = tree_square(kk, kind)[..., :NAMESPACE_SIZE]
+            quads = (grid[:kk, :kk], grid[:kk, kk:], grid[kk:, :kk], grid[kk:, kk:])
+            t_quads = tuple(q.transpose(0, 1) for q in (quads[0], quads[2], quads[1], quads[3]))
+            plain_rows, plain_levels = nmt_cuda.nmt_tree_rows_reference(quads, q0_ns, True)
+            plain_views = nmt_cuda.split_levels(plain_levels, kk)
+            plain_cols, _none = nmt_cuda.nmt_tree_rows_reference(t_quads, q0_ns.transpose(0, 1))
+            for (a, b), (c, d) in row_blocks(kk):
+                tiles = (grid[a:b, :kk], grid[a:b, kk:], grid[c:d, :kk], grid[c:d, kk:])
+                roots, levels = nmt_cuda.nmt_tree_rows(tiles, q0_ns[a:b] if b > a else None, True)
+                what = f"nmt_tree_rows k={kk} {kind} rows [{a}, {b}) + [{c}, {d})"
+                same("nmt_tree_rows", roots[0], torch.cat([plain_rows[0, a:b], plain_rows[0, c:d]]),
+                     f"{what}: roots")
+                for lv, (got, want) in enumerate(zip(
+                        nmt_cuda.split_levels(levels, kk, (b - a) + (d - c)), plain_views)):
+                    same("nmt_tree_rows", got, torch.cat([want[a:b], want[c:d]]),
+                         f"{what}: level {lv}")
+                cases += 1
+            cols, none = nmt_cuda.nmt_tree_rows(t_quads, q0_ns.transpose(0, 1))
+            check(none is None, "the row-block mode returned levels it was not asked for")
+            same("nmt_tree_rows", cols, plain_cols, f"nmt_tree_rows k={kk} {kind}: column roots")
+            whole, _none = nmt_cuda.nmt_tree(quads, q0_ns)
+            same("nmt_tree_rows", torch.stack([plain_rows[0], plain_cols[0]]), whole,
+                 f"k={kk} {kind}: the plain row-block mode against the tree kernel")
+            cases += 1
+    torch.cuda.synchronize()
+    emit(phase="kernel_vs_plain", kernel="nmt_tree_rows", cases=cases, tolerance=0,
+         ks={kk: list(kinds) for kk, kinds in MESH_TREE_CASES},
+         outputs=["row roots and levels of each row block", "column roots (the transpose)"],
+         seconds=time.perf_counter() - t_phase)
+
+    # (b) the single-device references, no mesh configured
+    parallel.configure_mesh(None)
+    sq = squares[0]
+    ref = extend.extend_and_root_device(sq, dev)
+    ref_levels = extend.eds_row_levels_device(ref[0], dev)
+    ref_entries = {
+        "roots_device": extend.roots_device(sq, dev),
+        "extend_roots_device": extend.extend_roots_device(sq, dev),
+        "extend_and_root_device": ref,
+        "eds_row_levels_device": ref_levels,
+    }
+    ref_stream = []
+    for s in stream:
+        eds, rows, cols, dah = extend.extend_and_root_device(s, dev)
+        ref_stream.append((eds, rows, cols, dah, extend.eds_row_levels_device(eds, dev)))
+    x = torch.from_numpy(sq).to(dev)
+
+    def event_ms(call) -> float:
+        """CUDA-event ms of one call on the current stream, its launches'
+        host gaps included."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def timed_turns(mesh) -> dict:
+        """MESH_REPS turns of sp = 1 (no mesh) then the mesh, each after one
+        untimed call (the mesh's builders rebuild after a flip): median ms
+        of roots_device and Row C by the host clock, and of Row C by CUDA
+        events."""
+        calls = {"roots_device": lambda: extend.roots_device(sq, dev),
+                 "row_c": lambda: extend.extend_root_levels_staged(x)}
+        out = {side: {"roots_device": [], "row_c": [], "row_c_event": []}
+               for side in ("sp1", "mesh")}
+        for _ in range(MESH_REPS):
+            for side in ("sp1", "mesh"):
+                parallel.configure_mesh(None if side == "sp1" else mesh)
+                for call in calls.values():
+                    call()
+                for name, call in calls.items():
+                    out[side][name].append(wall_ms(call))
+                out[side]["row_c_event"].append(event_ms(calls["row_c"]))
+        parallel.configure_mesh(mesh)
+        return {side: {name: statistics.median(v) for name, v in d.items()}
+                for side, d in out.items()}
+
+    def entries():
+        resident, rows, cols = extend.extend_roots_device_resident(sq, dev)
+        return {
+            "roots_device": extend.roots_device(sq, dev),
+            "extend_roots_device": extend.extend_roots_device(sq, dev),
+            "extend_roots_device_resident": (resident.cpu().numpy(), rows, cols),
+            "extend_and_root_device": extend.extend_and_root_device(sq, dev),
+            "eds_row_levels_device": extend.eds_row_levels_device(ref[0], dev),
+        }
+
+    ref_entries["extend_roots_device_resident"] = ref_entries["extend_roots_device"]
+
+    # (c) every mesh: the routed entries, Row C and the XOR spelling against
+    # the single-device route; a call's ms, launches and collective bytes
+    t_part = time.perf_counter()
+    layouts = [("virtual", [card0] * 4)]
+    if n_cards > 1:
+        layouts.append(("cards", [torch.device("cuda", i % n_cards) for i in range(4)]))
+    for layout, devices in layouts:
+        for dp, sp in MESH_SHAPES:
+            mesh = parallel.make_mesh(dp, sp, devices[:dp * sp])
+            parallel.configure_mesh(mesh)
+            check(extend._mesh_if_divisible(k) is mesh, f"{mesh} does not route k = {k}")
+            got = entries()
+            for name, want in ref_entries.items():
+                check(len(got[name]) == len(want)
+                      and all(np.array_equal(a, b) for a, b in zip(got[name], want)),
+                      f"{layout} mesh {(dp, sp)}: {name} differs from the single-device route")
+            row_c, row_c_counts = counted(lambda: extend.extend_root_levels_staged(x))
+            check(row_c_counts == {**zero, **mesh_launches(sp, "row_c")},
+                  f"mesh {(dp, sp)}: Row C launched {row_c_counts}")
+            check(all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(row_c[:4], ref))
+                  and len(row_c[4]) == len(ref_levels)
+                  and all(np.array_equal(a.cpu().numpy(), b)
+                          for a, b in zip(row_c[4], ref_levels)),
+                  f"mesh {(dp, sp)}: Row C differs from the unfused single-device pair")
+            xor_out = parallel.extend_and_root_rowsharded(mesh, k, xor=True)(sq)
+            check(all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(xor_out, ref)),
+                  f"mesh {(dp, sp)}: the XOR spelling differs from the dense one")
+            _out, roots_counts = counted(lambda: extend.roots_device(sq, dev))
+            check(roots_counts == {**zero, **mesh_launches(sp, "roots")},
+                  f"mesh {(dp, sp)}: roots_device launched {roots_counts}")
+            parallel.reset_collective_bytes()
+            extend.roots_device(sq, dev)
+            roots_bytes = dict(parallel.COLLECTIVE_BYTES)
+            parallel.reset_collective_bytes()
+            extend.extend_root_levels_staged(x)
+            row_c_bytes = dict(parallel.COLLECTIVE_BYTES)
+            ms = timed_turns(mesh)
+            emit(phase="mesh", part="entries", layout=layout, mesh=[dp, sp],
+                 devices=[str(d) for d in mesh.devices.reshape(-1)], device_count=n_cards, k=k,
+                 identical=sorted(ref_entries) + ["row_c", "xor"],
+                 roots_device_ms=ms["mesh"]["roots_device"],
+                 roots_device_sp1_ms=ms["sp1"]["roots_device"],
+                 row_c_ms=ms["mesh"]["row_c"], row_c_sp1_ms=ms["sp1"]["row_c"],
+                 row_c_event_ms=ms["mesh"]["row_c_event"],
+                 row_c_event_sp1_ms=ms["sp1"]["row_c_event"],
+                 launches={"roots_device": {n: c for n, c in roots_counts.items() if c},
+                           "row_c": {n: c for n, c in row_c_counts.items() if c}},
+                 collective_bytes={"roots_device": roots_bytes, "row_c": row_c_bytes},
+                 seconds=time.perf_counter() - t_part,
+                 note="shards of one card run in turn: the cost of sharding, not a speed-up"
+                 if layout == "virtual" else "shards on distinct cards")
+            t_part = time.perf_counter()
+    if n_cards == 1:
+        emit(phase="mesh", part="distinct_cards", device_count=n_cards,
+             ran=False, note="one card: the meshes over distinct cards need two or more")
+
+    # (d) a k that sp = 3 does not divide falls back to the single-device route
+    parallel.configure_mesh(parallel.make_mesh(1, 3, [card0] * 3))
+    check(extend._mesh_if_divisible(k) is None, f"sp = 3 routes k = {k}")
+    tracing.enable()
+    try:
+        with tracing.record() as rec:
+            fallback, counts = counted(lambda: extend.roots_device(sq, dev))
+    finally:
+        tracing.disable()
+    sharded = [s.attrs["sharded"] for s in rec.spans if s.name == "extend.rs_nmt"]
+    check(all(np.array_equal(a, b) for a, b in zip(fallback, ref_entries["roots_device"]))
+          and sharded == [False]
+          and counts == {**zero, "leaf_digests2d": 1, "encode2d_hash": 3, "nmt_tree": 1},
+          f"sp = 3 at k = {k}: {counts}, sharded {sharded}")
+    emit(phase="mesh", part="fallback", mesh=[1, 3], k=k, sharded=sharded[0], launches={
+        n: c for n, c in counts.items() if c})
+
+    # (e) the main path: phase 6h's six squares through a 3-deep pipeline
+    # on the (1, 2) mesh, the launches counted
+    dp, sp = MESH_MAIN
+    parallel.configure_mesh(parallel.make_mesh(dp, sp, [card0] * (dp * sp)))
+    pipe = BlockPipeline(k, depth=3, device=dev)
+    (blocks, stream_s), p_counts = counted(lambda: stream_blocks(pipe, stream))
+    want = {**zero, **{n: c * len(stream) for n, c in mesh_launches(sp, "row_c").items()}}
+    emit(phase="main_path", entry="BlockPipeline.feed", mesh=[dp, sp], k=k, blocks=len(stream),
+         depth=3, launches=p_counts, stream_s=stream_s)
+    check(p_counts == want, f"the mesh pipeline launched {p_counts}: {want} expected")
+    check([b.height for b in blocks] == list(range(len(stream)))
+          and all(same_block(b, ref_stream[b.height]) for b in blocks),
+          "a block of the mesh pipeline differs from the single-device entries")
+    parallel.configure_mesh(None)
+    del blocks
+
+    # (f) multi-host, first case: a one-rank NCCL group runs the batch on a
+    # (1, 2) mesh of virtual shards and gathers its DAH
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, local_devices=[card0, card0])
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", f"a group of CUDA devices formed over {backend}")
+        mesh = multihost.process_mesh(sp=2)
+        out = multihost.distributed_extend_and_root(mesh, k)(
+            multihost.shard_batch_from_host(np.stack(squares[:1]), mesh))
+        nccl_dahs = multihost.gather_to_hosts(out[3], mesh)
+    finally:
+        multihost.shutdown()
+    check(nccl_dahs.shape == (1, 32) and nccl_dahs[0].tobytes() == ref[3].tobytes(),
+          "the NCCL group's gathered DAH differs from the single-device DAH")
+
+    # (g) multi-host, second case: two processes on the one card over gloo,
+    # each extending its dp square; every rank's gathered DAHs against the
+    # host path's
+    batch = np.stack(squares[:2])
+    host_dahs = [da.new_data_availability_header(da.extend_shares(
+        s.reshape(-1, SHARE_SIZE))).hash().hex() for s in batch]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    procs = []
+    try:
+        path = os.path.join(tmp, "batch.npy")
+        np.save(path, batch)
+        port = free_port()
+        t = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--multihost-worker", str(r), "2", str(port), path],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        outs = [p.communicate(timeout=240) for p in procs]
+        gloo_s = time.perf_counter() - t
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    docs = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"multi-host rank {r} exited {p.returncode}: {err[-2000:]}")
+        docs.append(json.loads(out.strip().splitlines()[-1]))
+    check(all(d["backend"] == "gloo" and d["device"] == "cuda:0" and d["dahs"] == host_dahs
+              for d in docs), f"the gloo ranks' DAHs differ from the host path's: {docs}")
+    emit(phase="mesh", part="multihost", k=k,
+         nccl={"ranks": 1, "mesh": [1, 2], "dah": nccl_dahs[0].tobytes().hex()},
+         gloo={"ranks": 2, "mesh_per_rank": [1, 2], "global_dp": 2, "seconds": gloo_s,
+               "dahs": host_dahs}, phase_seconds=time.perf_counter() - t_phase)
+    return p_counts["nmt_tree_rows"]
+
+
+def mesh_only(dev, emit, same, bench_square, tree_square, dev_bytes, smi_line: str) -> int:
+    """``--mesh-only``: phase 6i alone, after the build, on phase 6i's
+    squares. On several cards its meshes over distinct cards run beside the
+    virtual ones. Prints the card's line last and no ``ok`` line: this is
+    not the smoke run."""
+    t = time.perf_counter()
+    rows_launches = mesh_phase(dev, emit, same, [bench_square(SERVING_K, s) for s in MESH_SEEDS],
+                               [bench_square(SERVING_K, s) for s in LANE_SEEDS], tree_square,
+                               dev_bytes)
+    emit(phase="mesh_only", seconds=time.perf_counter() - t,
+         pipeline_launches={"nmt_tree_rows": rows_launches})
+    print(smi_line, flush=True)
+    return 0
+
+
 def assembly_case(k: int, seed: int, family: str) -> dict[str, np.ndarray]:
     """Inputs of ``extend.assembled_roots`` (its host arrays, and the arena's
     bytes) for one of ASSEMBLY_FAMILIES at k: blobs at strictly ascending
@@ -2161,11 +2566,18 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--sass-out", default=None,
                     help="also write the SASS of K2, K3 and the tree kernel "
                          "(cuobjdump -sass) here")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build the kernels and run phase 6i (multi-GPU) alone")
+    # phase 6i starts this script again as the ranks of its gloo group
+    ap.add_argument("--multihost-worker", nargs=4, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if args.multihost_worker:
+        rank, world, port, path = args.multihost_worker
+        return multihost_worker(int(rank), int(world), int(port), path)
 
     from celestia_tpu_torch import da, faults, integrity
     from celestia_tpu_torch import namespace as ns
@@ -2210,6 +2622,29 @@ def main(argv: list[str]) -> int:
     def dev_bytes(shape) -> torch.Tensor:
         return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to(dev)
 
+    # phase 2's namespace squares (the tree kernel's cases)
+    def tree_square(k: int, kind: str) -> torch.Tensor:
+        sq = rng.integers(0, 256, size=(k, k, SHARE_SIZE), dtype=np.uint8)
+        subs = sorted(rng.integers(0, 200, size=(k * k, 10), dtype=np.uint8).tolist())
+        nss = [ns.new_v0(bytes(sub)).bytes for sub in subs]
+        if kind == "tail_padding":
+            nss[k * k - max(1, k * k // 3):] = [ns.TAIL_PADDING_NAMESPACE.bytes] * max(1, k * k // 3)
+        elif kind == "single_namespace":
+            nss = [nss[0]] * (k * k)
+        sq.reshape(k * k, SHARE_SIZE)[:, :NAMESPACE_SIZE] = np.frombuffer(
+            b"".join(nss), np.uint8).reshape(k * k, NAMESPACE_SIZE)
+        return torch.from_numpy(sq).to(dev)
+
+    # bench.py's square (phases 6 to 7)
+    def bench_square(kk: int, seed: int = 42) -> np.ndarray:
+        """bench.py's build_square(kk, seed): sorted v0 namespaces."""
+        r = np.random.default_rng(seed)
+        flat = r.integers(0, 256, size=(kk * kk, SHARE_SIZE), dtype=np.uint8)
+        subs = sorted(r.integers(0, 200, size=(kk * kk, 10), dtype=np.uint8).tolist())
+        for i, sub in enumerate(subs):
+            flat[i, :NAMESPACE_SIZE] = np.frombuffer(ns.new_v0(bytes(sub)).bytes, np.uint8)
+        return flat.reshape(kk, kk, SHARE_SIZE)
+
     phase_start("1")
     # ---- phase 1: environment and build
     emit(phase="environment", python=sys.version.split()[0], torch=torch.__version__,
@@ -2222,6 +2657,8 @@ def main(argv: list[str]) -> int:
     for line in _cuda.build_log().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line or "error" in line:
             print("ptxas:", line.strip(), file=sys.stderr)
+    if args.mesh_only:
+        return mesh_only(dev, emit, same, bench_square, tree_square, dev_bytes, smi_line)
     sha_kernels = ("leaf_digests2d_kernel", "sha256_words_kernel", "nmt_tree_kernel",
                    "dah_merkle_kernel")
     for name, report in ptxas_report(_cuda.build_log()).items():
@@ -2408,19 +2845,7 @@ def main(argv: list[str]) -> int:
     # Q3 [col, row] tensors passed transposed, the namespaces a view of the
     # shares): the roots of both families (an extend's call), and the row
     # roots with every row level (eds_row_levels_device's), against the
-    # plain level loop
-    def tree_square(k: int, kind: str) -> torch.Tensor:
-        sq = rng.integers(0, 256, size=(k, k, SHARE_SIZE), dtype=np.uint8)
-        subs = sorted(rng.integers(0, 200, size=(k * k, 10), dtype=np.uint8).tolist())
-        nss = [ns.new_v0(bytes(sub)).bytes for sub in subs]
-        if kind == "tail_padding":
-            nss[k * k - max(1, k * k // 3):] = [ns.TAIL_PADDING_NAMESPACE.bytes] * max(1, k * k // 3)
-        elif kind == "single_namespace":
-            nss = [nss[0]] * (k * k)
-        sq.reshape(k * k, SHARE_SIZE)[:, :NAMESPACE_SIZE] = np.frombuffer(
-            b"".join(nss), np.uint8).reshape(k * k, NAMESPACE_SIZE)
-        return torch.from_numpy(sq).to(dev)
-
+    # plain level loop, under tree_square's namespaces
     for k in (1, 2, 4, 8, 16, 32, 64, 128):
         for kind in ("random", "tail_padding", "single_namespace"):
             grid = dev_bytes((2 * k, 2 * k, 32)).view(torch.int32).view(torch.uint32)
@@ -2831,15 +3256,6 @@ def main(argv: list[str]) -> int:
     # ---- phase 6: EDS repair, the repair-after-extend path of a catching-up
     # node (BASELINE config 4): bench.py's square and masks at k = 128 and 64
     from celestia_tpu_torch.ops import repair, repair_cuda
-
-    def bench_square(kk: int, seed: int = 42) -> np.ndarray:
-        """bench.py's build_square(kk, seed): sorted v0 namespaces."""
-        r = np.random.default_rng(seed)
-        flat = r.integers(0, 256, size=(kk * kk, SHARE_SIZE), dtype=np.uint8)
-        subs = sorted(r.integers(0, 200, size=(kk * kk, 10), dtype=np.uint8).tolist())
-        for i, sub in enumerate(subs):
-            flat[i, :NAMESPACE_SIZE] = np.frombuffer(ns.new_v0(bytes(sub)).bytes, np.uint8)
-        return flat.reshape(kk, kk, SHARE_SIZE)
 
     # the decode sweep at every power of two k to 32: one random 25% mask
     # (the first of its seed's draws that a repair can undo), every sweep
@@ -3806,6 +4222,16 @@ def main(argv: list[str]) -> int:
                {kk: bench_square(kk, 42) for kk in CODEC_KS},
                {kk: repair_masks(kk)[0][1] for kk in CODEC_KS})
 
+    phase_start("6i")
+    # ---- phase 6i: multi-GPU. The tree's row-block mode against its plain
+    # version; the routed entries, Row C and the XOR spelling on meshes of
+    # shards against the single-device route, with their ms, launches and
+    # collective bytes; the fallback; the pipeline on a mesh; and the
+    # multi-process runtime over NCCL (one rank) and gloo (two processes)
+    launches["nmt_tree_rows"] = mesh_phase(
+        dev, emit, same, [bench_square(sk, seed) for seed in MESH_SEEDS],
+        [bench_square(sk, seed) for seed in LANE_SEEDS], tree_square, dev_bytes)
+
     phase_start("7")
     # ---- phase 7: timing
     def bound(ops_s: float, nbytes: float) -> tuple[float, str]:
@@ -3939,6 +4365,23 @@ def main(argv: list[str]) -> int:
         tree_calls[f"nmt_tree_levels_{kk}"] = (kk, 1, (sliced, q0_ns), {"keep_levels": True})
     for name, (_kk, _f, a, kw) in tree_calls.items():
         calls[name] = (lambda a=a, kw=kw: nmt_cuda.nmt_tree(*a, **kw))
+    # the row-block mode at k = 128 as Row C on the pipeline's (1, 2) mesh
+    # calls it: a shard's block (its k/2 top and k/2 bottom rows, with their
+    # levels) and the gathered grid's transpose (the column roots)
+    rows_grid = dev_bytes((2 * k, 2 * k, 32)).view(torch.int32).view(torch.uint32)
+    rows_ns = torch.from_numpy(main_sq).to(dev)[..., :NAMESPACE_SIZE]
+    rp = k // MESH_MAIN[1]
+    rows_calls = {
+        f"nmt_tree_rows_shard_{k}": (k, rp, rp, ((
+            rows_grid[:rp, :k], rows_grid[:rp, k:], rows_grid[k:k + rp, :k],
+            rows_grid[k:k + rp, k:]), rows_ns[:rp]), {"keep_levels": True}),
+        f"nmt_tree_rows_cols_{k}": (k, k, k, ((
+            rows_grid[:k, :k].transpose(0, 1), rows_grid[k:, :k].transpose(0, 1),
+            rows_grid[:k, k:].transpose(0, 1), rows_grid[k:, k:].transpose(0, 1)),
+            rows_ns.transpose(0, 1)), {}),
+    }
+    for name, (_kk, _t, _b, a, kw) in rows_calls.items():
+        calls[name] = (lambda a=a, kw=kw: nmt_cuda.nmt_tree_rows(*a, **kw))
     # the layout's levers on K6 at k = 128: the conflict-free order undone
     # for the rows, for the nodes, and the rows split over 8 groups, not 4
     levers = {"xor_lever_rows_shuffled": (ops.layout, (True, False)),
@@ -4010,6 +4453,9 @@ def main(argv: list[str]) -> int:
                                                reps=3)
     for name, (_kk, _f, a, kw) in tree_calls.items():
         plain_ms[name] = cuda_ms(lambda a=a, kw=kw: nmt_cuda.nmt_tree_reference(*a, **kw),
+                                 reps=3)
+    for name, (_kk, _t, _b, a, kw) in rows_calls.items():
+        plain_ms[name] = cuda_ms(lambda a=a, kw=kw: nmt_cuda.nmt_tree_rows_reference(*a, **kw),
                                  reps=3)
 
     # end to end, the routes in turns (sample i of every route back to back,
@@ -4256,8 +4702,29 @@ def main(argv: list[str]) -> int:
              level_floor_ms=level_floor * 1e3, row_bound_ms=b_ms, bound_by=b_by)
         if name == f"nmt_tree_both_{k}":
             results["nmt_tree"] = (dev_ms[name], event_ms[name], plain_ms[name], (b_ms, b_by))
+    # the row-block mode: its rows' inner nodes (families = rows / 2k) and
+    # one tree's chain; the digests read, the top rows' namespaces, the roots
+    # and the levels written
+    for name, (kk, top, bottom, _a, kw) in rows_calls.items():
+        rows = top + bottom
+        throughput, chain = nmt_tree_floor(kk, rows / (2 * kk), sha_alu, sha_fma, round_alu,
+                                           round_fma)
+        w = 2 * kk
+        nbytes = rows * w * 32 + top * kk * NAMESPACE_SIZE + rows * 90
+        if kw.get("keep_levels"):
+            nbytes += rows * (2 * w - 1) * 90
+        b_ms, b_by = bound(max(throughput, chain), nbytes)
+        emit(phase="timing", kernel="nmt_tree_rows", k=kk, call=name, top_rows=top,
+             bottom_rows=bottom, keep_levels=bool(kw.get("keep_levels")), device_ms=dev_ms[name],
+             launch_range_ms=[min(per_launch[name]), max(per_launch[name])],
+             event_ms=event_ms[name], plain_ms=plain_ms[name], bound_ms=throughput * 1e3,
+             chain_floor_ms=chain * 1e3, row_bound_ms=b_ms, bound_by=b_by)
+        if name == f"nmt_tree_rows_shard_{k}":
+            results["nmt_tree_rows"] = (dev_ms[name], event_ms[name], plain_ms[name],
+                                        (b_ms, b_by))
     for kname, (t_d, t_e, t_p, (b_ms, b_by)) in results.items():
-        if kname not in ("leaf_digests2d", "nmt_tree", "sha256_words", "dah_merkle"):
+        if kname not in ("leaf_digests2d", "nmt_tree", "nmt_tree_rows", "sha256_words",
+                         "dah_merkle"):
             floors = xor_floors if kname.startswith("encode2d_xor") else {}
             emit(phase="timing", kernel=kname, k=k, device_ms=t_d, event_ms=t_e, plain_ms=t_p,
                  bound_ms=b_ms, bound_by=b_by, **floors)

@@ -319,12 +319,15 @@ def _chain_source() -> str:
 
 
 def test_kernel_sources_name_every_kernel_of_the_port():
-    """The ``kernels`` line lists all eleven kernels: every wrapper's launch
-    count, its source in the repo and the line of the JAX code it replaces."""
+    """The ``kernels`` line lists all twelve kernels (the tree's row-block
+    mode with a row of its own): every wrapper's launch count, its source in
+    the repo and the line of the JAX code it replaces."""
     from celestia_tpu_torch.ops import _cuda
 
     assert list(chip_smoke.KERNEL_SOURCES) == list(_cuda.LAUNCHES)
-    assert len(chip_smoke.KERNEL_SOURCES) == 11
+    assert len(chip_smoke.KERNEL_SOURCES) == 12
+    assert "nmt_reduce_levels(" in (REPO / "celestia_tpu/parallel/__init__.py").read_text(
+        ).splitlines()[337]
     for name, (source, replaces) in chip_smoke.KERNEL_SOURCES.items():
         assert (REPO / source).is_file(), name
         path, line = replaces.split(":")
@@ -1007,3 +1010,81 @@ def test_lane_docs_are_the_nodes_documents():
     node._eds_cache.put(1, eds)
     coords = [(0, 1), (3, 3), (2, 0)]
     assert chip_smoke.lane_docs(eds, coords, k) == node.sample_batch(1, coords)
+
+
+# ---- the multi-GPU phase (6i)
+
+
+def test_mesh_phase_catches_no_failure():
+    """Phase 6i holds no except clause (its try blocks only clean up and
+    stop the processes it starts): a byte difference, a launch count, a
+    routed mesh, a fallback, a pipelined block or a rank's DAH raises. main
+    runs it after phase 6h, and its pipeline's launches feed the kernels
+    line's row-block mode."""
+    import ast
+    import inspect
+    import textwrap
+
+    src = inspect.getsource(chip_smoke.mesh_phase)
+    tree = ast.parse(textwrap.dedent(src))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    for name in ("nmt_tree_rows_reference", "row_blocks(kk)", "MESH_SHAPES",
+                 "n_cards > 1", "configure_mesh(mesh)", "ref_entries.items()",
+                 'mesh_launches(sp, "row_c")', 'mesh_launches(sp, "roots")', "xor=True",
+                 "make_mesh(1, 3", "sharded == [False]", "same_block(b, ref_stream[b.height])",
+                 'backend == "nccl"', '"--multihost-worker"', "host_dahs", "p.kill()",
+                 "shutil.rmtree(tmp", 'part="multihost"'):
+        assert name in src, name
+    assert src.count("check(") >= 12
+    main = inspect.getsource(chip_smoke.main)
+    assert 'launches["nmt_tree_rows"] = mesh_phase(' in main
+    assert main.index("lane_phase(") < main.index("mesh_phase(") < main.index("# ---- phase 7")
+    assert "multihost_worker(int(rank), int(world), int(port), path)" in main
+    worker = inspect.getsource(chip_smoke.multihost_worker)
+    assert 'backend="gloo"' in worker and "multihost.shutdown()" in worker
+
+
+def test_mesh_only_runs_phase_6i_alone_after_the_build():
+    """``--mesh-only`` (the cross-card reading on a machine of several
+    cards) returns from main after the build, before phase 2, through
+    ``mesh_only``, which runs phase 6i on its squares, prints the card's
+    line and no ``ok`` line; with no arguments main runs every phase."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    branch = main.index("return mesh_only(")
+    assert main.index("lib = _cuda.library()") < main.index("if args.mesh_only:") < branch
+    assert branch < main.index("# ---- phase 2")
+    assert main.index("def tree_square(") < branch and main.index("def bench_square(") < branch
+    src = inspect.getsource(chip_smoke.mesh_only)
+    assert "mesh_phase(dev, emit, same," in src and "MESH_SEEDS" in src and "LANE_SEEDS" in src
+    assert "print(smi_line" in src and '"ok"' not in src
+    assert "--mesh-only" in chip_smoke.__doc__
+    assert chip_smoke.main.__code__.co_argcount == 1
+
+
+def test_mesh_launches_are_the_single_device_routes_per_shard():
+    """A mesh of sp shards launches K2 once and K1 three times a shard; at
+    sp = 1 a roots call is the App's ExtendBlock set, and Row C hashes each
+    shard's rows and the transpose with the row-block mode."""
+    assert chip_smoke.mesh_launches(1, "roots") == chip_smoke.APP_LAUNCHES["extend_block"]
+    assert chip_smoke.mesh_launches(2, "row_c") == {
+        "leaf_digests2d": 2, "encode2d_hash": 6, "nmt_tree_rows": 3, "dah_merkle": 1}
+    assert chip_smoke.mesh_launches(4, "extend") == {
+        "leaf_digests2d": 4, "encode2d_hash": 12, "nmt_tree": 1, "dah_merkle": 1}
+    assert chip_smoke.MESH_MAIN in chip_smoke.MESH_SHAPES
+    assert chip_smoke.MESH_SEEDS == chip_smoke.LANE_SEEDS[:4]
+
+
+@pytest.mark.parametrize("k", [1, 2, 8, 128])
+def test_row_blocks_are_blocks_of_the_grid(k):
+    """Every block is top rows below k and bottom rows from k, at least one
+    row, and the shard blocks of the (1, 2) and (1, 4) meshes are there."""
+    blocks = chip_smoke.row_blocks(k)
+    for (a, b), (c, d) in blocks:
+        assert 0 <= a <= b <= k <= c <= d <= 2 * k and (b - a) + (d - c) >= 1
+    for sp in (2, 4):
+        if k % sp == 0:
+            rp = k // sp
+            assert ((0, rp), (k, k + rp)) in blocks
+            assert (((sp - 1) * rp, k), (k + (sp - 1) * rp, 2 * k)) in blocks

@@ -199,6 +199,27 @@ def test_the_renamed_counters_count_alike(jax_name):
     assert metrics.get_counter(jax_name, entry=entry) == 0
 
 
+def test_key_extra_makes_ambient_state_part_of_the_key():
+    """The JAX package's case on both ledgers: a flip of the mesh that the
+    arguments do not carry is a new key, and so a retrace after warm-up."""
+    for p in ("jax", "port"):
+        led = MODULES[p].DeviceLedger()
+        mesh = {"shape": (8,)}
+
+        @led.instrument_builder("t.mesh", key_extra=lambda: mesh["shape"])
+        def build(k):
+            return lambda: k
+
+        build(2)()
+        led.end_warmup()
+        build(2)()  # same args, same mesh: a known key
+        assert led.retrace_count() == 0, p
+        mesh["shape"] = (4, 2)
+        build(2)()  # same args, another mesh: a new key
+        assert led.retrace_count() == 1, p
+        assert [r["key"] for r in led.retraces()] == ["(2)|(4, 2)"], p
+
+
 def test_the_build_histogram_and_span_are_renamed():
     from celestia_tpu_torch import tracing
 

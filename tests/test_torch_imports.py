@@ -20,6 +20,7 @@ from celestia_tpu_torch.da import repair as da_repair
 from celestia_tpu_torch.node import Node, eds_cache
 from celestia_tpu_torch.node.pipeline import BlockPipeline
 from celestia_tpu_torch.ops import blob_pool, extend, ragged, repair, transfers
+from celestia_tpu_torch.parallel import multihost
 from celestia_tpu_torch.shares import tail_padding_share
 from celestia_tpu_torch.shares.splitters import Range
 from celestia_tpu_torch.service import CodecBackend
@@ -48,6 +49,8 @@ NODE_STACK = ("node.consensus", "app.export", "config", "user", "testutil",
 # and the codec service
 DEVICE_LANE = ("devledger", "node.dispatch", "node.pipeline", "service", "service.wire",
                "service.codec_service")
+# multi-GPU: the mesh and the multi-process runtime (torch.distributed)
+MULTI_GPU = ("parallel", "parallel.multihost")
 
 
 def _forbidden(module: str) -> bool:
@@ -84,7 +87,7 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
                  "shares.info_byte", "shares.splitters", "shares.parse", "inclusion",
                  "inclusion.cache", "square", "ops.blob_pool", "ops.assemble",
                  "ops.assemble_cuda", "app.proposal", "log", "store", "store.powercut",
-                 "cli", *STATE_MACHINE, *APP_STACK, *NODE_STACK, *DEVICE_LANE):
+                 "cli", *STATE_MACHINE, *APP_STACK, *NODE_STACK, *DEVICE_LANE, *MULTI_GPU):
         assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
@@ -173,6 +176,7 @@ ENTRIES = {
     "measure_xor_crossover": lambda: calibration.measure_xor_crossover((1,)),
     "BlockPipeline": lambda: BlockPipeline(1),
     "CodecBackend": lambda: CodecBackend(),
+    "multihost.initialize": lambda: multihost.initialize("127.0.0.1:1", 1, 0),
 }
 
 
