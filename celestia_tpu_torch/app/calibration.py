@@ -116,6 +116,13 @@ class CrossoverTable:
             return None
 
 
+def crossover_path(home: str | pathlib.Path) -> pathlib.Path:
+    """A node home's measured backend table (``cli start`` loads it, and
+    ``--calibrate-crossover`` writes it): ``<home>/config/crossover.json``,
+    the config directory of ``config.config_dir`` spelled out."""
+    return pathlib.Path(home) / "config" / FILENAME
+
+
 _default_table: "CrossoverTable | None" = None
 _default_loaded = False
 
@@ -125,7 +132,10 @@ def load_default_table() -> "CrossoverTable | None":
     every fresh App attaches; ``App.calibrate_crossover()`` (or assigning
     ``App.crossover``) overrides it, and the App re-checks each
     winner against the backends it has. Loaded once per process; None when
-    absent or corrupt."""
+    absent or corrupt. The file carries ``measured_at`` 0, as the JAX
+    package's does: a committed default is never stale to the readiness
+    check (``slo.readiness``); its ``card`` and ``power_limit`` say where it
+    was measured."""
     global _default_table, _default_loaded
     if not _default_loaded:
         _default_table = CrossoverTable.load(CROSSOVER_TABLE_PATH)

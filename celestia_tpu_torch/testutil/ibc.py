@@ -1,5 +1,5 @@
-"""IBC test coordinator (port of the JAX package's testutil/ibc.py, all but
-the relayer over the RPC) — two in-process chains + a relayer.
+"""IBC test coordinator (port of the JAX package's testutil/ibc.py) — two
+in-process chains + a relayer, and a relayer over the public RPC.
 
 The reference exercises its IBC stack through ibctesting's coordinator
 (two chains, direct channel opens, manual packet relay). Same shape here:
@@ -391,3 +391,129 @@ class LightClientRelayer:
         if res.code != 0:
             raise RuntimeError(f"timeout relay failed: {res.log}")
         src_node.produce_block(src_time)
+
+
+class RemoteLightClientRelayer:
+    """The LightClientRelayer speaking ONLY the public node APIs — no
+    in-process store access. Everything a real out-of-process relayer
+    needs is served remotely: pending packets / acks / unsigned header
+    material over the IBC query routes, commitment proofs over
+    /proof/state, txs over broadcast_tx. Validator keys are held by the
+    harness (they sign header commits, as the chain's validators
+    would). The clients are the port's ``RpcClient`` (or its
+    ``GrpcClient``, which has the same relayer surface)."""
+
+    def __init__(self, client_a, client_b, relayer_key_a, relayer_key_b,
+                 val_keys_a, val_keys_b,
+                 client_id_a: str = "07-tendermint-0",
+                 client_id_b: str = "07-tendermint-0"):
+        from celestia_tpu_torch.user import Signer as _Signer
+
+        self.client_a, self.client_b = client_a, client_b
+        self.signer_a = _Signer.setup_single(relayer_key_a, client_a)
+        self.signer_b = _Signer.setup_single(relayer_key_b, client_b)
+        self.val_keys = {id(client_a): val_keys_a, id(client_b): val_keys_b}
+        self.client_on = {id(client_a): client_id_a, id(client_b): client_id_b}
+
+    def update_client(self, src, dst, dst_signer) -> int:
+        """Sync dst's light client with src's latest signed header,
+        entirely over the wire."""
+        from celestia_tpu_torch.x.lightclient import MsgUpdateClient
+
+        signed = sign_header(src.ibc_header(), self.val_keys[id(src)])
+        res = dst_signer.submit_tx([
+            MsgUpdateClient(
+                self.client_on[id(dst)], signed, dst_signer.address()
+            )
+        ])
+        if res.code != 0 and "not newer" not in res.log:
+            raise RuntimeError(f"client update failed: {res.log}")
+        return signed.header.height
+
+    def relay(self, produce_block_a, produce_block_b,
+              channel_a: str = "channel-0", channel_b: str = "channel-0") -> int:
+        """One relay round over the public APIs. Block production stays
+        with the chains' own drivers (`produce_block_*` callables) —
+        the relayer never reaches into a node."""
+        n = self._relay_direction(
+            self.client_a, self.client_b, self.signer_b, self.signer_a,
+            channel_a, produce_block_a, produce_block_b,
+        )
+        n += self._relay_direction(
+            self.client_b, self.client_a, self.signer_a, self.signer_b,
+            channel_b, produce_block_b, produce_block_a,
+        )
+        return n
+
+    def _update_and_prove(self, src, dst, dst_signer, produce_dst,
+                          keys: list, retries: int = 3):
+        """Verify src's latest header on dst, then fetch proofs for
+        `keys` — retrying when src commits a block BETWEEN the header
+        fetch and a proof fetch (the proof would then be against a
+        newer root than the verified consensus state). /proof/state
+        returns the atomic (proof, height) pair, which is what makes
+        the race detectable."""
+        for _ in range(retries):
+            height = self.update_client(src, dst, dst_signer)
+            produce_dst()
+            proofs = [src.state_proof(key) for key in keys]
+            if all(p["height"] == height for p in proofs):
+                return height, [p["proof"] for p in proofs]
+        raise RuntimeError(
+            "source chain kept advancing between header and proof fetches"
+        )
+
+    def _relay_direction(self, src, dst, dst_signer, src_signer,
+                         src_channel: str, produce_src, produce_dst) -> int:
+        from celestia_tpu_torch.x.ibc import (
+            packet_ack_key,
+            packet_commitment_key,
+        )
+
+        packets = src.ibc_pending_packets(PORT_ID_TRANSFER, src_channel)
+        if not packets:
+            return 0
+        height, proofs = self._update_and_prove(
+            src, dst, dst_signer, produce_dst,
+            [
+                packet_commitment_key(
+                    p.source_port, p.source_channel, p.sequence
+                )
+                for p in packets
+            ],
+        )
+        for packet, proof in zip(packets, proofs):
+            res = dst_signer.submit_tx([
+                MsgRecvPacket(packet, dst_signer.address(), proof, height)
+            ])
+            if res.code != 0:
+                raise RuntimeError(f"recv relay failed: {res.log}")
+        produce_dst()
+        acks = []
+        for packet in packets:
+            ack = dst.ibc_ack(
+                packet.destination_port, packet.destination_channel,
+                packet.sequence,
+            )
+            if ack is None:
+                raise RuntimeError(f"no ack written for packet {packet.sequence}")
+            acks.append(ack)
+        ack_height, ack_proofs = self._update_and_prove(
+            dst, src, src_signer, produce_src,
+            [
+                packet_ack_key(
+                    p.destination_port, p.destination_channel, p.sequence
+                )
+                for p in packets
+            ],
+        )
+        for packet, ack, proof in zip(packets, acks, ack_proofs):
+            res = src_signer.submit_tx([
+                MsgAcknowledgement(
+                    packet, ack, src_signer.address(), proof, ack_height
+                )
+            ])
+            if res.code != 0:
+                raise RuntimeError(f"ack relay failed: {res.log}")
+        produce_src()
+        return len(packets)

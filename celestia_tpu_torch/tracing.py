@@ -15,6 +15,11 @@ card that served them and the fault-site strikes that hit during them.
    flight recorder); unbounded collection happens only inside
    ``record()``.
 
+The cross-process trace context (``X-Trace-Context``: ``TraceContext``,
+``extract``, ``mint``) binds an RPC request's span into its caller's trace,
+and ``start_recording`` with ``chrome_trace`` exports every span as Chrome
+trace-event JSON (``cli start --trace-out``).
+
 Also here: stage sinks (per-request accumulators of stage durations that
 the transfers feed with ``add_stage``, and ``merge_stages`` folds in from
 the dispatcher's thread) and fenced device-time profiling
@@ -25,6 +30,8 @@ and emits a ``profile.fence`` span).
 from __future__ import annotations
 
 import collections
+import json
+import os
 import threading
 import time
 
@@ -34,6 +41,79 @@ FLIGHT_CAPACITY = 256
 
 # one anchor so span timestamps are monotonic yet near wall-clock time
 _EPOCH_OFFSET = time.time() - time.perf_counter()
+
+# ---------------------------------------------------------------------- #
+# cross-process trace context
+#
+# W3C-traceparent-style header: ``00-<trace_id>-<span_id>-<flags>`` where
+# trace_id is 32 lowercase hex (128-bit, minted once per request by the
+# client, prober or gateway), span_id is a 16-hex WIRE span id, and flags
+# is 2 hex. Local span ids are a per-process counter; the wire form
+# prefixes the low 32 bits of the pid so ids from different processes never
+# collide in a merged trace: ``pid8hex + local_id8hex``.
+
+TRACE_HEADER = "X-Trace-Context"
+TRACE_ID_HEADER = "X-Trace-Id"
+
+
+class TraceContext:
+    """Parsed ``X-Trace-Context``: the caller's trace id and wire span id."""
+
+    __slots__ = ("trace_id", "span_id", "flags")
+
+    def __init__(self, trace_id: str, span_id: str, flags: int = 1):
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.flags = flags
+
+    def header_value(self) -> str:
+        return f"00-{self.trace_id}-{self.span_id}-{self.flags:02x}"
+
+    def __repr__(self) -> str:
+        return f"TraceContext({self.header_value()!r})"
+
+
+def mint_trace_id() -> str:
+    """A fresh 128-bit trace id (lowercase hex)."""
+    return os.urandom(16).hex()
+
+
+def wire_span_id(span_or_id) -> str:
+    """16-hex process-unique span id: the pid's low bits and the local id."""
+    local = span_or_id.span_id if isinstance(span_or_id, Span) else span_or_id
+    return f"{os.getpid() & 0xFFFFFFFF:08x}{(local or 0) & 0xFFFFFFFF:08x}"
+
+
+def mint(trace_id: str | None = None) -> TraceContext:
+    """An outbound context (client or prober side). The span id is a fresh
+    wire id, so server spans have a well-formed remote parent even when
+    the caller opens no local span."""
+    return TraceContext(trace_id or mint_trace_id(), wire_span_id(_tracer.new_id()))
+
+
+def header_value(trace_id: str, span_id: str, flags: int = 1) -> str:
+    return f"00-{trace_id}-{span_id}-{flags:02x}"
+
+
+def extract(raw: str | None) -> TraceContext | None:
+    """Parse an inbound ``X-Trace-Context`` header. A malformed value is
+    counted (``trace_context_invalid_total``) and ignored: a bad header
+    never fails the request."""
+    if raw is None:
+        return None
+    try:
+        version, trace_id, span_id, flags = raw.strip().split("-")
+        if (len(version) == 2 and len(trace_id) == 32 and len(span_id) == 16
+                and len(flags) == 2 and int(trace_id, 16) != 0):
+            int(version, 16)
+            int(span_id, 16)
+            return TraceContext(trace_id.lower(), span_id.lower(), int(flags, 16))
+    except ValueError:
+        pass
+    from celestia_tpu_torch.telemetry import metrics
+
+    metrics.incr_counter("trace_context_invalid_total")
+    return None
 
 
 class Span:
@@ -90,6 +170,30 @@ class Span:
         if self.attrs:
             d["attrs"] = {k: _coerce(v) for k, v in self.attrs.items()}
         return d
+
+    def to_event(self) -> dict:
+        """One complete-duration Chrome trace event (``"ph": "X"``)."""
+        args = {k: _coerce(v) for k, v in self.attrs.items()}
+        args["span_id"] = self.span_id
+        if self.parent_id is not None:
+            args["parent_id"] = self.parent_id
+        if self.status != "ok":
+            args["status"] = self.status
+        if self.trace_id is not None:
+            # cross-process fields ride in args: the top-level event keys
+            # are the Chrome format's
+            args["trace_id"] = self.trace_id
+            args["wire_span_id"] = wire_span_id(self)
+        return {
+            "name": self.name,
+            "cat": self.name.split(".", 1)[0],
+            "ph": "X",
+            "ts": round((self.start + _EPOCH_OFFSET) * 1e6, 1),
+            "dur": round(self.duration * 1e6, 1),
+            "pid": os.getpid(),
+            "tid": self.tid,
+            "args": args,
+        }
 
 
 def _coerce(value):
@@ -411,11 +515,12 @@ def profile_sample() -> bool:
 
 
 # ---------------------------------------------------------------------- #
-# recordings
+# recordings and the Chrome trace-event export
 
 
 class Recording:
-    """Unbounded span collection for the extent of a ``with record()``."""
+    """Unbounded span collection for the extent of a ``with record()``, or
+    from ``start_recording()`` to ``stop()`` (``cli start --trace-out``)."""
 
     def __init__(self):
         self.spans: list[Span] = []
@@ -443,8 +548,63 @@ class Recording:
         self.stop()
         return False
 
+    def chrome(self) -> dict:
+        return chrome_trace(self.spans)
+
+    def write(self, path) -> str:
+        """Write the Chrome trace-event JSON; returns the path."""
+        with open(path, "w") as f:
+            json.dump(self.chrome(), f)
+        return str(path)
+
 
 def record() -> Recording:
     """``with tracing.record() as rec:`` collects every span finished in
     the extent (all threads), restoring the prior enabled state on exit."""
     return Recording()
+
+
+def start_recording() -> Recording:
+    """The unscoped form, for a process-lifetime collection: the caller
+    stops and writes it at shutdown."""
+    return Recording().start()
+
+
+def chrome_trace(spans) -> dict:
+    """Spans -> a Chrome trace-event JSON object (Perfetto loads it)."""
+    events: list[dict] = [{"name": "process_name", "ph": "M", "pid": os.getpid(), "tid": 0,
+                           "args": {"name": "celestia_tpu_torch"}}]
+    events.extend(s.to_event() for s in spans)
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def validate_chrome_trace(doc: dict) -> list[str]:
+    """Schema check of an exported trace: the problems found (empty when
+    valid)."""
+    problems: list[str] = []
+    if not isinstance(doc, dict):
+        return ["top level is not an object"]
+    events = doc.get("traceEvents")
+    if not isinstance(events, list):
+        return ["traceEvents is not a list"]
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            problems.append(f"event {i}: not an object")
+            continue
+        ph = ev.get("ph")
+        if ph not in ("X", "M"):
+            problems.append(f"event {i}: unexpected ph {ph!r}")
+            continue
+        if not isinstance(ev.get("name"), str) or not ev["name"]:
+            problems.append(f"event {i}: missing name")
+        if not isinstance(ev.get("pid"), int):
+            problems.append(f"event {i}: missing pid")
+        if ph == "X":
+            for field in ("ts", "dur"):
+                if not isinstance(ev.get(field), (int, float)):
+                    problems.append(f"event {i}: missing {field}")
+            if isinstance(ev.get("dur"), (int, float)) and ev["dur"] < 0:
+                problems.append(f"event {i}: negative dur")
+            if not isinstance(ev.get("args"), dict):
+                problems.append(f"event {i}: missing args")
+    return problems

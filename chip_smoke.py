@@ -319,6 +319,48 @@ prints no result; it also exits non-zero when no CUDA device is present):
    card (this script again, ``--multihost-worker``) form a gloo group,
    named (NCCL refuses two ranks on one card), each extending its dp
    square, and both gather DAHs equal to the host path's.
+6j. The network surface (``rpc``), in a fresh temporary directory removed at
+   the end, every server on 127.0.0.1 at port 0. First 6b's crowd over HTTP
+   from RPC_THREADS threads against a node C holding 6b's four squares, C's
+   server the only one, so its dispatcher is the process's device executor
+   as a node's is: every document equals the in-process
+   ``sample_batch_ragged`` answer, one ragged_gather a dispatcher batch and
+   nothing else, but for a batch whose rows are all in their heights' row
+   memos, which launches none (its ``main_path`` line); the same crowd in
+   process from the main thread then funnels its gather through the
+   dispatcher (one internal ``dispatch.run`` a gather). Then node P (6g's
+   proposer, its App with a blob arena and a home) behind its ``RpcServer``
+   produces the empty height 1 and config 8b's block through ``POST
+   /produce_block`` (the 60 PFBs in through ``RpcClient.broadcast_tx``), with
+   the counts from 0
+   (NODE_LAUNCHES["produce_block"]); node R, a replica behind its own
+   server, applies each block it fetched over the RPC. ``GET /dah/2`` from
+   both hashes to CHAIN_DAH_HASH and ``GET /eds/2``'s rows hash to its row
+   roots; ``GET /proof/tx/2:RPC_PROOF_TX`` and ``GET /namespace_data/2/`` of
+   a namespace no blob has (no range, its absence document), whose squares
+   P and R extend on the dispatcher's thread, equal the in-process
+   documents. 60 more PFBs and ``Node.produce_block`` in process make height 3
+   (NODE_DAH_HASH_3, the same launches). A ``FraudAwareLightClient`` over
+   both servers accepts heights 1 and 2, rescreens and samples
+   RPC_LC_SAMPLES cells of height 2, every proof verified; against a
+   ``testutil/malicious`` node that committed a bad encoding, whose BEFP a
+   read-only node proved from the served square and serves, it raises
+   ``FraudDetected``. The prober runs RPC_PROBE_CYCLES
+   cycles against P with share proofs and the host crosscheck, all ok;
+   ``/readyz`` answers 200, then 503 once P's dispatcher drains; ``/metrics``
+   parses as Prometheus text and carries ``rpc_stage_ms``; where grpc
+   imports, a ``GrpcClient`` reads ``Status`` and broadcasts a send. Then
+   ``python -m celestia_tpu_torch.cli start --device cuda`` on a fresh home
+   with a RPC_CLI_BLOCK_TIME block time, its blocks produced on its
+   dispatcher's thread: ``cli query`` answers, a PFB of RPC_CLI_PFB_BYTES
+   through ``cli tx pfb`` lands in a block of k >= GPU_MIN_SQUARE (extended
+   on the card), ``cli light`` accepts and samples that height, its
+   ``/metrics`` counts the samples' ragged reads from the card's pages, and
+   SIGINT drains it to exit 0 with its snapshot saved. The ``rpc`` line: ms
+   a sample over HTTP and in process, ms of ``/dah``, ``/eds``, ``/proof/tx``,
+   the absent ``/namespace_data``, ``POST /produce_block`` and
+   ``Node.produce_block``, the crowd's batches, launches and funnelled runs,
+   the CLI node's PFB block, and the phase's seconds.
 7. Timing, after warm-up: each kernel at its main-path shapes (K2 at
    k = 64 and 128, on Q0 and on the EDS), as its own device time per launch
    (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
@@ -1779,6 +1821,477 @@ def lane_phase(dev, emit, squares: list, crowd: list, codec_squares: dict,
     emit(phase="lane", part="codec", ks=list(CODEC_KS), calls=codec,
          transport="grpc loopback" if loopback else "in process (no grpc)", loopback=loopback,
          phase_seconds=time.perf_counter() - t_phase)
+
+
+RPC_THREADS = 8  # request threads of the crowd over HTTP
+RPC_LC_SAMPLES = 16  # the light client's samples of the k = 128 block
+RPC_PROBE_CYCLES = 3
+RPC_TIMED = 5  # GET /dah repeats (median); /eds is fetched twice
+RPC_CLI_BLOCK_TIME = 0.5  # the CLI node's goal block time, seconds
+RPC_CLI_WAIT_S = 120.0  # the longest wait for a line of the CLI node
+RPC_CLI_PFB_BYTES = 100_000  # the CLI node's PFB: about 210 shares, k = 16
+RPC_PROOF_TX = 7  # the tx of height 2 whose inclusion proof 6j fetches
+
+
+def http_get(base: str, path: str, timeout: float = 120.0) -> tuple[int, bytes]:
+    """(status, raw body) of one GET; an HTTP error status is an answer."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(base + path, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def http_crowd(base: str, payloads, threads: int) -> list:
+    """The crowd as GET /sample/<h>/<i>/<j> requests from ``threads``
+    request threads, each sending its share one request at a time, as
+    light clients do: (status, parsed body) in the crowd's order."""
+    import concurrent.futures
+
+    def worker(t: int) -> list:
+        out = []
+        for n in range(t, len(payloads), threads):
+            h, i, j = payloads[n]
+            status, body = http_get(base, f"/sample/{h}/{i}/{j}")
+            out.append((n, (status, json.loads(body))))
+        return out
+
+    docs = [None] * len(payloads)
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        for part in pool.map(worker, range(threads)):
+            for n, doc in part:
+                docs[n] = doc
+    return docs
+
+
+def prometheus_series(text: str) -> dict[str, list[float]]:
+    """The series of a Prometheus text export (format v0.0.4), by name:
+    every sample line's family announced by a TYPE line before it, every
+    value a number; other comment lines (HELP, exemplars) are skipped. Any
+    other line fails the check."""
+    series: dict[str, list[float]] = {}
+    typed: set[str] = set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _h, _t, name, kind = line.split(" ")
+            check(kind in ("counter", "gauge", "histogram"), f"/metrics: {line!r}")
+            typed.add(name)
+            continue
+        if line.startswith("#"):
+            continue
+        m = re.fullmatch(r'([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? '
+                         r'([-+]?(?:\d+\.?\d*(?:[eE][-+]?\d+)?|inf|nan))', line, re.I)
+        check(m is not None, f"/metrics: a malformed line {line!r}")
+        name = m.group(1)
+        family = name if name in typed else re.sub(r"_(bucket|sum|count)$", "", name)
+        check(family in typed, f"/metrics: {name} has no TYPE line")
+        series.setdefault(name, []).append(float(m.group(3)))
+    return series
+
+
+def chain_send(key, to: str, sequence: int) -> bytes:
+    """A MsgSend of APP_SEND from ``key`` (account 0) at ``sequence``."""
+    from celestia_tpu_torch.tx import Fee, sign_tx
+    from celestia_tpu_torch.x.bank import MsgSend
+
+    return sign_tx(key, [MsgSend(key.bech32_address(), to, APP_SEND)], CHAIN_ID, 0, sequence,
+                   Fee(amount=4_000, gas_limit=400_000)).marshal()
+
+
+class LineReader:
+    """A subprocess's stdout lines through a reader thread, so a wait for
+    the next line has a time limit."""
+
+    def __init__(self, stream):
+        import queue
+        import threading
+
+        self._lines: queue.Queue = queue.Queue()
+        self.seen: list[str] = []
+
+        def pump() -> None:
+            for line in stream:
+                self._lines.put(line)
+            self._lines.put(None)
+
+        threading.Thread(target=pump, daemon=True).start()
+
+    def until(self, pattern: str, timeout: float = RPC_CLI_WAIT_S):
+        """The first match of ``pattern`` in a line yet to come."""
+        import queue
+
+        end = time.monotonic() + timeout
+        while True:
+            try:
+                line = self._lines.get(timeout=max(0.0, end - time.monotonic()))
+            except queue.Empty:
+                line = None
+            check(line is not None, f"the CLI node printed no line matching {pattern!r}: "
+                  f"{self.seen[-5:]}")
+            self.seen.append(line)
+            m = re.search(pattern, line)
+            if m:
+                return m
+
+
+def cli_out(argv: list[str]) -> tuple[int, str]:
+    """``python -m celestia_tpu_torch.cli`` run in this process: (exit code,
+    stdout)."""
+    import contextlib
+    import io
+
+    from celestia_tpu_torch import cli
+
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(argv)
+        except SystemExit as e:
+            code = e.code or 0
+    return code, buf.getvalue()
+
+
+def rpc_phase(dev, emit, signer_key, raws: list[bytes], squares: list, crowd: list) -> None:
+    """Phase 6j: the network surface on the card (see the module
+    docstring). ``raws``: config 8b's 60 signed PFBs; ``squares``: phase
+    6b's four k = 128 squares (heights 1-4); ``crowd``: 6b's 256-sample
+    crowd over them. Every check raises; nothing is caught."""
+    import random
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from celestia_tpu_torch import crypto, da, tracing
+    from celestia_tpu_torch import namespace as ns_mod
+    from celestia_tpu_torch.appconsts import SHARE_SIZE
+    from celestia_tpu_torch.app.app import GPU_MIN_SQUARE, App
+    from celestia_tpu_torch.da import fraud
+    from celestia_tpu_torch.node import Node
+    from celestia_tpu_torch.node.client import FraudAwareLightClient, FraudDetected, RpcClient
+    from celestia_tpu_torch.node.node import Block
+    from celestia_tpu_torch.node.prober import Prober
+    from celestia_tpu_torch.node.rpc import RpcServer, namespace_data_doc, tx_proof_doc
+    from celestia_tpu_torch.ops import _cuda, transfers
+    from celestia_tpu_torch.telemetry import Registry, metrics
+    from celestia_tpu_torch.testutil.malicious import BehaviorConfig, MaliciousApp
+
+    t_phase = time.perf_counter()
+    med = statistics.median
+    v_key = crypto.PrivateKey.from_secret(APP_VALIDATOR_SECRET)
+    s_addr, v_addr = signer_key.bech32_address(), v_key.bech32_address()
+    home = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-rpc-"))
+    servers: list = []
+    proc = None
+
+    def serve(node) -> str:
+        srv = RpcServer(node, port=0)
+        srv.start()
+        servers.append(srv)
+        return f"http://127.0.0.1:{srv.port}"
+
+    def counted(call):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3, dict(_cuda.LAUNCHES)
+
+    try:
+        # (3) first: 6b's crowd over HTTP against the same node's in-process
+        # answer, C's server the only one, so that its dispatcher is the
+        # process's device executor, as a node's is
+        c_node = Node(device=dev)
+        for h in sorted({h for h, _i, _j in crowd}):
+            c_node._eds_cache.put(h, da.extend_shares(squares[h - 1].reshape(-1, SHARE_SIZE),
+                                                      dev))
+        direct = c_node.sample_batch_ragged(crowd)  # seeds each height's provers
+        again, direct_ms, _counts = counted(lambda: c_node.sample_batch_ragged(crowd))
+        check(again == direct, "a second in-process crowd's documents differ")
+        c_url = serve(c_node)
+        c_srv = servers[-1]
+        check(transfers._device_executor() == c_srv.dispatcher.run_device,
+              "C's dispatcher is not the process's device executor")
+        # a batch gathers once, unless every row it needs is already in its
+        # heights' row memos (the cache's last 8 rows a height): record
+        # which batches had a row to gather, as each reaches the cache
+        needs = []
+        real_pages_batch = c_node._eds_cache.pages_batch
+
+        def pages_batch(wants):
+            needs.append(any(paged._memo_get(i) is None for paged, i in wants))
+            return real_pages_batch(wants)
+
+        c_node._eds_cache.pages_batch = pages_batch
+        batches0 = metrics.get_counter("dispatch_batch_total")
+        docs, crowd_ms, crowd_counts = counted(lambda: http_crowd(c_url, crowd, RPC_THREADS))
+        batches = metrics.get_counter("dispatch_batch_total") - batches0
+        c_node._eds_cache.pages_batch = real_pages_batch
+        emit(phase="main_path", entry="RpcServer /sample", samples=len(crowd),
+             threads=RPC_THREADS, batches=batches, memo_only_batches=needs.count(False),
+             launches=crowd_counts)
+        check(all(status == 200 for status, _d in docs) and [d for _s, d in docs] == direct,
+              "the crowd's documents over HTTP differ from sample_batch_ragged's")
+        check(batches >= 1 and len(needs) == batches
+              and crowd_counts["ragged_gather"] == needs.count(True)
+              and sum(crowd_counts.values()) == crowd_counts["ragged_gather"],
+              f"{len(crowd)} samples over HTTP in {batches} batches ({needs.count(False)} with "
+              f"every row in the row memos) launched {crowd_counts}: one ragged_gather a batch "
+              "with a row to gather")
+        # the same crowd in process from this thread: its gather funnels
+        # through the dispatcher, one internal dispatch.run a gather
+        with tracing.record() as rec:
+            funneled, _ms, f_counts = counted(lambda: c_node.sample_batch_ragged(crowd))
+        funnel_runs = sum(1 for sp in rec.spans
+                          if sp.name == "dispatch.run" and sp.attrs.get("internal"))
+        check(funneled == direct and f_counts["ragged_gather"] >= 1
+              and funnel_runs == f_counts["ragged_gather"],
+              f"the in-process crowd beside C's server launched {f_counts} in {funnel_runs} "
+              "internal dispatcher runs: one a gather")
+        c_srv.stop()
+        servers.remove(c_srv)
+
+        # (1) blocks through the RPC: P (a proposer with a blob arena) and R
+        # (a replica), each behind its server
+        nodes = {}
+        for name in ("p", "r"):
+            app = App(chain_id=CHAIN_ID, device=dev)
+            if name == "p":
+                app.enable_blob_pool()
+            app_genesis(app, s_addr, v_addr)
+            nodes[name] = Node(app, home=home / name, extend_blocks=True)
+        p_node, r_node = nodes["p"], nodes["r"]
+        p_url, r_url = serve(p_node), serve(r_node)
+        p_rpc, r_rpc = RpcClient(p_url, timeout=120.0), RpcClient(r_url, timeout=120.0)
+
+        def produce_over_rpc(expected_height: int):
+            doc, ms, counts = counted(lambda: p_rpc._post("/produce_block", {}))
+            check("error" not in doc and doc["height"] == expected_height,
+                  f"POST /produce_block: {str(doc)[:300]}")
+            block = Block.from_json(doc)
+            r_node.apply_external_block(block.txs, block.square_size, block.data_hash,
+                                        block.time, expected_height=expected_height)
+            return block, ms, counts
+
+        produce_over_rpc(1)
+        broadcast_ms = []
+        for raw in raws:
+            t = time.perf_counter()
+            res = p_rpc.broadcast_tx(raw)
+            broadcast_ms.append((time.perf_counter() - t) * 1e3)
+            check(res.code == 0, f"P refused a signed PFB over the RPC: {res.log}")
+            check(r_node.broadcast_tx(raw).code == 0, "R refused a signed PFB")
+        b2, produce_http_ms, counts = produce_over_rpc(2)
+        emit(phase="main_path", entry="RpcServer POST /produce_block", k=b2.square_size,
+             txs=len(b2.txs), launches=counts)
+        want = {**dict.fromkeys(counts, 0), **NODE_LAUNCHES["produce_block"]}
+        check(counts == want, f"POST /produce_block launched {counts}: {want} expected")
+        check(b2.txs == raws and b2.square_size == PROPOSAL_K
+              and b2.data_hash.hex() == CHAIN_DAH_HASH,
+              f"the RPC's height 2: {len(b2.txs)} txs at k = {b2.square_size}, data hash "
+              f"{b2.data_hash.hex()}")
+        dahs = {}
+        for name, client in (("p", p_rpc), ("r", r_rpc)):
+            dahs[name] = da.DataAvailabilityHeader.from_json(client.dah(2))
+            check(dahs[name].hash().hex() == CHAIN_DAH_HASH,
+                  f"{name}'s GET /dah/2 hashes to {dahs[name].hash().hex()}")
+        check(r_rpc.header(2) == p_rpc.header(2), "R's /header/2 differs from P's")
+        # /proof/tx and /namespace_data of a namespace no blob has: squares
+        # extended on the dispatcher's thread, P's and R's documents equal to
+        # the in-process ones
+        p_block = p_node.get_block(2)
+        absent = ns_mod.new_v0(b"arena" + (PROPOSAL_BLOBS + 1).to_bytes(5, "big"))
+        ns_doc, ns_status = namespace_data_doc(p_node, p_block, absent)
+        check(ns_status == 200 and ns_doc["ranges"] == [] and "absence" in ns_doc,
+              f"namespace_data_doc of an absent namespace: {ns_status} {str(ns_doc)[:300]}")
+        proof_docs = {f"/proof/tx/2:{RPC_PROOF_TX}": tx_proof_doc(p_node, p_block, RPC_PROOF_TX),
+                      f"/namespace_data/2/{absent.bytes.hex()}": ns_doc}
+        proof_ms = {}
+        for path, want_doc in proof_docs.items():
+            want_doc = json.loads(json.dumps(want_doc))
+            for url in (p_url, r_url):
+                t = time.perf_counter()
+                status, body = http_get(url, path)
+                proof_ms.setdefault(path.split("/")[1], []).append(
+                    (time.perf_counter() - t) * 1e3)
+                check(status == 200 and json.loads(body) == want_doc,
+                      f"GET {path} from {url}: {status} {body[:300]}")
+        dah_ms = []
+        for _ in range(RPC_TIMED):
+            t = time.perf_counter()
+            status, _body = http_get(p_url, "/dah/2")
+            dah_ms.append((time.perf_counter() - t) * 1e3)
+            check(status == 200, f"GET /dah/2: {status}")
+        eds_ms = []
+        for _ in range(2):
+            t = time.perf_counter()
+            doc = p_rpc.eds(2)
+            eds_ms.append((time.perf_counter() - t) * 1e3)
+        eds_host = np.stack([np.frombuffer(bytes.fromhex(r), np.uint8).reshape(-1, SHARE_SIZE)
+                             for r in doc["rows"]])
+        check(da.ExtendedDataSquare(eds_host, PROPOSAL_K, dev).row_roots() == dahs["p"].row_roots,
+              "GET /eds/2's rows do not hash to the DAH's roots")
+        del doc, eds_host
+        # the same kind of block in process: 60 more PFBs, Node.produce_block
+        for raw in node_height3_txs(signer_key):
+            check(p_rpc.broadcast_tx(raw).code == 0, "P refused a height-3 PFB")
+        b3, produce_ms, counts = counted(lambda: p_node.produce_block())
+        check(b3.height == 3 and b3.square_size == PROPOSAL_K
+              and b3.data_hash.hex() == NODE_DAH_HASH_3 and counts == want,
+              f"Node.produce_block at height 3: k = {b3.square_size}, "
+              f"{b3.data_hash.hex()}, launched {counts}")
+
+        # (2) the fraud-aware light client over both servers, then against a
+        # MaliciousApp node whose bad encoding a read-only node proved
+        lc = FraudAwareLightClient([RpcClient(p_url), RpcClient(r_url)], [RpcClient(r_url)])
+        check(lc.accept_header(1)["height"] == 1
+              and lc.accept_header(2)["data_hash"] == CHAIN_DAH_HASH,
+              "the light client refused an honest header")
+        lc.rescreen()
+        das = lc.sample_availability(2, n=RPC_LC_SAMPLES, rng=random.Random(SEED))
+        check(das["sampled"] == RPC_LC_SAMPLES, f"the light client's samples: {das}")
+        m_app = MaliciousApp(chain_id=CHAIN_ID, device=dev,
+                             behavior=BehaviorConfig(corrupt_extension=True))
+        app_genesis(m_app, s_addr, v_addr)
+        m_node = Node(m_app)
+        m_node.produce_block(APP_BLOCK_TIMES[0])
+        check(m_node.broadcast_tx(raws[0]).code == 0, "the attacker refused a PFB")
+        m_block = m_node.produce_block(APP_BLOCK_TIMES[1])
+        w_node = Node(device=dev)
+        m_url, w_url = serve(m_node), serve(w_node)
+        served = RpcClient(m_url).eds(2)
+        m_eds = np.stack([np.frombuffer(bytes.fromhex(r), np.uint8).reshape(-1, SHARE_SIZE)
+                          for r in served["rows"]])
+        m_dah = da.DataAvailabilityHeader.from_json(RpcClient(m_url).dah(2))
+        befp = fraud.find_befp(m_eds)
+        check(m_dah.hash() == m_block.data_hash and befp is not None
+              and fraud.verify_befp(befp, m_dah), "no verified BEFP of the attacker's square")
+        check(w_node.add_fraud_proof(2, m_dah.hash(), {"height": 2, "dah": m_dah.to_json(),
+                                                       "proof": befp.to_json()}),
+              "the watchtower refused the proof")
+        m_lc = FraudAwareLightClient(RpcClient(m_url), [RpcClient(w_url)])
+        check(m_lc.accept_header(1)["height"] == 1, "the attacker's height 1 was refused")
+        fraud_err = raised(lambda: m_lc.accept_header(2))
+        check(isinstance(fraud_err, FraudDetected) and 2 not in m_lc.headers,
+              f"the attacker's height 2: {fraud_err!r}, not FraudDetected")
+
+        # (4) the prober through P's server: share proofs and the host crosscheck
+        prober = Prober(p_url, samples_per_cycle=8, timeout=120.0, host_crosscheck=True,
+                        rng=random.Random(SEED), registry=Registry())
+        t = time.perf_counter()
+        cycles = [prober.probe_cycle() for _ in range(RPC_PROBE_CYCLES)]
+        probe_s = time.perf_counter() - t
+        check(all(c["ok"] and c["height"] == 3 and c["share_proof_ok"] == 1
+                  and c["crosscheck_ok"] == 1 for c in cycles),
+              f"the prober's cycles: {cycles}")
+
+        # (6) /metrics, with the request stages traced
+        tracing.enable()
+        try:
+            check(http_get(p_url, "/dah/2")[0] == 200, "a traced GET /dah/2")
+            status, text = http_get(p_url, "/metrics")
+        finally:
+            tracing.disable()
+        series = prometheus_series(text.decode())
+        check(status == 200 and series.get("rpc_stage_ms_seconds_count")
+              and series.get("process_rss_bytes", [0])[0] > 0,
+              f"/metrics: {status}, {sorted(series)[:20]}")
+
+        # (7) gRPC, where grpc imports
+        grpc_doc = None
+        if importlib.util.find_spec("grpc") is not None:
+            from celestia_tpu_torch.node.grpc_api import GrpcClient, NodeGrpcServer
+
+            g_server = NodeGrpcServer(p_node)
+            g_server.start()
+            g_client = GrpcClient(f"127.0.0.1:{g_server.port}", timeout=60.0)
+            try:
+                g_status = g_client.status()
+                g_res = g_client.broadcast_tx(chain_send(signer_key, v_addr, 2 * PROPOSAL_BLOBS))
+            finally:
+                g_client.close()
+                g_server.stop()
+            check(g_status["height"] == 3 and g_status["chain_id"] == CHAIN_ID
+                  and g_res.code == 0, f"gRPC: status {g_status}, broadcast {g_res}")
+            grpc_doc = {"status_height": g_status["height"], "broadcast_code": g_res.code}
+
+        # (5) readiness, then the drain
+        status, body = http_get(p_url, "/readyz")
+        check(status == 200 and json.loads(body)["ready"], f"P's /readyz: {status} {body[:300]}")
+        servers[0].dispatcher.begin_drain()
+        status, body = http_get(p_url, "/readyz")
+        checks = {c["name"]: c["ok"] for c in json.loads(body)["checks"]}
+        check(status == 503 and not checks["not_overloaded"],
+              f"P's /readyz while draining: {status} {checks}")
+
+        # (8) the CLI: a node started on the card, queried, followed, stopped
+        cli_home = home / "cli"
+        code, _out = cli_out(["--home", str(cli_home), "init"])
+        check(code == 0, "cli init failed")
+        t = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "celestia_tpu_torch.cli", "--home", str(cli_home),
+             "--port", "0", "start", "--device", torch.device(dev).type, "--block-time",
+             str(RPC_CLI_BLOCK_TIME)],
+            cwd=pathlib.Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL, text=True)
+        lines = LineReader(proc.stdout)
+        cli_port = lines.until(r"rpc http://127\.0\.0\.1:(\d+)").group(1)
+        cli_start_s = time.perf_counter() - t
+        lines.until(r"^height 2 ")
+        code, out = cli_out(["--port", cli_port, "query", "/header/2"])
+        check(code == 0 and json.loads(out)["height"] == 2, f"cli query: {code} {out[:200]}")
+        code, out = cli_out(["--home", str(cli_home), "--port", cli_port, "tx", "pfb",
+                             "--size", str(RPC_CLI_PFB_BYTES)])
+        check(code == 0 and json.loads(out)["code"] == 0, f"cli tx pfb: {code} {out[:300]}")
+        m = lines.until(r"^height (\d+) txs 1 square (\d+) ")
+        cli_height, cli_k = int(m.group(1)), int(m.group(2))
+        check(cli_k >= GPU_MIN_SQUARE, f"the CLI node's PFB landed in a block of k = {cli_k}")
+        cli_url = f"http://127.0.0.1:{cli_port}"
+        code, out = cli_out(["light", "--primary", cli_url, "--from-height", str(cli_height),
+                             "--once", "--sample", "4"])
+        check(code == 0 and json.loads(out)["accepted"] is True
+              and json.loads(out)["das"]["sampled"] == 4, f"cli light: {code} {out[:300]}")
+        status, text = http_get(cli_url, "/metrics")
+        ragged_d2h = [float(line.rsplit(" ", 1)[1]) for line in text.decode().splitlines()
+                      if line.startswith("transfer_bytes_total{") and 'site="eds.ragged"' in line
+                      and 'direction="d2h"' in line]
+        check(status == 200 and sum(ragged_d2h) > 0,
+              f"the CLI node's /metrics counts no ragged read of its pages: {ragged_d2h}")
+        proc.send_signal(signal.SIGINT)
+        lines.until(r"^node stopped")
+        check(proc.wait(timeout=RPC_CLI_WAIT_S) == 0, f"the CLI node exited {proc.returncode}")
+        proc = None
+        check(json.loads((cli_home / "meta.json").read_text())["height"] >= 2,
+              "the CLI node saved no snapshot at its head")
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+        for srv in servers:
+            srv.stop()
+        shutil.rmtree(home, ignore_errors=True)
+
+    emit(phase="rpc", k=PROPOSAL_K, txs=len(raws),
+         sample_http_ms=crowd_ms / len(crowd), sample_inprocess_ms=direct_ms / len(crowd),
+         crowd_samples=len(crowd), crowd_threads=RPC_THREADS, crowd_batches=batches,
+         crowd_memo_only_batches=needs.count(False),
+         crowd_ragged_gather=crowd_counts["ragged_gather"],
+         dah_ms=med(dah_ms), eds_ms=eds_ms, produce_block_http_ms=produce_http_ms,
+         produce_block_ms=produce_ms, broadcast_tx_http_ms=med(broadcast_ms),
+         crowd_inprocess_funnel_runs=funnel_runs, proof_tx_http_ms=proof_ms["proof"],
+         namespace_data_absent_http_ms=proof_ms["namespace_data"],
+         namespace_data_absent_rows=len(ns_doc["absence"]),
+         light_client_samples=das["sampled"], fraud_detected=type(fraud_err).__name__,
+         probe_cycles=len(cycles), probe_s=probe_s, grpc=grpc_doc,
+         cli_start_s=cli_start_s, cli_pfb_height=cli_height, cli_pfb_k=cli_k,
+         cli_ragged_d2h_bytes=sum(ragged_d2h), phase_seconds=time.perf_counter() - t_phase)
 
 
 def mesh_launches(sp: int, call: str) -> dict[str, int]:
@@ -4231,6 +4744,15 @@ def main(argv: list[str]) -> int:
     launches["nmt_tree_rows"] = mesh_phase(
         dev, emit, same, [bench_square(sk, seed) for seed in MESH_SEEDS],
         [bench_square(sk, seed) for seed in LANE_SEEDS], tree_square, dev_bytes)
+
+    phase_start("6j")
+    # ---- phase 6j: the network surface. Config 8b's block through POST
+    # /produce_block on a node behind its RpcServer (and applied by a replica
+    # behind another), the fraud-aware light client against both and against a
+    # proven bad encoding, 6b's crowd over HTTP, the prober, readiness, the
+    # metrics, gRPC, and the CLI's start, query and light
+    rpc_phase(dev, emit, c_key, c_raws, [bench_square(sk, seed) for seed in LANE_SEEDS[:4]],
+              crowd0)
 
     phase_start("7")
     # ---- phase 7: timing

@@ -1088,3 +1088,132 @@ def test_row_blocks_are_blocks_of_the_grid(k):
             rp = k // sp
             assert ((0, rp), (k, k + rp)) in blocks
             assert (((sp - 1) * rp, k), (k + (sp - 1) * rp, 2 * k)) in blocks
+
+
+# ---- phase 6j: the network surface
+
+
+def test_rpc_phase_catches_no_failure():
+    """Phase 6j holds no except clause (its try block only stops its
+    servers and the CLI node and removes its directory): a refused tx, a
+    wrong DAH, a launch count, a document over HTTP that differs from the
+    in-process one, an unverified sample, a light client that accepts the
+    proven bad encoding, a failed probe, a readiness or metrics answer, a
+    gRPC reply or a CLI answer raises. main runs it after phase 6i."""
+    import ast
+    import inspect
+    import textwrap
+
+    src = inspect.getsource(chip_smoke.rpc_phase)
+    tree = ast.parse(textwrap.dedent(src))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    for name in ('"/produce_block"', 'NODE_LAUNCHES["produce_block"]', "CHAIN_DAH_HASH",
+                 "NODE_DAH_HASH_3", "p_rpc.broadcast_tx(raw)", "apply_external_block(",
+                 "client.dah(2)", "p_rpc.eds(2)", "FraudAwareLightClient(",
+                 "sample_availability(2, n=RPC_LC_SAMPLES", "MaliciousApp(",
+                 "corrupt_extension=True", "fraud.find_befp(m_eds)", "fraud.verify_befp(",
+                 "add_fraud_proof(2", "isinstance(fraud_err, FraudDetected)",
+                 "http_crowd(c_url, crowd, RPC_THREADS)", "== direct",
+                 'counts["ragged_gather"] == needs.count(True)', "len(needs) == batches",
+                 'entry="RpcServer /sample"',
+                 "host_crosscheck=True", 'c["crosscheck_ok"] == 1', "RPC_PROBE_CYCLES",
+                 '"/readyz"', "begin_drain()", "status == 503", "prometheus_series(",
+                 '"rpc_stage_ms_seconds_count"', 'find_spec("grpc")', "GrpcClient(",
+                 "chain_send(", '"celestia_tpu_torch.cli"', '"start", "--device"',
+                 '"query", "/header/2"', '"light", "--primary"', "signal.SIGINT",
+                 'r"^node stopped"', 'phase="rpc"', "sample_http_ms", "sample_inprocess_ms",
+                 "produce_block_http_ms", "shutil.rmtree(home", "proc.kill()", "srv.stop()",
+                 "transfers._device_executor() == c_srv.dispatcher.run_device",
+                 '"dispatch.run"', "funnel_runs == f_counts", "servers.remove(c_srv)",
+                 "tx_proof_doc(p_node", "namespace_data_doc(p_node", '"absence" in ns_doc',
+                 '"tx", "pfb"', "cli_k >= GPU_MIN_SQUARE", 'site="eds.ragged"'):
+        assert name in src, name
+    assert src.count("check(") >= 30
+    # the crowd runs first, its server the only one: the dispatcher is the
+    # process's device executor only then
+    assert src.index("http_crowd(c_url") < src.index("servers.remove(c_srv)") < src.index(
+        "serve(p_node)")
+    main = inspect.getsource(chip_smoke.main)
+    assert ("rpc_phase(dev, emit, c_key, c_raws, [bench_square(sk, seed) for seed in "
+            "LANE_SEEDS[:4]],") in main
+    assert main.index("mesh_phase(") < main.index("rpc_phase(") < main.index("# ---- phase 7")
+    assert "6j. The network surface" in chip_smoke.__doc__
+
+
+def test_rpc_constants():
+    assert chip_smoke.RPC_THREADS == chip_smoke.LANE_THREADS == 8
+    assert chip_smoke.RPC_LC_SAMPLES == 16 and chip_smoke.RPC_PROBE_CYCLES == 3
+    assert chip_smoke.LANE_SEEDS[:4] == (42, 43, 44, 45)  # 6b's four heights
+    assert 0 <= chip_smoke.RPC_PROOF_TX < chip_smoke.PROPOSAL_BLOBS
+    # the CLI node's PFB needs more shares than a k = 8 square holds
+    assert chip_smoke.RPC_CLI_PFB_BYTES // 512 > 8 * 8
+
+
+def test_prometheus_series_reads_the_ports_export():
+    from celestia_tpu_torch.telemetry import Registry
+
+    reg = Registry()
+    reg.incr_counter("rpc_shed_total", reason="queue_full")
+    reg.set_gauge("process_rss_bytes", 4096.0)
+    reg.observe("rpc_stage_ms", 0.002, exemplar="ab" * 16, stage="serialize")
+    series = chip_smoke.prometheus_series(reg.prometheus_text())
+    assert series["rpc_shed_total"] == [1.0] and series["process_rss_bytes"] == [4096.0]
+    assert series["rpc_stage_ms_seconds_count"] == [1.0]
+    assert series["rpc_stage_ms_seconds_bucket"][-1] == 1.0
+    for bad in ("orphan_total 1", "# TYPE x summary\nx 1", "# TYPE x gauge\nx one"):
+        with pytest.raises(SystemExit):
+            chip_smoke.prometheus_series(bad)
+
+
+def test_http_crowd_answers_every_sample_in_order():
+    """The crowd over a port server's /sample from several threads: the
+    documents of sample_batch_ragged, in the crowd's order."""
+    from celestia_tpu_torch import da
+    from celestia_tpu_torch.node import Node
+    from celestia_tpu_torch.node.rpc import RpcServer
+
+    node = Node(device="cpu")
+    for h in (1, 2):
+        node._eds_cache.put(h, da.extend_shares(_lane_square(2, h).reshape(-1, 512), "cpu"))
+    crowd = chip_smoke.serving_crowd(5, (1, 2), 4, 20)
+    srv = RpcServer(node, port=0)
+    srv.start()
+    try:
+        docs = chip_smoke.http_crowd(f"http://127.0.0.1:{srv.port}", crowd, 3)
+        status, body = chip_smoke.http_get(f"http://127.0.0.1:{srv.port}", "/sample/9/0/0")
+    finally:
+        srv.stop()
+    assert [s for s, _d in docs] == [200] * 20
+    assert [d for _s, d in docs] == node.sample_batch_ragged(crowd)
+    assert status == 404 and b"block not found" in body
+
+
+def test_chain_send_is_checked_like_a_signed_send():
+    from celestia_tpu_torch import crypto
+    from celestia_tpu_torch.app.app import App
+
+    key = crypto.PrivateKey.from_secret(chip_smoke.CHAIN_KEY_SECRET)
+    val = crypto.PrivateKey.from_secret(chip_smoke.APP_VALIDATOR_SECRET).bech32_address()
+    app = App(chain_id=chip_smoke.CHAIN_ID, device="cpu")
+    chip_smoke.app_genesis(app, key.bech32_address(), val)
+    res = app.check_tx(chip_smoke.chain_send(key, val, 0))
+    assert res.code == 0, res.log
+    assert app.check_tx(chip_smoke.chain_send(key, val, 5)).code != 0  # a future sequence
+
+
+def test_line_reader_matches_and_gives_up():
+    import io
+
+    reader = chip_smoke.LineReader(io.StringIO("node started: rpc http://127.0.0.1:4321 x\n"
+                                               "height 1 txs 0\nheight 2 txs 0\n"))
+    assert reader.until(r"rpc http://127\.0\.0\.1:(\d+)").group(1) == "4321"
+    assert reader.until(r"^height 2 ").group(0) == "height 2 "
+    with pytest.raises(SystemExit, match="no line matching"):
+        reader.until(r"^node stopped", timeout=5.0)
+
+
+def test_cli_out_runs_the_ports_cli_in_process(tmp_path):
+    code, out = chip_smoke.cli_out(["--home", str(tmp_path), "addrbook", "add", "http://a:1"])
+    assert code == 0 and out == "added http://a:1 (1 peers)\n"
+    code, _out = chip_smoke.cli_out(["--home", str(tmp_path), "addrbook", "remove", "x"])
+    assert code == 1

@@ -51,6 +51,10 @@ DEVICE_LANE = ("devledger", "node.dispatch", "node.pipeline", "service", "servic
                "service.codec_service")
 # multi-GPU: the mesh and the multi-process runtime (torch.distributed)
 MULTI_GPU = ("parallel", "parallel.multihost")
+# the network surface: the RPC server and its clients, gRPC, the prober, the
+# SLO engine and the Blobstream verify flow
+NETWORK = ("slo", "x.blobstream_client", "node.rpc", "node.client", "node.grpc_api",
+           "node.prober")
 
 
 def _forbidden(module: str) -> bool:
@@ -87,7 +91,8 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
                  "shares.info_byte", "shares.splitters", "shares.parse", "inclusion",
                  "inclusion.cache", "square", "ops.blob_pool", "ops.assemble",
                  "ops.assemble_cuda", "app.proposal", "log", "store", "store.powercut",
-                 "cli", *STATE_MACHINE, *APP_STACK, *NODE_STACK, *DEVICE_LANE, *MULTI_GPU):
+                 "cli", *STATE_MACHINE, *APP_STACK, *NODE_STACK, *DEVICE_LANE, *MULTI_GPU,
+                 *NETWORK):
         assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
@@ -236,3 +241,28 @@ def test_the_store_cli_and_the_explorer_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
+
+
+def test_the_network_surface_imports_without_grpc():
+    """With grpc made unimportable, the node package, its RPC server and
+    clients, the prober, the SLO engine, the gRPC module itself and the CLI
+    import, and none loads grpc or the JAX package; only the gRPC server
+    and client classes need it."""
+    script = (
+        "import json, sys\n"
+        "sys.modules['grpc'] = None\n"
+        "import celestia_tpu_torch.node, celestia_tpu_torch.node.rpc\n"
+        "import celestia_tpu_torch.node.client, celestia_tpu_torch.node.prober\n"
+        "import celestia_tpu_torch.node.grpc_api as g, celestia_tpu_torch.slo\n"
+        "import celestia_tpu_torch.cli, celestia_tpu_torch.x.blobstream_client\n"
+        "try:\n"
+        "    g.GrpcClient('127.0.0.1:1')\n"
+        "    refused = False\n"
+        "except ImportError:\n"
+        "    refused = True\n"
+        "print(json.dumps([refused, sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('grpc', 'jax', 'jaxlib', 'celestia_tpu') and sys.modules[m] is not None)]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [True, []]
