@@ -28,6 +28,9 @@ words, rounds fully unrolled, rotates on ``__funnelshift_r``).
 
 from __future__ import annotations
 
+import functools
+from typing import List
+
 import torch
 
 from celestia_tpu_torch.ops import _cuda
@@ -37,7 +40,7 @@ _M32 = 0xFFFFFFFF
 
 
 def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
-    return ((x >> n) | (x << (32 - n))) & _M32
+    return ((x >> n) | (x << (32 - n))) & 0xFFFFFFFF
 
 
 def _to_u32(x: torch.Tensor) -> torch.Tensor:
@@ -45,34 +48,59 @@ def _to_u32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32).view(torch.uint32)
 
 
-def sha_core_reference(words: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K3: (16·nb, B) uint32 -> (8, B) uint32.
-
-    PyTorch implements only ``& | ^`` for uint32, so the arithmetic runs in
-    int64, masked to 32 bits after every sum."""
-    w_all = words.view(torch.int32).to(torch.int64) & _M32
+def _core(w_all: torch.Tensor, k: List[int], h0: List[int]) -> torch.Tensor:
+    """The compression of every block: int64 words in [0, 2^32), (16·nb, B)
+    -> the (8, B) state. PyTorch implements only ``& | ^`` for uint32, so
+    the arithmetic runs in int64, masked to 32 bits after every sum."""
+    m32 = 0xFFFFFFFF  # a literal: TorchScript reads no module global
     nb = w_all.shape[0] // 16
     batch = w_all.shape[1]
-    state = [torch.full((batch,), int(h), dtype=torch.int64, device=words.device)
-             for h in H0]
+    state = [torch.full((batch,), h, dtype=torch.int64, device=w_all.device) for h in h0]
     for blk in range(nb):
         w = [w_all[blk * 16 + i] for i in range(16)]
         for t in range(16, 64):
-            wm15, wm2 = w[t - 15], w[t - 2]
+            wm15 = w[t - 15]
+            wm2 = w[t - 2]
             s0 = _rotr(wm15, 7) ^ _rotr(wm15, 18) ^ (wm15 >> 3)
             s1 = _rotr(wm2, 17) ^ _rotr(wm2, 19) ^ (wm2 >> 10)
-            w.append((w[t - 16] + s0 + w[t - 7] + s1) & _M32)
-        a, b, c, d, e, f, g, h = state
+            w.append((w[t - 16] + s0 + w[t - 7] + s1) & m32)
+        a, b, c, d = state[0], state[1], state[2], state[3]
+        e, f, g, h = state[4], state[5], state[6], state[7]
         for t in range(64):
             s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-            ch = (e & f) ^ ((e ^ _M32) & g)
-            t1 = (h + s1 + ch + int(K[t]) + w[t]) & _M32
+            ch = (e & f) ^ ((e ^ m32) & g)
+            t1 = (h + s1 + ch + k[t] + w[t]) & m32
             s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
             maj = (a & b) ^ (a & c) ^ (b & c)
-            t2 = (s0 + maj) & _M32
-            a, b, c, d, e, f, g, h = (t1 + t2) & _M32, a, b, c, (d + t1) & _M32, e, f, g
-        state = [(s + v) & _M32 for s, v in zip(state, (a, b, c, d, e, f, g, h))]
-    return _to_u32(torch.stack(state))
+            t2 = (s0 + maj) & m32
+            a, b, c, d, e, f, g, h = (t1 + t2) & m32, a, b, c, (d + t1) & m32, e, f, g
+        rounds = [a, b, c, d, e, f, g, h]
+        state = [(state[i] + rounds[i]) & m32 for i in range(8)]
+    return torch.stack(state)
+
+
+_K = [int(v) for v in K]
+_H0 = [int(v) for v in H0]
+
+
+@functools.lru_cache(maxsize=1)
+def _core_script():
+    """``_core`` as one TorchScript function, for CPU tensors. Eager, each of
+    its ~3,300 operations a block releases and retakes the interpreter lock,
+    so in a process whose other threads want the lock (a node's request
+    threads, a scenario's load) each retake waits a switch interval and the
+    hash starves; the scripted call releases it once. The operations are
+    ``_core``'s, and the JIT fuses nothing on the CPU."""
+    return torch.jit.script(_core)
+
+
+def sha_core_reference(words: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3: (16·nb, B) uint32 -> (8, B) uint32. On a
+    CPU tensor ``_core`` runs scripted (``_core_script``), on a CUDA tensor
+    eagerly."""
+    w_all = words.view(torch.int32).to(torch.int64) & _M32
+    core = _core_script() if words.device.type == "cpu" else _core
+    return _to_u32(core(w_all, _K, _H0))
 
 
 def sha256_words(words: torch.Tensor) -> torch.Tensor:

@@ -361,6 +361,37 @@ prints no result; it also exits non-zero when no CUDA device is present):
    the absent ``/namespace_data``, ``POST /produce_block`` and
    ``Node.produce_block``, the crowd's batches, launches and funnelled runs,
    the CLI node's PFB block, and the phase's seconds.
+6k. Harnesses and scenarios (``harness``), in a fresh temporary directory
+   removed at the end, every server on 127.0.0.1 at port 0. (a) Three
+   ``testutil/chaosnet`` ``RpcChaosNode``s paged on the card (HARNESS_K =
+   128, the four HARNESS_HEIGHTS of seed HARNESS_SEED, a device budget of
+   HARNESS_BUDGET_HEIGHTS heights' pages, so pages demote and fault in),
+   each behind its ``RpcServer``, all three behind one ``node/gateway``
+   ``Gateway``; HARNESS_SAMPLES ``/sample`` requests through the gateway from
+   RPC_THREADS threads answer the documents of a non-paged
+   ``RpcChaosNode(device="cpu")`` of the seed, every proof verified against
+   its DAH, which equals the host ``da`` path's (numpy's Leopard, hashlib's
+   NMT) at height 1; the crowd launches ragged_gather and nothing else, at
+   most one a dispatcher batch (its ``main_path`` line). With three servers in
+   one process no device executor is registered (``ops/transfers``, as in
+   the JAX package). (b) One backend leaves the ring and stops; a node with
+   ``heights=0`` over its store directory re-indexes it, serves the
+   pre-restart heights' DAHs and NMT-verified samples while its store's page
+   reads rise, and rejoins the ring. (c) A ``scenarios`` ``ScenarioWorld`` at
+   k = 128 with ``sdc_producer`` runs its audited production
+   (``_produce_block_device``: the chunked upload at ``scenario.stage``, then
+   ``extend_roots_device`` under full audits) for HARNESS_SDC_HEIGHTS heights,
+   a ``device.extend.output`` bitflip striking the second and a sticky
+   ``transfer.chunk`` one the third: both detected and quarantined with the
+   host DAH, none missed, every committed DAH the host's; a clean block
+   launches K1 3, K2 1 and the tree 1 (its ``main_path`` line). (d) The
+   ``smoke`` scenario twice on HARNESS_SMOKE_SEED with the world on the card:
+   both verdicts pass, the fault timelines are equal and blocks were made
+   on the card. The ``harness`` lines: the ring's split of the crowd, hedges,
+   ms a sample through the gateway against direct to one backend, the pages'
+   demotions and fault-ins, the restart's re-index seconds and page reads,
+   the clean audited block's ms and launches, the smoke runs' walls and
+   blocks, and the phase's seconds.
 7. Timing, after warm-up: each kernel at its main-path shapes (K2 at
    k = 64 and 128, on Q0 and on the EDS), as its own device time per launch
    (torch.profiler's CUDA records, mean of 10 launches) and as CUDA-event
@@ -2292,6 +2323,248 @@ def rpc_phase(dev, emit, signer_key, raws: list[bytes], squares: list, crowd: li
          probe_cycles=len(cycles), probe_s=probe_s, grpc=grpc_doc,
          cli_start_s=cli_start_s, cli_pfb_height=cli_height, cli_pfb_k=cli_k,
          cli_ragged_d2h_bytes=sum(ragged_d2h), phase_seconds=time.perf_counter() - t_phase)
+
+
+HARNESS_K = 128  # full width: a 32 MiB EDS a height
+HARNESS_HEIGHTS = (1, 2, 3, 4)
+HARNESS_SEED = 7  # the chaos chain's seed
+HARNESS_BACKENDS = 3
+HARNESS_SAMPLES = 256  # the crowd through the gateway
+HARNESS_BUDGET_HEIGHTS = 2  # each paged node's device budget, in heights
+HARNESS_SDC_HEIGHTS = 4  # audited blocks: clean, output flip, chunk flip, clean
+HARNESS_SMOKE_SEED = 1337
+
+
+def host_chain_dah(k: int, height: int, seed: int):
+    """The chaos chain's DAH at ``height`` from the host ``da`` path alone:
+    numpy's Leopard extension and hashlib's NMT roots and merkle root."""
+    from celestia_tpu_torch import da
+    from celestia_tpu_torch.ops import nmt_host
+    from celestia_tpu_torch.testutil.chaosnet import chain_array
+
+    eds = da.extend_host(chain_array(k, height, seed))
+    w = 2 * k
+    rows = [nmt_host.nmt_root(da.erasured_axis_leaves(
+        [eds[i, j].tobytes() for j in range(w)], i, k)) for i in range(w)]
+    cols = [nmt_host.nmt_root(da.erasured_axis_leaves(
+        [eds[i, j].tobytes() for i in range(w)], j, k)) for j in range(w)]
+    return da.DataAvailabilityHeader(rows, cols)
+
+
+def harness_phase(dev, emit) -> None:
+    """Phase 6k: the chaos harness, the gateway and the scenario engine on
+    the card (see the module docstring). Every check raises; nothing is
+    caught."""
+    import concurrent.futures
+
+    import torch
+
+    from celestia_tpu_torch import faults, integrity, scenarios
+    from celestia_tpu_torch.appconsts import SHARE_SIZE
+    from celestia_tpu_torch.node.gateway import Gateway
+    from celestia_tpu_torch.node.rpc import RpcServer
+    from celestia_tpu_torch.ops import _cuda, transfers
+    from celestia_tpu_torch.scenarios.world import ScenarioWorld, _verify_sample
+    from celestia_tpu_torch.telemetry import Registry, metrics
+    from celestia_tpu_torch.testutil.chaosnet import RpcChaosNode, extend_chain
+
+    t_phase = time.perf_counter()
+    k, w = HARNESS_K, 2 * HARNESS_K
+    budget = HARNESS_BUDGET_HEIGHTS * w * w * SHARE_SIZE
+    home = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-harness-"))
+    servers: dict = {}
+    gw = None
+
+    def serve(node) -> str:
+        srv = RpcServer(node, port=0)
+        srv.start()
+        url = f"http://127.0.0.1:{srv.port}"
+        servers[url] = srv
+        return url
+
+    def counted(call):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3, dict(_cuda.LAUNCHES)
+
+    def verified(docs, payloads, dahs) -> bool:
+        return all(_verify_sample(dahs[h], k, i, j, doc)
+                   for (h, i, j), doc in zip(payloads, docs))
+
+    try:
+        # (a) three paged nodes on the card, each budget about two heights'
+        # pages, behind their servers and one gateway; the first keeps a store
+        # the nodes build their chains in threads: the native extend and
+        # numpy's large operations run without the interpreter lock
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(HARNESS_BACKENDS + 2) as pool:
+            ref_f = pool.submit(RpcChaosNode, heights=len(HARNESS_HEIGHTS), k=k,
+                                seed=HARNESS_SEED, device="cpu")
+            host_f = pool.submit(host_chain_dah, k, 1, HARNESS_SEED)
+            node_fs = [pool.submit(RpcChaosNode, heights=len(HARNESS_HEIGHTS), k=k,
+                                   seed=HARNESS_SEED, paged_budget_bytes=budget, device=dev,
+                                   store_dir=home / "victim" if b == 0 else None)
+                       for b in range(HARNESS_BACKENDS)]
+            ref, host_dah = ref_f.result(), host_f.result()
+            nodes = [f.result() for f in node_fs]
+        build_s = time.perf_counter() - t0
+        dahs = {h: ref.block_dah(h) for h in HARNESS_HEIGHTS}
+        check(host_dah.hash() == dahs[1].hash(),
+              "the chaos chain's DAH differs from the host da path's")
+        urls = [serve(node) for node in nodes]
+        check(transfers._device_executor() is None,
+              "three servers in one process left a device executor registered")
+        gw = Gateway(urls, timeout_s=120.0)
+        gw.start()
+        crowd = serving_crowd(HARNESS_SEED, HARNESS_HEIGHTS, w, HARNESS_SAMPLES)
+        want = ref.sample_batch_ragged(crowd)
+        check(verified(want, crowd, dahs), "the reference node's proofs do not verify")
+        for node in nodes:
+            check(all(node.block_dah(h).hash() == dahs[h].hash() for h in HARNESS_HEIGHTS),
+                  "a paged node's DAH differs from the host chain's")
+        batches0 = metrics.get_counter("dispatch_batch_total")
+        hedges0 = metrics.get_counter("gateway_hedge_total")
+        got, crowd_ms, launches = counted(lambda: http_crowd(gw.url, crowd, RPC_THREADS))
+        batches = metrics.get_counter("dispatch_batch_total") - batches0
+        emit(phase="main_path", entry="Gateway /sample", samples=len(crowd),
+             threads=RPC_THREADS, backends=HARNESS_BACKENDS, batches=batches, launches=launches)
+        check([s for s, _d in got] == [200] * len(crowd) and [d for _s, d in got] == want,
+              "a sample through the gateway differs from the non-paged node's document")
+        check(verified([d for _s, d in got], crowd, dahs),
+              "a sample through the gateway failed NMT verification")
+        check(0 < launches["ragged_gather"] <= batches
+              and sum(launches.values()) == launches["ragged_gather"],
+              f"the gateway crowd launched {launches} in {batches} dispatcher batches: "
+              "ragged_gather, at most one a batch")
+        # the ring's owner of each sample's (height, row) key
+        split = collections.Counter(
+            urls.index(gw.ring.owners(Gateway._route_key(f"/sample/{h}/{i}/{j}"), n=1)[0])
+            for h, i, j in crowd)
+        stats = [node._eds_cache.stats() for node in nodes]
+        check(all(st["page_demotes"] > 0 and st["page_faultins"] > 0 for st in stats),
+              f"a node's pages neither demoted nor faulted in under {budget} bytes: {stats}")
+        _again, gateway_ms, _l = counted(lambda: http_crowd(gw.url, crowd, RPC_THREADS))
+        direct, direct_ms, _l = counted(lambda: http_crowd(urls[1], crowd, RPC_THREADS))
+        check([d for _s, d in direct] == want, "the direct crowd's documents differ")
+        hedges = metrics.get_counter("gateway_hedge_total") - hedges0
+
+        # (b) a restart from disk: the victim leaves the ring, a node with
+        # heights=0 re-indexes its store and rejoins
+        victim = urls[0]
+        gw.remove_backend(victim)
+        servers.pop(victim).stop()
+        t1 = time.perf_counter()
+        restarted = RpcChaosNode(heights=0, k=k, seed=HARNESS_SEED, paged_budget_bytes=budget,
+                                 device=dev, store_dir=home / "victim")
+        restart_s = time.perf_counter() - t1
+        check(restarted.blocks == {} and restarted.store.heights() == list(HARNESS_HEIGHTS),
+              "the restarted node did not re-index the victim's heights")
+        reads0 = restarted.store.stats()["page_reads"]
+        r_url = serve(restarted)
+        probe = [(h, i, j) for h in HARNESS_HEIGHTS for i, j in ((0, 0), (k, w - 1), (w - 1, 3))]
+        for h in HARNESS_HEIGHTS:
+            status, body = http_get(r_url, f"/dah/{h}")
+            check(status == 200 and json.loads(body) == dahs[h].to_json(),
+                  f"the restarted node's /dah/{h} differs from the pre-restart DAH")
+        r_docs = http_crowd(r_url, probe, RPC_THREADS)
+        check(all(s == 200 for s, _d in r_docs)
+              and verified([d for _s, d in r_docs], probe, dahs),
+              "a pre-restart height failed NMT verification from the restarted node")
+        reads = restarted.store.stats()["page_reads"] - reads0
+        check(reads > 0, "the restarted node served without reading its store")
+        gw.add_backend(r_url)
+        rejoined = http_crowd(gw.url, crowd[:64], RPC_THREADS)
+        check([d for _s, d in rejoined] == want[:64],
+              "the ring with the restarted node answered other documents")
+        emit(phase="harness", part="gateway", k=k, heights=len(HARNESS_HEIGHTS),
+             backends=HARNESS_BACKENDS, samples=len(crowd), threads=RPC_THREADS,
+             paged_budget_bytes=budget, ring_split=[split[b] for b in range(len(urls))],
+             hedges=hedges, crowd_batches=batches,
+             crowd_ragged_gather=launches["ragged_gather"],
+             sample_gateway_ms=gateway_ms / len(crowd), sample_direct_ms=direct_ms / len(crowd),
+             first_crowd_ms=crowd_ms, page_demotes=[st["page_demotes"] for st in stats],
+             page_faultins=[st["page_faultins"] for st in stats], build_s=build_s,
+             device_executor=False,
+             device_executor_note="three servers in one process: no device executor "
+                                  "(transfers._device_executor is None)",
+             restart_reindex_s=restart_s, restart_page_reads=reads,
+             rejoined_samples=len(rejoined))
+    finally:
+        if gw is not None:
+            gw.stop()
+        for srv in servers.values():
+            srv.stop()
+        shutil.rmtree(home, ignore_errors=True)
+
+    # (c) the audited production at full width: the world's device path
+    # under full audits, one flip at device.extend.output, one (sticky) at
+    # transfer.chunk, with a clean block before each
+    sc = scenarios.Scenario(name="harness-sdc", description="6k", k=k, sdc_producer=True,
+                            phases=(scenarios.Phase(name="p", duration_s=1.0),))
+    world = ScenarioWorld(sc, seed=HARNESS_SEED, registry=Registry(), device=dev)
+    heights = list(range(2, 2 + HARNESS_SDC_HEIGHTS))
+    clean = {}
+    integrity.configure("full")
+    try:
+        with faults.inject(
+                faults.rule("device.extend.output", "bitflip", times=1, after=1),
+                faults.rule("transfer.chunk", "bitflip", times=2, after=4,
+                            where="scenario.stage"), seed=HARNESS_SEED) as inj:
+            for h in heights:
+                _out, ms, counts = counted(lambda h=h: world._produce_block_device(h))
+                if h == heights[0]:
+                    clean = {"ms": ms, "launches": counts}
+        timeline = list(inj.site_timeline)
+    finally:
+        integrity.configure("off")
+    refs = {h: extend_chain(k, h, HARNESS_SEED)[1] for h in heights}
+    check(all(world.node.block_dah(h).hash() == refs[h].hash() for h in heights),
+          "a committed DAH differs from the host DAH")
+    check(not world.sdc_missed and world.produced["device_blocks"] == 2,
+          f"the audited production missed a flip or lost a clean block: {world.produced}, "
+          f"missed {world.sdc_missed}")
+    check([d["height"] for d in world.sdc_detections] == heights[1:3]
+          and all(d["quarantined"] and d["host_dah"] == d["reference_dah"]
+                  for d in world.sdc_detections) and world.node.app.sdc_quarantined,
+          f"the flips were not each detected and quarantined: {world.sdc_detections}")
+    check([site for _ph, site, _kind, _n in timeline] == ["device.extend.output",
+                                                           "transfer.chunk", "transfer.chunk"],
+          f"the flips struck {timeline}")
+    lc = clean["launches"]
+    check(lc["encode2d_hash"] == 3 and lc["leaf_digests2d"] == 1 and lc["nmt_tree"] == 1,
+          f"a clean audited block launched {lc}: K1 3, K2 1, the tree 1")
+    emit(phase="main_path", entry="ScenarioWorld._produce_block_device", k=k,
+         audit="full", launches=lc)
+
+    # (d) the smoke suite twice on one seed on the card
+    runs = []
+    for _ in range(2):
+        t2 = time.perf_counter()
+        report = scenarios.run_scenario(scenarios.get("smoke"), seed=HARNESS_SMOKE_SEED,
+                                        device=dev)
+        runs.append((report, time.perf_counter() - t2))
+    (r1, s1), (r2, s2) = runs
+    check(r1["scenario_slo_pass"] and r2["scenario_slo_pass"],
+          f"the smoke scenario failed its verdict: {r1['verdict']} {r2['verdict']}")
+    check(r1["fault_timeline"] == r2["fault_timeline"] and r1["fault_timeline"],
+          "the smoke scenario's fault timelines differ between two runs of one seed")
+    check(r1["world"]["produced"]["device_blocks"] > 0
+          and r2["world"]["produced"]["device_blocks"] > 0,
+          "the smoke scenario produced no block on the card")
+    emit(phase="harness", part="audited_production", k=k, blocks=len(heights),
+         clean_block_ms=clean["ms"], clean_block_launches=lc,
+         detections=[(d["height"], d["site"]) for d in world.sdc_detections],
+         produced=world.produced)
+    emit(phase="harness", part="smoke", seed=HARNESS_SMOKE_SEED,
+         wall_s=[s1, s2], heights=[r1["world"]["heights"], r2["world"]["heights"]],
+         produced=[r1["world"]["produced"], r2["world"]["produced"]],
+         faults=len(r1["fault_timeline"]), das_ok=[r1["world"]["das"]["ok"],
+                                                   r2["world"]["das"]["ok"]],
+         breaching=r1["verdict"]["breaching_objectives"])
+    emit(phase="harness", part="phase_seconds", phase_seconds=time.perf_counter() - t_phase)
 
 
 def mesh_launches(sp: int, call: str) -> dict[str, int]:
@@ -4753,6 +5026,13 @@ def main(argv: list[str]) -> int:
     # metrics, gRPC, and the CLI's start, query and light
     rpc_phase(dev, emit, c_key, c_raws, [bench_square(sk, seed) for seed in LANE_SEEDS[:4]],
               crowd0)
+
+    phase_start("6k")
+    # ---- phase 6k: harnesses and scenarios. A paged k = 128 crowd through
+    # the gateway over three chaos nodes on the card, a restart of one from
+    # its store, the scenario world's audited production under flips, and
+    # the smoke scenario twice on one seed
+    harness_phase(dev, emit)
 
     phase_start("7")
     # ---- phase 7: timing

@@ -1217,3 +1217,65 @@ def test_cli_out_runs_the_ports_cli_in_process(tmp_path):
     assert code == 0 and out == "added http://a:1 (1 peers)\n"
     code, _out = chip_smoke.cli_out(["--home", str(tmp_path), "addrbook", "remove", "x"])
     assert code == 1
+
+
+# ---- phase 6k: harnesses and scenarios
+
+
+def test_harness_phase_catches_no_failure():
+    """Phase 6k holds no except clause (its try block only stops the
+    gateway and the servers and removes its directory; the audited
+    production's only resets the audit level): a document through the
+    gateway unlike the non-paged node's, an unverified proof, a launch
+    count, pages that never demote, a restart that reads no page, a missed
+    or unquarantined flip, or a failed smoke verdict raises. main runs it
+    after phase 6j."""
+    import ast
+    import inspect
+    import textwrap
+
+    src = inspect.getsource(chip_smoke.harness_phase)
+    tree = ast.parse(textwrap.dedent(src))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    for name in ("RpcChaosNode(", 'device="cpu"', "paged_budget_bytes=budget", "device=dev",
+                 "Gateway(urls", "http_crowd(gw.url, crowd, RPC_THREADS)", "gw.ring.owners(", "== want",
+                 "verified(", "pool.submit(host_chain_dah, k, 1, HARNESS_SEED)",
+                 'launches["ragged_gather"] <= batches', '"dispatch_batch_total"',
+                 '"gateway_hedge_total"', "transfers._device_executor() is None",
+                 '"page_demotes"', '"page_faultins"', "gw.remove_backend(victim)",
+                 "heights=0", '"page_reads"', "gw.add_backend(r_url)",
+                 "ScenarioWorld(sc", "sdc_producer=True", "_produce_block_device(h)",
+                 'integrity.configure("full")', 'integrity.configure("off")',
+                 '"device.extend.output", "bitflip"', '"transfer.chunk", "bitflip"',
+                 'where="scenario.stage"', "world.sdc_missed", '"quarantined"',
+                 'lc["encode2d_hash"] == 3', 'lc["leaf_digests2d"] == 1', 'lc["nmt_tree"] == 1',
+                 'scenarios.get("smoke")', "HARNESS_SMOKE_SEED", '"scenario_slo_pass"',
+                 'r1["fault_timeline"] == r2["fault_timeline"]', '"device_blocks"',
+                 'phase="harness"', 'entry="Gateway /sample"', "phase_seconds",
+                 "shutil.rmtree(home", "srv.stop()", "gw.stop()"):
+        assert name in src, name
+    assert src.count("check(") >= 18
+    main = inspect.getsource(chip_smoke.main)
+    assert "harness_phase(dev, emit)" in main
+    assert main.index("rpc_phase(") < main.index("harness_phase(") < main.index(
+        "# ---- phase 7")
+    assert "6k. Harnesses and scenarios" in chip_smoke.__doc__
+
+
+def test_harness_constants():
+    assert chip_smoke.HARNESS_K == chip_smoke.SERVING_K == 128
+    assert chip_smoke.HARNESS_HEIGHTS == (1, 2, 3, 4)
+    assert chip_smoke.HARNESS_BACKENDS == 3 and chip_smoke.HARNESS_SAMPLES == 256
+    assert chip_smoke.HARNESS_BUDGET_HEIGHTS == 2  # pages must demote and fault in
+    assert chip_smoke.HARNESS_BUDGET_HEIGHTS < len(chip_smoke.HARNESS_HEIGHTS)
+    assert chip_smoke.HARNESS_SDC_HEIGHTS == 4  # clean, output flip, chunk flip, clean
+    assert chip_smoke.HARNESS_SEED == 7 and chip_smoke.HARNESS_SMOKE_SEED == 1337
+
+
+def test_host_chain_dah_is_the_jax_chaos_chains_dah():
+    from celestia_tpu import da as jda
+    from celestia_tpu.testutil.chaosnet import chain_shares
+
+    for k in (1, 4):
+        want = jda.new_data_availability_header(jda.extend_shares(chain_shares(k, 2, 7)))
+        assert chip_smoke.host_chain_dah(k, 2, 7).hash() == want.hash()

@@ -55,6 +55,12 @@ MULTI_GPU = ("parallel", "parallel.multihost")
 # SLO engine and the Blobstream verify flow
 NETWORK = ("slo", "x.blobstream_client", "node.rpc", "node.client", "node.grpc_api",
            "node.prober")
+# the chaos harness, the gateway, the process fleet, txsim, the recorder and
+# the scenario engine
+HARNESSES = ("testutil.chaosnet", "txsim", "node.gateway", "node.fleet", "tools",
+             "tools.tsdb", "scenarios.spec", "scenarios.library", "scenarios.openload",
+             "scenarios.verdict", "scenarios.world", "scenarios.fleet", "scenarios.engine",
+             "scenarios", "scenarios.__main__")
 
 
 def _forbidden(module: str) -> bool:
@@ -92,7 +98,7 @@ def test_importing_every_module_loads_no_jax_and_no_celestia_tpu():
                  "inclusion.cache", "square", "ops.blob_pool", "ops.assemble",
                  "ops.assemble_cuda", "app.proposal", "log", "store", "store.powercut",
                  "cli", *STATE_MACHINE, *APP_STACK, *NODE_STACK, *DEVICE_LANE, *MULTI_GPU,
-                 *NETWORK):
+                 *NETWORK, *HARNESSES):
         assert f"celestia_tpu_torch.{name}" in doc["modules"]
     bad = [m for m in doc["loaded"] if _forbidden(m)]
     assert not bad, f"the port loaded {bad}"
@@ -182,7 +188,35 @@ ENTRIES = {
     "BlockPipeline": lambda: BlockPipeline(1),
     "CodecBackend": lambda: CodecBackend(),
     "multihost.initialize": lambda: multihost.initialize("127.0.0.1:1", 1, 0),
+    "RpcChaosNode(paged_budget_bytes=...)": lambda: _chaos_node(paged_budget_bytes=1 << 20),
+    "ScenarioWorld": lambda: _scenario_world(),
+    "run_scenario": lambda: _scenarios().run_scenario(_scenarios().get("smoke")),
+    "scenarios CLI": lambda: _scenarios_cli(["smoke"]),
 }
+
+
+def _chaos_node(**kw):
+    from celestia_tpu_torch.testutil.chaosnet import RpcChaosNode
+
+    return RpcChaosNode(heights=1, k=1, **kw)
+
+
+def _scenarios():
+    from celestia_tpu_torch import scenarios
+
+    return scenarios
+
+
+def _scenario_world():
+    from celestia_tpu_torch.scenarios.world import ScenarioWorld
+
+    return ScenarioWorld(_scenarios().get("smoke"), seed=1)
+
+
+def _scenarios_cli(argv):
+    from celestia_tpu_torch.scenarios.__main__ import main
+
+    return main(argv)
 
 
 @pytest.mark.parametrize("name", sorted(ENTRIES))
